@@ -17,10 +17,6 @@ from sam2_opt_tpu_torch.config import SAM2Config, model_config
 from sam2_opt_tpu_torch.models import sam2_base as base
 from sam2_opt_tpu_torch.models.init import init_params
 
-_REDUCED_BACKENDS = ("cuda", "xla", "jit", "tensorrt", "trt", "onnxruntime", "ort")
-_INT8_BACKENDS = ("int8", "trt_int8", "int8_trt")
-
-
 def default_device(device=None) -> torch.device:
     """The port's entry points run on the card unless the caller names
     another device; there is no silent CPU fallback."""
@@ -46,28 +42,25 @@ class SAM2Model:
         self.compute_dtype = torch.float32
         self._compute = self.module
 
-    def set_runtime_backend(self, backend: str = "eager", args: Optional[dict] = None):
-        """'eager'/'torch' = fp32; 'cuda' (and the reference's engine names,
-        accepted for call-site compatibility) = a reduced-precision copy,
-        bf16 unless args["dtype"] says otherwise. The fp32 master stays."""
-        backend = backend.lower()
-        if backend in ("torch", "eager"):
+    def set_runtime_backend(self, backend: str = "eager"):
+        """'eager' = fp32 on the master module; 'cuda' = its bf16 compute
+        copy (the only reduced precision the port runs). The fp32 master
+        stays."""
+        if backend == "eager":
             self.backend, self.compute_dtype, self._compute = "eager", torch.float32, self.module
-        elif backend in _REDUCED_BACKENDS:
-            dtype = (args or {}).get("dtype", torch.bfloat16)
-            self.backend, self.compute_dtype = "cuda", dtype
-            self._compute = (self.module if dtype == torch.float32
-                             else copy.deepcopy(self.module).to(dtype))
+        elif backend == "cuda":
+            self.backend, self.compute_dtype = "cuda", torch.bfloat16
+            self._compute = copy.deepcopy(self.module).to(torch.bfloat16)
         else:
-            raise ValueError(f"unsupported backend: {backend}")
+            raise ValueError(f"unsupported backend {backend!r}: 'eager' (fp32) or 'cuda' (bf16)")
 
-    def speedup(self, backend: str = "cuda", dtype=torch.bfloat16, **_ignored):
+    def speedup(self, backend: str = "cuda"):
         """One-line acceleration (reference sam2_image_predictor.py:94-138):
-        bf16 compute on the card."""
-        if str(backend).lower() in _INT8_BACKENDS:
+        bf16 compute on the card. "int8" is not ported yet."""
+        if backend == "int8":
             raise NotImplementedError(
                 "int8 is not ported yet; see ROADMAP.md (Queue A, int8)")
-        self.set_runtime_backend(backend, args={"dtype": dtype})
+        self.set_runtime_backend(backend)
 
     @property
     def _m(self) -> base.SAM2Base:

@@ -32,7 +32,7 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 class SAM2ImagePredictor:
     def __init__(self, sam_model: SAM2Model, mask_threshold: float = 0.0,
-                 max_hole_area: float = 0.0, max_sprinkle_area: float = 0.0, **kwargs) -> None:
+                 max_hole_area: float = 0.0, max_sprinkle_area: float = 0.0) -> None:
         check_no_hole_filling(max_hole_area, max_sprinkle_area)
         self.model = sam_model
         self.mask_threshold = mask_threshold
@@ -51,13 +51,13 @@ class SAM2ImagePredictor:
     def device(self) -> torch.device:
         return self.model.device
 
-    def speedup(self, backend: str = "cuda", dtype=torch.bfloat16, **kwargs):
-        """One-line acceleration: bf16 compute (reference names such as
-        "tensorrt" are accepted aliases). "int8" raises NotImplementedError."""
-        self.model.speedup(backend=backend, dtype=dtype, **kwargs)
+    def speedup(self, backend: str = "cuda"):
+        """One-line acceleration: bf16 compute. "int8" raises
+        NotImplementedError."""
+        self.model.speedup(backend)
 
-    def set_runtime_backend(self, backend: str = "eager", args: dict = None):
-        self.model.set_runtime_backend(backend, args)
+    def set_runtime_backend(self, backend: str = "eager"):
+        self.model.set_runtime_backend(backend)
 
     def release(self):
         self.model.set_runtime_backend("eager")

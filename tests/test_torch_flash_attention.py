@@ -90,6 +90,10 @@ def test_wrapper_runs_ref_on_cpu_and_validates():
         flash_attention(q, k, v, kv_mask=torch.ones(1, 79, dtype=torch.bool))
 
 
+FP32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=1e-2, atol=1e-3)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Sq,Skv,D,mask", CASES + [(1, 8, 1000, 1500, 96, "random+empty row"),
@@ -97,7 +101,10 @@ def test_wrapper_runs_ref_on_cpu_and_validates():
                                                        (1, 1, 65, 4100, 128, "random")])
 def test_cuda_kernel_matches_ref(B, H, Sq, Skv, D, mask, dtype):
     """fp32: the kernel runs true fp32 FMAs, rtol 1e-5 + atol 1e-5. bf16:
-    inputs rounded to bf16 for both, the output rounded to bf16, atol 2e-2."""
+    inputs rounded to bf16 for both, P rounded to bf16 against the running
+    (kernel) or final (plain) row max, the output rounded to bf16: one ulp is
+    at most 2^-7 of |out|, so rtol 1e-2 + atol 1e-3 (sound runs at the
+    hiera-L shape differ by at most 9.8e-4, where |out| is typically 0.02)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     q, k, v, kv_mask = _inputs(B, H, Sq, Skv, D, mask)
@@ -109,7 +116,7 @@ def test_cuda_kernel_matches_ref(B, H, Sq, Skv, D, mask, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     ref_out, ref_lse = flash_attention_ref(q, k, v, m)
-    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=0, atol=2e-2)
+    tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
     torch.testing.assert_close(out.float(), ref_out.float(), **tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
@@ -129,7 +136,7 @@ def test_cuda_kernel_takes_strided_qkv_views(dtype):
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     out, lse = flash_attention(q, k, v)
     ref_out, ref_lse = flash_attention_ref(q, k, v)
-    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=0, atol=2e-2)
+    tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
     torch.testing.assert_close(out.float(), ref_out.float(), **tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     if dtype == torch.bfloat16:

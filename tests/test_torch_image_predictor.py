@@ -116,4 +116,10 @@ def test_unported_options_raise(predictors, tiny128_cfg):
         SAM2ImagePredictor(port_pred.model, max_hole_area=8.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_pred.model.speedup("int8")
+    with pytest.raises(ValueError):  # bf16 on "cuda" is the one reduced precision
+        port_pred.speedup("tensorrt")
+    with pytest.raises(TypeError):
+        port_pred.speedup(dtype=torch.float16)
+    with pytest.raises(TypeError):
+        SAM2ImagePredictor(port_pred.model, model_root_path="models")
     assert port_pred.model.compute_dtype == torch.float32
