@@ -4,23 +4,40 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. device: the card's name and power limit;
-2. build: every CUDA kernel of `sam2_opt_tpu_torch/csrc/`, compiled with nvcc;
+2. build: every CUDA kernel of `sam2_opt_tpu_torch/csrc/`, compiled with nvcc
+   (one nvcc per source, all started together);
 3. K1 (flash-attention forward) against its plain PyTorch version on the
    card, in bf16 and fp32: at the hiera-L, b+ and t global-attention shapes,
    at the hiera-L shape as strided views of one qkv projection (as the
    trunk hands them over), and on a ragged masked case;
-4. the slice: `build_sam2_image_predictor("hiera_l", seed=0)` at full width
-   and depth at 1024², `set_image` on a 1500x2000 image and `predict` with a
-   point, a box and points plus a box, multimask on and off; fp32 held
+4. K2 (the RoPE-fused forward) against its plain version, bf16 and fp32: the
+   memory-attention self shape with the real [4096, 128] tables, the cross
+   shape (28,736 keys: 7 tiled frame tables + 64 identity rows) with 3 of 7
+   slots and 9 of 16 pointers masked, two objects with different masks, a
+   ragged case with one batch row fully masked; and a negative control, the
+   cross case with identity tables, which must fail the check;
+5. the image slice: `build_sam2_image_predictor("hiera_l", seed=0)` at full
+   width and depth at 1024², `set_image` on a 1500x2000 image and `predict`
+   with a point, a box and points plus a box, multimask on and off; fp32 held
    against the same weights on the CPU (plain path), then `speedup()` to bf16
    held to the fp32 masks by mIoU; K1 must launch exactly 3 times per
    `set_image`;
-5. times: set_image / predict (CUDA events, wall per call) and peak device
-   memory; a torch.profiler trace of set_image split by kernel family, with
-   the device's busy time and its idle share (1 - busy / wall; one stream,
-   so kernels do not overlap); K1 beside its plain version, the library
-   call (`F.scaled_dot_product_attention`, a yardstick the port never calls)
-   and its bound.
+6. the video slice: `build_sam2_video_predictor("hiera_l", seed=0)` on a
+   synthetic 8-frame 720x1280 video (a textured square moving over a
+   textured background), points on frame 0, `propagate_in_video` over all
+   frames in fp32 and, after `speedup()`, in bf16: K1 exactly 3 launches per
+   encoded frame, K2 none on the conditioning frame and 8 per tracked frame;
+   bf16 held to fp32 by per-frame mask mIoU; fp32 logits of the first 3
+   frames held against the same weights on the CPU; a two-object run (points
+   on one, `add_new_mask` on the other) over 3 frames, tracked as one batch
+   (8 K2 launches per frame, not 16);
+7. times: image set_image / predict and the video's per-frame propagation
+   (CUDA events, wall per call), peak device memory, torch.profiler splits of
+   set_image and of a tracked frame by kernel family with the device's busy
+   time and idle share (1 - busy / wall; one stream, so kernels do not
+   overlap); K1 and K2 beside their plain versions, the library calls
+   (`F.scaled_dot_product_attention`, after the rotation in plain torch for
+   K2: yardsticks the port never calls) and their bounds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -67,6 +84,24 @@ CPU_IOU_ATOL = 1e-3
 # bf16 vs fp32 masks: the gate of tests/test_accuracy_gate.py.
 BF16_MIOU_MIN = 0.97
 BF16_IOU_ATOL = 0.05
+# K2 at the memory-attention shapes: D = 256, one head, 7 memory frames of
+# 4096 tokens + 16 pointers of 4 tokens.
+K2_D, K2_SLOTS, K2_PTRS = 256, 7, 16
+K2_SELF = (1, 4096, 4096, K2_D)                        # (B, Sq, Skv, D)
+K2_CROSS = (1, 4096, K2_SLOTS * 4096 + 4 * K2_PTRS, K2_D)
+# K2 vs plain: K1's reasoning (the rotation itself is bit-exact: both rotate
+# in fp32 with one rounding per operation and round once to K's dtype).
+# Sound runs: bf16 at most 4.9e-4 at the memory-attention shapes, where the
+# mean |out| is 1.0e-2 (cross) and 2.1e-2 (self), 9.8e-4 on the ragged case;
+# fp32 at most 4.4e-7. The negative control (no rotation) differs by up to
+# 6.1e-2 and leaves 92% (bf16) to 99.9% (fp32) of the elements outside.
+K2_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-3)}  # (rtol, atol)
+# the video slice
+VIDEO_FRAMES = 8
+VIDEO_SQUARE = (300, 150)  # (x, y) of the moving square's corner on frame 0
+OBJ_BIAS = 10.0            # added to the object-score head's last bias
+# bf16 vs fp32 per-frame video masks: the image gate (sound runs: >= 0.9877)
+VIDEO_BF16_MIOU_MIN = 0.97
 
 
 def log(*args):
@@ -152,6 +187,232 @@ def phase_k1(flash_attention, flash_attention_ref):
                 check(not out[1].any() and bool((lse[1] == -1e30).all()),
                       "K1: fully masked rows must output 0 and lse -1e30")
     return max_err
+
+
+def k2_bound_ms(B, Sq, Skv, D, dtype, valid_keys=None):
+    """Least time for K2's work: K1's on these inputs plus reading the two
+    [Skv, D/2] tables and the [B, Skv] mask once; the rotation's 6 operations
+    per K pair are counted with the rest."""
+    valid = B * Skv if valid_keys is None else valid_keys
+    flops = 4.0 * Sq * valid * D + 3.0 * valid * D
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = (itemsize * (B * D * (2 * Sq + 2 * Skv) + Skv * D) + B * Skv + 4 * B * Sq)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def memory_mask(B, gen):
+    """[B, 28,736] validity of the fixed-capacity memory: batch row b masks
+    3 of the 7 frame slots and 9 of the 16 pointers (4 tokens each), chosen
+    from the seed, so the rows differ."""
+    rows = []
+    for _ in range(B):
+        slots = torch.ones(K2_SLOTS, dtype=torch.bool)
+        slots[torch.randperm(K2_SLOTS, generator=gen)[:3]] = False
+        ptrs = torch.ones(K2_PTRS, dtype=torch.bool)
+        ptrs[torch.randperm(K2_PTRS, generator=gen)[:9]] = False
+        rows.append(torch.cat([slots.repeat_interleave(4096), ptrs.repeat_interleave(4)]))
+    return torch.stack(rows).cuda()
+
+
+def k2_cases(dtype):
+    """(label, q, k, v, cos, sin, kv_mask) for phase 4, from the seed, with
+    the tables memory attention builds (its own cached builders)."""
+    from sam2_opt_tpu_torch.models.memory_attention import _rope_half_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cpu_gen = torch.Generator().manual_seed(SEED + 2)
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(dtype)  # noqa: E731
+    D, S = K2_D, 4096
+    c, s = _rope_half_tables(D, 64, 64, 10000.0, 1, 0, torch.device("cuda"), dtype)
+    yield ("self", randn(1, 1, S, D), randn(1, 1, S, D), randn(1, 1, S, D), c, s, None)
+    c, s = _rope_half_tables(D, 64, 64, 10000.0, K2_SLOTS, 4 * K2_PTRS, torch.device("cuda"), dtype)
+    skv = c.shape[0]
+    yield ("cross, 3/7 slots + 9/16 pointers masked", randn(1, 1, S, D), randn(1, 1, skv, D),
+           randn(1, 1, skv, D), c, s, memory_mask(1, cpu_gen))
+    yield ("cross, two objects", randn(2, 1, S, D), randn(2, 1, skv, D), randn(2, 1, skv, D),
+           c, s, memory_mask(2, cpu_gen))
+    kv_mask = torch.rand(2, 1500, device="cuda", generator=gen) > 0.3
+    kv_mask[1] = False
+    yield ("ragged, row 1 fully masked", randn(2, 1, 1000, D), randn(2, 1, 1500, D),
+           randn(2, 1, 1500, D), c[:1500].contiguous(), s[:1500].contiguous(), kv_mask)
+
+
+def k2_within(out, ref, dtype):
+    rtol, atol = K2_TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    return bool((err <= atol + rtol * ref.float().abs()).all()), err
+
+
+def phase_k2(flash_attention_rope, flash_attention_rope_ref):
+    """K2 against its plain version on the card; returns the largest error.
+    The negative control runs the cross case through the kernel with
+    identity tables (no rotation): the check must fail."""
+    max_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, q, k, v, c, s, kv_mask in k2_cases(dtype):
+            out, lse = flash_attention_rope(q, k, v, c, s, kv_mask)
+            ref, ref_lse = flash_attention_rope_ref(q, k, v, c, s, kv_mask)
+            torch.cuda.synchronize()
+            ok, err = k2_within(out, ref, dtype)
+            lse_err = (lse - ref_lse).abs()
+            ok_lse = bool((lse_err <= LSE_TOL[1] + LSE_TOL[0] * ref_lse.abs()).all())
+            max_err = max(max_err, err.max().item())
+            log(f"K2 {dtype} B={q.shape[0]} Sq={q.shape[2]} Skv={k.shape[2]} D={q.shape[3]} "
+                f"{label}: max|out-ref| {err.max().item():.3e} (rtol {K2_TOL[dtype][0]}, atol "
+                f"{K2_TOL[dtype][1]}; mean |ref| {ref.float().abs().mean().item():.3e}), "
+                f"max|lse-ref| {lse_err.max().item():.3e}")
+            check(ok and ok_lse, "K2 disagrees with its plain version")
+            if label.startswith("ragged"):
+                check(not out[1].any() and bool((lse[1] == -1e30).all()),
+                      "K2: fully masked rows must output 0 and lse -1e30")
+            if label.startswith("cross, 3/7"):
+                one, zero = torch.ones_like(c), torch.zeros_like(s)
+                unrotated, _ = flash_attention_rope(q, k, v, one, zero, kv_mask)
+                torch.cuda.synchronize()
+                bad, err = k2_within(unrotated, ref, dtype)
+                rtol, atol = K2_TOL[dtype]
+                frac = (err > atol + rtol * ref.float().abs()).float().mean().item()
+                log(f"  negative control (identity tables): max|out-ref| {err.max().item():.3e}, "
+                    f"{frac:.1%} of elements outside the tolerance")
+                check(not bad, "K2's check cannot see the rotation: identity tables passed")
+    return max_err
+
+
+def synthetic_video(seed, T=VIDEO_FRAMES, H=720, W=1280):
+    """uint8 [T, H, W, 3]: a background of 40x40 random colour blocks and a
+    240x240 square of 20x20 blocks moving 40 px right and 16 px down per
+    frame."""
+    rng = np.random.default_rng(seed)
+    bg = np.kron(rng.random((H // 40, W // 40, 3)), np.ones((40, 40, 1)))
+    square = np.kron(rng.random((12, 12, 3)) * 0.5 + 0.5, np.ones((20, 20, 1)))
+    frames = []
+    for t in range(T):
+        f = bg.copy()
+        y, x = VIDEO_SQUARE[1] + 16 * t, VIDEO_SQUARE[0] + 40 * t
+        f[y:y + 240, x:x + 240] = square
+        frames.append(f)
+    return (np.stack(frames) * 255).astype(np.uint8)
+
+
+def track(predictor, video, n_frames, points, counts=None, normalize_coords=True):
+    """init_state, points on frame 0 for object 1, propagate over `n_frames`
+    frames. Returns (state, [video-res masks per frame]); with `counts` (the
+    two wrappers), also the K1/K2 launches of each yielded frame."""
+    state = predictor.init_state(video)
+    predictor.add_new_points_or_box(state, 0, 1, points=points, labels=np.array([1], np.int32),
+                                    normalize_coords=normalize_coords)
+    masks, per_frame = [], []
+    before = [c.launches for c in counts] if counts else None
+    for frame_idx, obj_ids, video_res in predictor.propagate_in_video(
+            state, max_frame_num_to_track=n_frames - 1):
+        masks.append(video_res)
+        if counts:
+            now = [c.launches for c in counts]
+            per_frame.append(tuple(a - b for a, b in zip(now, before)))
+            before = now
+    return state, masks, per_frame
+
+
+def low_res(state, obj_idx=0):
+    """Stored low-res logits [frames, 256, 256] of one object, frame order."""
+    out = state["output_dict_per_obj"][obj_idx]
+    frames = {**out["non_cond_frame_outputs"], **out["cond_frame_outputs"]}
+    return torch.stack([frames[t]["pred_masks"][0, 0].float().cpu() for t in sorted(frames)])
+
+
+def phase_video(flash_attention, flash_attention_rope):
+    """The video slice on the card; returns (predictor, video, points,
+    launches on the main path)."""
+    from sam2_opt_tpu_torch import build_sam2_video_predictor
+    from sam2_opt_tpu_torch.models.model import build_sam2
+    from sam2_opt_tpu_torch.predictors.video import SAM2VideoPredictor
+
+    t0 = time.perf_counter()
+    predictor = build_sam2_video_predictor("hiera_l", seed=SEED)
+    # random weights score the object as absent on tracked frames (every
+    # logit NO_OBJ_SCORE); a present object keeps the network's logits
+    with torch.no_grad():
+        predictor.model.module.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += OBJ_BIAS
+    log(f"built hiera_l video predictor on {predictor.device} ({time.perf_counter() - t0:.1f} s),"
+        f" fill_hole_area={predictor.fill_hole_area}")
+    check(predictor.device.type == "cuda", "the video predictor must run on the card")
+    video = synthetic_video(SEED)
+    T, H, W, _ = video.shape
+    cx, cy = VIDEO_SQUARE[0] + 120, VIDEO_SQUARE[1] + 120
+    points = np.array([[cx, cy]], np.float32)
+    kernels = (flash_attention, flash_attention_rope)
+
+    runs, launches = {}, [0, 0]
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.bfloat16:
+            predictor.speedup()
+            check(predictor.model.compute_dtype == torch.bfloat16, "speedup() must switch to bf16")
+        # the main path: counts to 0 just before, read just after
+        flash_attention.launches = flash_attention_rope.launches = 0
+        state, masks, per_frame = track(predictor, video, T, points, counts=kernels)
+        torch.cuda.synchronize()
+        k1, k2 = flash_attention.launches, flash_attention_rope.launches
+        log(f"{dtype} propagation over {T} frames: K1 {k1} launches, K2 {k2}; per frame "
+            f"(K1, K2) after init_state's encode: {per_frame}")
+        check(len(masks) == T, "propagate_in_video must yield every frame")
+        for m in masks:
+            check(m.shape == (1, 1, H, W) and bool(torch.isfinite(m).all()),
+                  "video-res masks must be finite [1, 1, H, W]")
+        check(per_frame[0] == (0, 0), "the conditioning frame must launch nothing at propagation")
+        check(all(f == (3, 8) for f in per_frame[1:]),
+              "each tracked frame must launch K1 3 times and K2 8 times")
+        check(k1 == 3 * T and k2 == 8 * (T - 1), "K1 must launch 3 times per encoded frame")
+        launches = [launches[0] + k1, launches[1] + k2]
+        runs[dtype] = [m[0, 0] > 0 for m in masks]
+    ious = [miou(a.cpu().numpy(), b.cpu().numpy())
+            for a, b in zip(runs[torch.float32], runs[torch.bfloat16]) if bool((a | b).any())]
+    areas = [int(m.sum()) for m in runs[torch.float32]]
+    log(f"bf16 vs fp32 per-frame mask mIoU on non-empty masks: "
+        f"{[round(float(x), 4) for x in ious]} (limit > {VIDEO_BF16_MIOU_MIN}); fp32 mask "
+        f"areas {areas} of {H * W} px")
+    check(len(ious) >= T - 1, "degenerate: the fp32 masks are empty")
+    check(min(ious) > VIDEO_BF16_MIOU_MIN, "bf16 video masks drift from fp32")
+
+    # two objects, tracked together: points on one, a mask on the other
+    flash_attention.launches = flash_attention_rope.launches = 0
+    state = predictor.init_state(video[:3])
+    predictor.add_new_points_or_box(state, 0, 1, points=points, labels=np.array([1], np.int32))
+    mask2 = np.zeros((H, W), bool)
+    mask2[100:300, 900:1150] = True
+    predictor.add_new_mask(state, 0, 2, mask2)
+    per_frame, before = [], (flash_attention.launches, flash_attention_rope.launches)
+    for frame_idx, obj_ids, video_res in predictor.propagate_in_video(state):
+        check(obj_ids == [1, 2] and video_res.shape == (2, 1, H, W)
+              and bool(torch.isfinite(video_res).all()), "two-object output shape")
+        now = (flash_attention.launches, flash_attention_rope.launches)
+        per_frame.append((now[0] - before[0], now[1] - before[1]))
+        before = now
+    log(f"two objects, 3 frames, bf16: per frame (K1, K2) {per_frame}")
+    check(per_frame == [(0, 0), (3, 8), (3, 8)],
+          "two objects must be tracked as one batch: 8 K2 launches per frame")
+
+    # fp32 on the card vs the same weights on the CPU, first 3 frames; no
+    # hole filling on either side, so a logit on the threshold cannot move a
+    # whole small component (connected components are exact, tests hold them)
+    t0 = time.perf_counter()
+    predictor.set_runtime_backend("eager")
+    predictor.fill_hole_area = 0
+    card_state, _, _ = track(predictor, video, 3, points / [W, H], normalize_coords=False)
+    frames = card_state["images"][:3].permute(0, 2, 3, 1).cpu().numpy()
+    cpu_sd = {k: v.cpu() for k, v in predictor.model.module.state_dict().items()}
+    cpu_pred = SAM2VideoPredictor(build_sam2("hiera_l", state_dict=cpu_sd, device="cpu"),
+                                  fill_hole_area=0)
+    cpu_state, _, _ = track(cpu_pred, frames, 3, points / [W, H], normalize_coords=False)
+    card, cpu = low_res(card_state), low_res(cpu_state)
+    scale = max(1.0, float(cpu.abs().max()))
+    worst = float((card - cpu).abs().max()) / scale
+    log(f"fp32 card vs CPU, 3 frames ({time.perf_counter() - t0:.1f} s): max|dlogit|/scale "
+        f"{worst:.3e} (limit {CPU_LOGIT_RTOL}; scale {scale:.3f})")
+    check(worst <= CPU_LOGIT_RTOL, "fp32 video logits on the card disagree with the CPU")
+    predictor.fill_hole_area = 8
+    del cpu_pred, cpu_sd
+    return predictor, video, points, launches
 
 
 def structured_image(seed):
@@ -255,6 +516,7 @@ def phase_slice(flash_attention):
 
 # kernel-name patterns for the split of set_image's device time, first match wins
 FAMILIES = [
+    ("K2 flash_attention_rope (csrc)", r"flash_rope_"),
     ("K1 flash_attention (csrc)", r"flash_fwd_"),
     ("convolution", r"conv|fprop|dgrad|wgrad|cudnn|implicit_gemm|winograd"),
     ("matmul", r"gemm|xmma|cutlass|cublas|nvjet|sm90_|sm80_"),
@@ -262,6 +524,7 @@ FAMILIES = [
     ("layer norm", r"layer_norm|LayerNorm"),
     ("resize / pool", r"upsample|interpolat|pool|bilinear|nearest"),
     ("reduction", r"reduce"),
+    ("scan (hole filling's cummin)", r"scan|cummin|cumsum"),
     ("elementwise / copy", r"elementwise|vectorized|copy|Memcpy|memcpy|fill|index|cat|gather"),
 ]
 
@@ -332,6 +595,89 @@ def phase_times(predictor, image, flash_attention, flash_attention_ref):
     return times, k1
 
 
+def phase_video_times(predictor, video, points, flash_attention_rope,
+                      flash_attention_rope_ref):
+    """Per-frame propagation time, peak memory and the device split of the
+    tracked frames, fp32 and bf16; K2 beside its plain version, the library
+    yardstick and its bound at the self and cross shapes."""
+    from sam2_opt_tpu_torch.kernels.flash_attention import _rope_splits
+    from sam2_opt_tpu_torch.models.memory_attention import _rope_half_tables
+    from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
+
+    T = video.shape[0]
+    times = {}
+    for dtype, backend in ((torch.float32, "eager"), (torch.bfloat16, "cuda")):
+        predictor.set_runtime_backend(backend)
+        state = predictor.init_state(video)
+        predictor.add_new_points_or_box(state, 0, 1, points=points,
+                                        labels=np.array([1], np.int32))
+        list(predictor.propagate_in_video(state))  # warm-up, every memory slot filled
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        frame_ms = []
+        frames = predictor.propagate_in_video(state)
+        while True:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            if next(frames, None) is None:
+                break
+            end.record()
+            end.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tracked = frame_ms[1:]  # frame 0 is the conditioning frame
+        wall_ms = cuda_ms(lambda: list(predictor.propagate_in_video(state)), reps=2, warmup=1)
+        busy, fams, top = device_split(lambda: list(predictor.propagate_in_video(state)), reps=1)
+        per = 1.0 / (T - 1)
+        log(f"{dtype}: propagate_in_video per tracked frame {np.mean(tracked):.3f} ms (frames "
+            f"1-{T - 1}: {[round(x, 3) for x in tracked]}), whole pass {wall_ms:.3f} ms, device "
+            f"busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.1%}, peak device memory "
+            f"{peak:.2f} GiB")
+        log(json.dumps({"tracked_frame_device_split": str(dtype).replace("torch.", ""),
+                        "per_tracked_frame": {f: {"ms": v["ms"] * per,
+                                                  "launches": v["launches"] * per}
+                                              for f, v in fams.items()},
+                        "top_kernels_ms_per_pass": top}))
+        times[dtype] = dict(frame_ms=float(np.mean(tracked)), frames_ms=tracked,
+                            pass_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
+                            busy_per_frame_ms=busy * per, peak_gib=peak)
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    k2 = {}
+    for label, (B, Sq, Skv, D) in (("cross", K2_CROSS), ("self", K2_SELF)):
+        base = [torch.randn(B, 1, n, D, device="cuda", generator=gen) for n in (Sq, Skv, Skv)]
+        reps = 1 if label == "self" else K2_SLOTS
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype) for t in base)
+            c, s = _rope_half_tables(D, 64, 64, 10000.0, reps, Skv - 4096 * reps,
+                                   torch.device("cuda"), dtype)
+            # the main path's steady state: every slot and pointer valid
+            mask = torch.ones(B, Skv, dtype=torch.bool, device="cuda") if label == "cross" else None
+            attn_mask = None if mask is None else mask[:, None, None, :]
+
+            def library():
+                kr = apply_rotary_split(k.float(), c.float(), s.float()).to(dtype)
+                return F.scaled_dot_product_attention(q, kr, v, attn_mask=attn_mask)
+
+            ms = cuda_ms(lambda: flash_attention_rope(q, k, v, c, s, mask), reps=5, flush=flush)
+            plain_ms = cuda_ms(lambda: flash_attention_rope_ref(q, k, v, c, s, mask), reps=3,
+                               warmup=1, flush=flush)
+            library_ms = cuda_ms(library, reps=5, flush=flush)
+            bound_ms, bound_by = k2_bound_ms(B, Sq, Skv, D, dtype)
+            n_split = _rope_splits(0, int(dtype == torch.bfloat16), B, 1, Sq, Skv, D)
+            ctas = -(-Sq // 64) * B * n_split
+            log(f"K2 {dtype} {label} {(B, Sq, Skv, D)}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"rotation + F.scaled_dot_product_attention {library_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; {n_split} kv "
+                f"splits, {ctas} CTAs of 64 query rows on "
+                f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+            k2[(label, dtype)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by, kv_splits=n_split,
+                                      ctas=ctas)
+    return times, k2
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -343,7 +689,12 @@ def main():
     log(smi[0])
 
     from sam2_opt_tpu_torch.kernels import _build
-    from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from sam2_opt_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+        flash_attention_rope,
+        flash_attention_rope_ref,
+    )
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -352,26 +703,47 @@ def main():
         regs = [line.strip() for line in text.splitlines() if "registers" in line or "spill" in line]
         log(f"  {lib}: {len(regs) // 2} kernels; " + "; ".join(sorted(set(regs))))
 
-    max_err = phase_k1(flash_attention, flash_attention_ref)
-    predictor, image, launches = phase_slice(flash_attention)
+    k1_err = phase_k1(flash_attention, flash_attention_ref)
+    k2_err = phase_k2(flash_attention_rope, flash_attention_rope_ref)
+    predictor, image, image_launches = phase_slice(flash_attention)
     times, k1 = phase_times(predictor, image, flash_attention, flash_attention_ref)
+    del predictor
+    video_predictor, video, points, (k1_launches, k2_launches) = phase_video(
+        flash_attention, flash_attention_rope)
+    video_times, k2 = phase_video_times(video_predictor, video, points, flash_attention_rope,
+                                        flash_attention_rope_ref)
 
-    main_k1 = k1[torch.bfloat16]
-    entry = {
+    source = "sam2_opt_tpu_torch/csrc/flash_attention.cu"
+    entries = [{
         "name": "flash_attention_fwd (K1)",
         "route": "cuda",
-        "source": "sam2_opt_tpu_torch/csrc/flash_attention.cu",
+        "source": source,
         "replaces": "sam2_opt_tpu/kernels/flash_attention.py:97",
-        "launches": launches,
-        "max_abs_err": max_err,
-        **main_k1,
+        "launches": k1_launches,
+        "max_abs_err": k1_err,
+        **k1[torch.bfloat16],
         "shape": list(MAIN_SHAPE),
         "dtype": "bfloat16",
         "fp32": k1[torch.float32],
-    }
+        "image_launches": image_launches,
+    }, {
+        "name": "flash_attention_rope_fwd (K2)",
+        "route": "cuda",
+        "source": source,
+        "replaces": "sam2_opt_tpu/kernels/flash_attention.py:121",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        **k2[("cross", torch.bfloat16)],
+        "shape": list(K2_CROSS),
+        "dtype": "bfloat16",
+        "fp32": k2[("cross", torch.float32)],
+        "self": {"shape": list(K2_SELF), "bfloat16": k2[("self", torch.bfloat16)],
+                 "fp32": k2[("self", torch.float32)]},
+    }]
     log(json.dumps({"slice": {str(dt).replace("torch.", ""): t for dt, t in times.items()},
+                    "video": {str(dt).replace("torch.", ""): t for dt, t in video_times.items()},
                     "card": smi[0]}))
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -1,20 +1,26 @@
-"""Masked flash-attention forward (K1): CUDA kernel wrapper and plain version.
+"""Masked flash-attention forwards: CUDA kernel wrappers and plain versions.
 
-`flash_attention` is the port of `sam2_opt_tpu/kernels/flash_attention.py::_kernel`
-(the Pallas TPU kernel). On a CUDA tensor it launches the hand-written kernel
-in `csrc/flash_attention.cu` or raises; on a CPU tensor it runs
-`flash_attention_ref`, the unfused form of the same math. There is no
-fallback from one to the other.
+- K1, `flash_attention`: the port of
+  `sam2_opt_tpu/kernels/flash_attention.py::_kernel`;
+- K2, `flash_attention_rope`: the port of `::_kernel_rope`, K1 with K
+  rotated inside the kernel (split-layout axial RoPE).
+
+On a CUDA tensor each wrapper launches its hand-written kernel in
+`csrc/flash_attention.cu` or raises; on a CPU tensor it runs its plain
+version (`flash_attention_ref`, `flash_attention_rope_ref`), the unfused form
+of the same math. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from functools import lru_cache
 
 import torch
 
 from sam2_opt_tpu_torch.kernels import _build
+from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
 
 NEG_INF = -1e30
 
@@ -67,14 +73,70 @@ def _check(q, k, v, kv_mask):
             raise ValueError("kv_mask must be on q's device")
 
 
-def _library():
-    lib = _build.load("flash_attention")
-    fn = lib.sam2_flash_attention_fwd
+def _library(symbol="sam2_flash_attention_fwd", n_ptrs=0, n_ints=0):
+    """The C entry point: q, k, v, mask, `n_ptrs` more pointers, out, lse,
+    dtype, B, H, Sq, Skv, D, `n_ints` more ints, 13 strides, scale, stream."""
+    fn = getattr(_build.load("flash_attention"), symbol)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i] + [ll] * 13 + [ctypes.c_float, p]
+        fn.argtypes = ([p] * (6 + n_ptrs) + [i] * (6 + n_ints) + [ll] * 13
+                       + [ctypes.c_float, p])
         fn.restype = ctypes.c_int
     return fn
+
+
+@lru_cache(maxsize=64)
+def _rope_splits(device_index: int, dtype: int, B: int, H: int, Sq: int, Skv: int, D: int) -> int:
+    """K2's kv split for a shape on a device, as the kernel's library chooses
+    it (from its CTAs' occupancy); asked once per shape."""
+    fn = _build.load("flash_attention").sam2_flash_attention_rope_splits
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device_index):
+        n_split = fn(dtype, B, H, Sq, Skv, D)
+    if n_split < 1:
+        raise ValueError(f"flash_attention_rope: no kv split for D = {D}")
+    return n_split
+
+
+def _check_cuda(q, k, v, kv_mask, head_dims, what):
+    B, H, Sq, D = q.shape
+    if D not in head_dims:
+        raise ValueError(f"{what}: head dim {D} unsupported on the card ({head_dims})")
+    if B * H > 65535:
+        raise ValueError(f"B*H = {B * H} exceeds the grid limit 65535")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride along the head dim")
+        # the bf16 kernels copy rows in 16-byte chunks
+        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(st % 8 for st in strides)):
+            raise ValueError(f"bf16 {name} rows must be 16-byte aligned (strides multiples of 8)")
+    if kv_mask is not None and kv_mask.stride(-1) != 1:
+        raise ValueError("kv_mask must have unit stride along the key axis")
+
+
+def _launch(fn, q, k, v, kv_mask, extra_ptrs, extra_ints, what):
+    """Allocate out/lse, launch on the current stream, raise on a refused
+    launch. `out` is a [B,H,Sq,D] view of a [B,Sq,H,D] buffer, so the
+    caller's merge of heads back into channels costs no copy."""
+    B, H, Sq, D = q.shape
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if kv_mask is None else kv_mask.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in extra_ptrs),
+                 out.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], B, H, Sq, k.shape[2], D,
+                 *extra_ints,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                 0 if kv_mask is None else kv_mask.stride(0),
+                 1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+    return out, lse
 
 
 def flash_attention(q, k, v, kv_mask=None):
@@ -92,36 +154,58 @@ def flash_attention(q, k, v, kv_mask=None):
         return flash_attention_ref(q, k, v, kv_mask)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    B, H, Sq, D = q.shape
-    Skv = k.shape[2]
-    if D % 8 or not 8 <= D <= 128:
-        raise ValueError(f"head dim {D} unsupported: must be a multiple of 8 in [8, 128]")
-    if B * H > 65535:
-        raise ValueError(f"B*H = {B * H} exceeds the grid limit 65535")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} must have unit stride along the head dim")
-        # the bf16 kernel copies rows in 16-byte chunks
-        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(st % 8 for st in strides)):
-            raise ValueError(f"bf16 {name} rows must be 16-byte aligned (strides multiples of 8)")
-    if kv_mask is not None and kv_mask.stride(-1) != 1:
-        raise ValueError("kv_mask must have unit stride along the key axis")
-    fn = _library()
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if kv_mask is None else kv_mask.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], B, H, Sq, Skv, D,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 0 if kv_mask is None else kv_mask.stride(0),
-                 1.0 / math.sqrt(D), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    _check_cuda(q, k, v, kv_mask, range(8, 129, 8), "flash_attention")
+    out, lse = _launch(_library(), q, k, v, kv_mask, (), (), "flash_attention")
     flash_attention.launches += 1
     return out, lse
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_rope_ref(q, k, v, cos_k, sin_k, kv_mask=None):
+    """Plain K2: K rotated in fp32 from its inputs (split layout, `cos_k`/
+    `sin_k` [Skv, D/2]; rows with cos = 1, sin = 0 stay unrotated), rounded
+    once to K's dtype, then `flash_attention_ref`. q arrives rotated.
+    Returns (out, lse) as `flash_attention_ref`."""
+    kr = apply_rotary_split(k.float(), cos_k.float(), sin_k.float()).to(k.dtype)
+    return flash_attention_ref(q, kr, v, kv_mask)
+
+
+def flash_attention_rope(q, k, v, cos_k, sin_k, kv_mask=None):
+    """K2: q/k/v [B,H,S,D] (q already rotated, k not), cos_k/sin_k [Skv, D/2]
+    in q's dtype, kv_mask [B,Skv] bool or None. Returns (out [B,H,Sq,D], lse
+    [B,H,Sq] fp32), as `flash_attention_rope_ref`.
+
+    CUDA tensors launch the kernel, which rotates each K tile as it arrives
+    (fp32 or bf16, D in 64/128/256, contiguous tables); `out` is laid out as
+    K1's. Where one CTA per 64 query rows would leave SMs idle, the kernel
+    splits the kv axis and a second kernel on the same stream merges the
+    splits through their LSEs (fp32 scratch allocated here)."""
+    _check(q, k, v, kv_mask)
+    D, Skv = q.shape[-1], k.shape[2]
+    for name, t in (("cos_k", cos_k), ("sin_k", sin_k)):
+        if tuple(t.shape) != (Skv, D // 2) or D % 2:
+            raise ValueError(f"{name} must be [{Skv}, {D // 2}], got {tuple(t.shape)}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must have q's dtype and device")
+    if q.device.type == "cpu":
+        return flash_attention_rope_ref(q, k, v, cos_k, sin_k, kv_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_cuda(q, k, v, kv_mask, (64, 128, 256), "flash_attention_rope")
+    if not (cos_k.is_contiguous() and sin_k.is_contiguous()):
+        raise ValueError("cos_k and sin_k must be contiguous")
+    B, H, Sq, D = q.shape
+    n_split = _rope_splits(q.device.index, _DTYPES[q.dtype], B, H, Sq, Skv, D)
+    part_o = part_lse = None
+    if n_split > 1:
+        part_o = torch.empty((n_split, B * H, Sq, D), dtype=torch.float32, device=q.device)
+        part_lse = torch.empty((n_split, B * H, Sq), dtype=torch.float32, device=q.device)
+    out, lse = _launch(_library("sam2_flash_attention_rope_fwd", 4, 1), q, k, v, kv_mask,
+                       (cos_k, sin_k, part_o, part_lse), (n_split,), "flash_attention_rope")
+    flash_attention_rope.launches += 1
+    return out, lse
+
+
+flash_attention_rope.launches = 0

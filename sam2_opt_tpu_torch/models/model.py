@@ -3,7 +3,8 @@
 Counterpart of `sam2_opt_tpu/models/model.py`. It owns the fp32 master
 `SAM2Base` and, after `speedup()`, a bf16 compute copy; the seams
 `encode_image`, `encode_image_e2e` and `predict_masks` run on whichever is
-active. PyTorch runs eagerly, so no seam compiles anything.
+active, and the video predictor runs `models/video_core.py` on it (`_m`).
+PyTorch runs eagerly, so no seam compiles anything.
 """
 
 from __future__ import annotations

@@ -25,14 +25,6 @@ class PositionEmbeddingRandom(nn.Module):
                              torch.zeros(2, num_pos_feats))
 
 
-class _Gelu(nn.Module):
-    """Activation slot of the reference nn.Sequential (erf in fp32, tanh in
-    bf16, as `ops.gelu`)."""
-
-    def forward(self, x):
-        return ops.gelu(x)
-
-
 class PromptEncoder(nn.Module):
     def __init__(self, cfg: SAM2Config):
         super().__init__()
@@ -42,8 +34,8 @@ class PromptEncoder(nn.Module):
         self.point_embeddings = nn.ModuleList(nn.Embedding(1, C) for _ in range(4))
         self.not_a_point_embed = nn.Embedding(1, C)
         self.mask_downscaling = nn.Sequential(
-            nn.Conv2d(1, mc // 4, 2, 2), ops.LayerNorm2d(mc // 4), _Gelu(),
-            nn.Conv2d(mc // 4, mc, 2, 2), ops.LayerNorm2d(mc), _Gelu(),
+            nn.Conv2d(1, mc // 4, 2, 2), ops.LayerNorm2d(mc // 4), ops.GELU(),
+            nn.Conv2d(mc // 4, mc, 2, 2), ops.LayerNorm2d(mc), ops.GELU(),
             nn.Conv2d(mc, C, 1),
         )
         self.no_mask_embed = nn.Embedding(1, C)

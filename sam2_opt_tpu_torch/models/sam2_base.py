@@ -1,18 +1,23 @@
 """SAM2 core module: the parameter tree of the reference model, image
-encoding and the image-path helpers.
+encoding, SAM heads and the memory encode / condition steps.
 
-Counterpart of `sam2_opt_tpu/models/sam2_base.py` (`resize_hw`,
-`forward_image`, `image_normalize`). `SAM2Base` holds every parameter of the
-reference `sd["model"]` under its reference name, so a reference checkpoint
-or the JAX package's parameters (through `io/weights.py`) load with
-`load_state_dict(strict=True)`. The memory attention and memory encoder are
-parameter containers here: the video slice gives them their forward.
+Counterpart of `sam2_opt_tpu/models/sam2_base.py`. `SAM2Base` holds every
+parameter of the reference `sd["model"]` under its reference name, so a
+reference checkpoint or the JAX package's parameters (through
+`io/weights.py`) load with `load_state_dict(strict=True)`. The functions
+take the module and, where the video predictor overrides it, the config:
+
+    forward_image         (reference sam2_base_official.py:548-582)
+    forward_sam_heads     (reference :338-494)
+    use_mask_as_output    (reference :496-546)
+    encode_new_memory     (reference :978-1026)
+    condition_features    (reference :797-976 step 2 + memory attention)
+
+Feature maps are NCHW; masks are [B, M, H, W].
 """
 
 from __future__ import annotations
 
-import math
-from collections import OrderedDict
 from typing import Tuple
 
 import torch
@@ -21,68 +26,17 @@ from torch import nn
 from sam2_opt_tpu_torch.config import SAM2Config
 from sam2_opt_tpu_torch.models.hiera import ImageEncoder
 from sam2_opt_tpu_torch.models.mask_decoder import MaskDecoder
+from sam2_opt_tpu_torch.models.memory_attention import MemoryAttention
+from sam2_opt_tpu_torch.models.memory_encoder import MemoryEncoder
 from sam2_opt_tpu_torch.models.prompt_encoder import PromptEncoder
 from sam2_opt_tpu_torch.ops import common as ops
 
+# A large negative placeholder score for missing objects
+# (reference sam2_base_official.py:21).
+NO_OBJ_SCORE = -1024.0
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-
-
-class MemoryAttentionLayer(nn.Module):
-    def __init__(self, d: int, ff: int, kv_in_dim: int):
-        super().__init__()
-        self.self_attn = ops.Attention(d, 1)
-        self.cross_attn_image = ops.Attention(d, 1, kv_in_dim=kv_in_dim)
-        self.linear1 = nn.Linear(d, ff)
-        self.linear2 = nn.Linear(ff, d)
-        self.norm1, self.norm2, self.norm3 = (ops.LayerNorm(d) for _ in range(3))
-
-
-class MemoryAttention(nn.Module):
-    """Parameters of the reference memory attention (memory_attention.py)."""
-
-    def __init__(self, cfg: SAM2Config):
-        super().__init__()
-        mac = cfg.memory_attention
-        self.layers = nn.ModuleList(
-            MemoryAttentionLayer(mac.d_model, mac.dim_feedforward, mac.kv_in_dim)
-            for _ in range(mac.num_layers))
-        self.norm = ops.LayerNorm(mac.d_model)
-
-
-class CXBlock(nn.Module):
-    def __init__(self, dim: int, kernel_size: int, padding: int):
-        super().__init__()
-        self.dwconv = nn.Conv2d(dim, dim, kernel_size, padding=padding, groups=dim)
-        self.norm = ops.LayerNorm2d(dim)
-        self.pwconv1 = nn.Linear(dim, 4 * dim)
-        self.pwconv2 = nn.Linear(4 * dim, dim)
-        self.gamma = nn.Parameter(torch.ones(dim))
-
-
-class MemoryEncoder(nn.Module):
-    """Parameters of the reference memory encoder (memory_encoder.py)."""
-
-    def __init__(self, cfg: SAM2Config):
-        super().__init__()
-        mec = cfg.memory_encoder
-        layers, c_in = [], 1
-        num_ds = int(math.log2(mec.mask_total_stride) // math.log2(mec.mask_downsampler_stride))
-        for _ in range(num_ds):
-            c_out = c_in * mec.mask_downsampler_stride ** 2
-            layers += [nn.Conv2d(c_in, c_out, mec.mask_downsampler_kernel,
-                                 mec.mask_downsampler_stride, mec.mask_downsampler_padding),
-                       ops.LayerNorm2d(c_out), nn.Identity()]
-            c_in = c_out
-        layers.append(nn.Conv2d(c_in, mec.in_dim, 1))
-        self.mask_downsampler = nn.Module()
-        self.mask_downsampler.encoder = nn.Sequential(*layers)
-        self.pix_feat_proj = nn.Conv2d(mec.in_dim, mec.in_dim, 1)
-        self.fuser = nn.Module()
-        self.fuser.layers = nn.ModuleList(
-            CXBlock(mec.in_dim, mec.cx_kernel_size, mec.cx_padding)
-            for _ in range(mec.fuser_num_layers))
-        self.out_proj = nn.Conv2d(mec.in_dim, mec.out_dim, 1)
 
 
 class SAM2Base(nn.Module):
@@ -141,3 +95,137 @@ def image_normalize(img, mean=IMAGENET_MEAN, std=IMAGENET_STD):
     mean = torch.tensor(mean, dtype=img.dtype, device=img.device)[:, None, None]
     std = torch.tensor(std, dtype=img.dtype, device=img.device)[:, None, None]
     return (img - mean) / std
+
+
+def forward_sam_heads(m: SAM2Base, cfg: SAM2Config, backbone_features, point_coords,
+                      point_labels, mask_inputs=None, high_res_features=None,
+                      multimask_output: bool = False):
+    """Prompt encoder + mask decoder (reference :338-494). backbone_features
+    [B,C,h,w]; point_coords [B,P,2] model-frame pixels; point_labels [B,P]
+    (1 pos, 0 neg, 2/3 box, -1 pad); mask_inputs [B,1,4h,4w] prompt logits or
+    None. Returns the reference 7-tuple (low_res_multimasks,
+    high_res_multimasks, ious, low_res_masks, high_res_masks, obj_ptr,
+    object_score_logits), masks fp32."""
+    dtype = backbone_features.dtype
+    coords = point_coords.float()
+    if mask_inputs is not None:
+        mask_inputs = mask_inputs.to(dtype)
+    sparse, dense = m.sam_prompt_encoder(coords, point_labels, mask_inputs)
+    s = cfg.image_embedding_size
+    image_pe = m.sam_prompt_encoder.get_dense_pe((s, s)).to(dtype)
+    low_res_multimasks, ious, sam_output_tokens, object_score_logits = m.sam_mask_decoder(
+        backbone_features, image_pe, sparse.to(dtype), dense.to(dtype),
+        multimask_output=multimask_output, high_res_features=high_res_features)
+    if cfg.pred_obj_scores:
+        is_obj_appearing = object_score_logits > 0  # [B, 1]
+        low_res_multimasks = torch.where(is_obj_appearing[:, :, None, None], low_res_multimasks,
+                                         NO_OBJ_SCORE)
+    low_res_multimasks = low_res_multimasks.float()
+    size = (cfg.image_size, cfg.image_size)
+    high_res_multimasks = resize_hw(low_res_multimasks, size, "bilinear")
+
+    sam_output_token = sam_output_tokens[:, 0]
+    if multimask_output:
+        best = ious.argmax(-1)
+        rows = torch.arange(best.shape[0], device=best.device)
+        low_res_masks = low_res_multimasks[rows, best][:, None]
+        high_res_masks = high_res_multimasks[rows, best][:, None]
+        if sam_output_tokens.shape[1] > 1:
+            sam_output_token = sam_output_tokens[rows, best]
+    else:
+        low_res_masks, high_res_masks = low_res_multimasks, high_res_multimasks
+
+    # MLP for SAM 2.1, Linear without use_mlp, Identity without pointers
+    obj_ptr = m.obj_ptr_proj(sam_output_token)
+    if cfg.pred_obj_scores:
+        lambda_is_obj = (torch.sigmoid(object_score_logits) if cfg.soft_no_obj_ptr
+                         else (object_score_logits > 0).to(obj_ptr.dtype))
+        if cfg.fixed_no_obj_ptr:
+            obj_ptr = lambda_is_obj * obj_ptr
+        obj_ptr = obj_ptr + (1.0 - lambda_is_obj) * m.no_obj_ptr[0]
+    return (low_res_multimasks, high_res_multimasks, ious, low_res_masks, high_res_masks,
+            obj_ptr, object_score_logits)
+
+
+def use_mask_as_output(m: SAM2Base, cfg: SAM2Config, backbone_features, high_res_features,
+                       mask_inputs):
+    """Mask passthrough (reference :496-546): +-10 logits from the binary
+    input mask [B,1,H,W]; obj_ptr still comes from the SAM heads, prompted
+    with the mask through the learned stride-4 `mask_downsample` conv."""
+    out_scale, out_bias = 20.0, -10.0
+    mask_float = mask_inputs.float()
+    high_res_masks = mask_float * out_scale + out_bias
+    low_res_masks = resize_hw(high_res_masks, (high_res_masks.shape[-2] // 4,
+                                               high_res_masks.shape[-1] // 4),
+                              "bilinear", antialias=True)
+    B = mask_inputs.shape[0]
+    ious = mask_float.new_ones(B, 1)
+    if not cfg.use_obj_ptrs_in_encoder:
+        obj_ptr = mask_float.new_zeros(B, cfg.hidden_dim)
+    else:
+        dtype = backbone_features.dtype
+        sam_mask_prompt = m.mask_downsample(mask_float.to(dtype))
+        coords = mask_float.new_zeros(B, 1, 2)
+        labels = -torch.ones(B, 1, dtype=torch.int32, device=mask_float.device)
+        obj_ptr = forward_sam_heads(m, cfg, backbone_features, coords, labels,
+                                    mask_inputs=sam_mask_prompt,
+                                    high_res_features=high_res_features)[5]
+    lambda_is_obj = (mask_float.reshape(B, -1) > 0).any(1, keepdim=True).float()
+    object_score_logits = out_scale * lambda_is_obj + out_bias
+    if cfg.pred_obj_scores:
+        if cfg.fixed_no_obj_ptr:
+            obj_ptr = lambda_is_obj * obj_ptr
+        obj_ptr = obj_ptr + (1.0 - lambda_is_obj) * m.no_obj_ptr[0]
+    return (low_res_masks, high_res_masks, ious, low_res_masks, high_res_masks, obj_ptr,
+            object_score_logits)
+
+
+def encode_new_memory(m: SAM2Base, cfg: SAM2Config, pix_feat, pred_masks_high_res,
+                      object_score_logits, is_mask_from_pts: bool = False):
+    """Encode a prediction into a memory slot (reference :978-1026).
+    pix_feat [B,C,h,w] raw frame features, pred_masks_high_res [B,1,S,S]
+    logits, object_score_logits [B,1]. Returns (maskmem_features
+    [B,mem_dim,h,w], maskmem_pos [1,mem_dim,h,w])."""
+    dtype = pix_feat.dtype
+    if cfg.binarize_mask_from_pts_for_mem_enc and is_mask_from_pts:
+        mask_for_mem = (pred_masks_high_res > 0).to(dtype)
+    else:
+        mask_for_mem = torch.sigmoid(pred_masks_high_res).to(dtype)
+    if cfg.sigmoid_scale_for_mem_enc != 1.0:
+        mask_for_mem = mask_for_mem * cfg.sigmoid_scale_for_mem_enc
+    if cfg.sigmoid_bias_for_mem_enc != 0.0:
+        mask_for_mem = mask_for_mem + cfg.sigmoid_bias_for_mem_enc
+    feats, pos = m.memory_encoder(pix_feat, mask_for_mem)
+    if cfg.no_obj_embed_spatial:
+        is_obj_appearing = (object_score_logits > 0).to(feats.dtype)  # [B, 1]
+        feats = feats + ((1.0 - is_obj_appearing)[:, :, None, None]
+                         * m.no_obj_embed_spatial[0][None, :, None, None])
+    return feats, pos
+
+
+def condition_features(m: SAM2Base, curr_feat, curr_pos, memory, memory_pos, kv_mask,
+                       num_frame_tokens: int):
+    """Cross-attend the current features [B,C,h,w] (positions curr_pos
+    [B, hw, C]) to the memory bank tokens [B,S,mem_dim] (reference
+    :963-976). Returns conditioned [B,C,h,w]."""
+    B, C, H, W = curr_feat.shape
+    out = m.memory_attention(curr_feat.flatten(2).transpose(1, 2), memory, curr_pos, memory_pos,
+                             kv_mask=kv_mask, num_frame_tokens=num_frame_tokens)
+    return out.transpose(1, 2).reshape(B, C, H, W)
+
+
+def no_mem_features(m: SAM2Base, curr_feat):
+    """Initial-frame path: add the learned no-memory embedding (reference
+    :953-957) to [B,C,h,w] features."""
+    return curr_feat + m.no_mem_embed[0, 0].to(curr_feat.dtype)[:, None, None]
+
+
+def apply_non_overlapping_constraints(pred_masks):
+    """Keep only the argmax object per pixel (reference :1191-1207);
+    pred_masks [N_obj, 1, H, W]."""
+    if pred_masks.shape[0] == 1:
+        return pred_masks
+    max_obj_inds = pred_masks.argmax(0, keepdim=True)
+    batch_obj_inds = torch.arange(pred_masks.shape[0], device=pred_masks.device)[:, None, None, None]
+    keep = max_obj_inds == batch_obj_inds
+    return torch.where(keep, pred_masks, pred_masks.clamp(max=-10.0))

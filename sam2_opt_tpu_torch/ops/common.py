@@ -147,6 +147,14 @@ def recombine_heads(x):
     return x.transpose(1, 2).reshape(B, N, H * Ch)
 
 
+class GELU(nn.Module):
+    """`gelu` as a module, for the activation slots of the reference's
+    nn.Sequential stacks."""
+
+    def forward(self, x):
+        return gelu(x)
+
+
 class LayerNorm(nn.LayerNorm):
     """nn.LayerNorm whose forward is `layer_norm` (bf16 one-pass variance)."""
 

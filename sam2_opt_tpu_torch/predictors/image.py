@@ -15,9 +15,8 @@ import numpy as np
 import torch
 
 from sam2_opt_tpu_torch.config import SAM2Config
-from sam2_opt_tpu_torch.models import sam2_base as base
 from sam2_opt_tpu_torch.models.model import SAM2Model
-from sam2_opt_tpu_torch.utils.transforms import check_no_hole_filling, resize_to_model
+from sam2_opt_tpu_torch.utils.transforms import postprocess_masks, resize_to_model
 
 
 def _squeeze0(a: np.ndarray) -> np.ndarray:
@@ -33,7 +32,6 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 class SAM2ImagePredictor:
     def __init__(self, sam_model: SAM2Model, mask_threshold: float = 0.0,
                  max_hole_area: float = 0.0, max_sprinkle_area: float = 0.0) -> None:
-        check_no_hole_filling(max_hole_area, max_sprinkle_area)
         self.model = sam_model
         self.mask_threshold = mask_threshold
         self.max_hole_area = max_hole_area
@@ -194,10 +192,10 @@ class SAM2ImagePredictor:
         return masks, ious, low_res_masks
 
     def postprocess_masks(self, masks, orig_hw):
-        """Resize to the original resolution (reference utils/transforms.py:78-120).
-        Hole and sprinkle filling is not ported: it raises rather than skips."""
-        check_no_hole_filling(self.max_hole_area, self.max_sprinkle_area)
-        return base.resize_hw(masks.float(), tuple(orig_hw), "bilinear")
+        """Hole and sprinkle filling, then resize to the original resolution
+        (reference utils/transforms.py:78-120)."""
+        return postprocess_masks(masks, orig_hw, self.mask_threshold, self.max_hole_area,
+                                 self.max_sprinkle_area)
 
     def get_image_embedding(self):
         if not self._is_image_set:

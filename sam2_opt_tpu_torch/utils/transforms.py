@@ -14,6 +14,7 @@ import torch
 
 from sam2_opt_tpu_torch.models.sam2_base import image_normalize, resize_hw
 from sam2_opt_tpu_torch.ops import common as ops
+from sam2_opt_tpu_torch.ops.connected_components import fill_holes_and_sprinkles
 
 
 def resize_to_model(x, resolution: int):
@@ -25,17 +26,19 @@ def resize_to_model(x, resolution: int):
     return ops.interpolate(x, (resolution, resolution), "bilinear", antialias=True)
 
 
-def check_no_hole_filling(max_hole_area: float, max_sprinkle_area: float):
+def postprocess_masks(masks, orig_hw, mask_threshold: float, max_hole_area: float,
+                      max_sprinkle_area: float):
+    """Hole and sprinkle filling, then a bilinear resize to the original
+    resolution (reference transforms.py:78-120). masks [B, M, h, w] logits."""
+    masks = torch.as_tensor(masks).float()
     if max_hole_area > 0 or max_sprinkle_area > 0:
-        raise NotImplementedError(
-            "hole and sprinkle filling (connected components) is not ported yet; "
-            "use max_hole_area=0 and max_sprinkle_area=0 (see ROADMAP.md)")
+        masks = fill_holes_and_sprinkles(masks, mask_threshold, max_hole_area, max_sprinkle_area)
+    return resize_hw(masks, tuple(orig_hw), "bilinear")
 
 
 class SAM2Transforms:
     def __init__(self, resolution: int, mask_threshold: float, max_hole_area: float = 0.0,
                  max_sprinkle_area: float = 0.0, device="cpu"):
-        check_no_hole_filling(max_hole_area, max_sprinkle_area)
         self.resolution = resolution
         self.mask_threshold = mask_threshold
         self.max_hole_area = max_hole_area
@@ -67,6 +70,6 @@ class SAM2Transforms:
                                      orig_hw)
 
     def postprocess_masks(self, masks, orig_hw):
-        """Bilinear resize to the original resolution (reference :78-120)."""
-        check_no_hole_filling(self.max_hole_area, self.max_sprinkle_area)
-        return resize_hw(torch.as_tensor(masks).float(), tuple(orig_hw), "bilinear")
+        """Hole and sprinkle filling, then resize (reference :78-120)."""
+        return postprocess_masks(masks, orig_hw, self.mask_threshold, self.max_hole_area,
+                                 self.max_sprinkle_area)

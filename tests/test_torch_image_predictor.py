@@ -20,6 +20,7 @@ from sam2_opt_tpu.utils.transforms import SAM2Transforms as JaxTransforms
 from sam2_opt_tpu_torch.io.weights import state_dict_from_params
 from sam2_opt_tpu_torch.models.model import build_sam2
 from sam2_opt_tpu_torch.predictors.image import SAM2ImagePredictor
+from sam2_opt_tpu_torch.predictors.video import SAM2VideoPredictor
 from sam2_opt_tpu_torch.utils.transforms import SAM2Transforms
 
 torch.set_num_threads(2)
@@ -68,6 +69,29 @@ def test_predict_matches_jax(predictors, prompt, multimask):
     assert agree.all(), f"{(~agree).sum()} mask pixels differ away from the threshold"
 
 
+@pytest.mark.parametrize("prompt", ["point", "box"])
+def test_predict_with_hole_filling_matches_jax(predictors, prompt):
+    """max_hole_area=8 and max_sprinkle_area=8 on both predictors: the masks
+    are postprocessed from the low-res logits (held at 1e-3 above) with exact
+    connected components, so they agree except within 1e-3 of the threshold."""
+    jax_pred, port_pred = predictors
+    for pred in predictors:
+        pred.max_hole_area = pred.max_sprinkle_area = 8.0
+    try:
+        logits, _, _ = jax_pred.predict(**PROMPTS[prompt], return_logits=True)
+        filled, _, _ = port_pred.predict(**PROMPTS[prompt], return_logits=True)
+        masks, _, _ = port_pred.predict(**PROMPTS[prompt])
+    finally:
+        for pred in predictors:
+            pred.max_hole_area = pred.max_sprinkle_area = 0.0
+    plain, _, _ = port_pred.predict(**PROMPTS[prompt], return_logits=True)
+    logits = np.asarray(logits)
+    np.testing.assert_allclose(filled, logits, rtol=0, atol=1e-3)
+    assert (filled != plain).any(), "nothing was filled"
+    agree = (masks == (logits > 0.0)) | (np.abs(logits) < 1e-3)
+    assert agree.all(), f"{(~agree).sum()} mask pixels differ away from the threshold"
+
+
 def test_bf16_speedup_mask_miou(tiny128_cfg, tiny128_params):
     sd = state_dict_from_params(jax.tree_util.tree_map(np.asarray, tiny128_params))
     predictor = SAM2ImagePredictor(build_sam2(cfg=tiny128_cfg, state_dict=sd, device="cpu"))
@@ -87,7 +111,8 @@ def test_bf16_speedup_mask_miou(tiny128_cfg, tiny128_params):
 def test_transforms_match_jax():
     """SAM2Transforms (the reference's helper API) against the JAX package's:
     image to normalized model input, prompt coordinates and boxes, mask
-    postprocessing; 1e-5, single resize ops summed in different orders.
+    postprocessing, without and with hole and sprinkle filling; 1e-5, single
+    resize ops summed in different orders.
     The port's images are CHW, the JAX package's HWC."""
     rng = np.random.default_rng(7)
     image = (rng.random((100, 150, 3)) * 255).astype(np.uint8)
@@ -106,16 +131,19 @@ def test_transforms_match_jax():
     np.testing.assert_allclose(port_t.postprocess_masks(masks, (100, 150)).numpy(),
                                np.asarray(jax_t.postprocess_masks(masks, (100, 150))),
                                rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        SAM2Transforms(128, 0.0, max_hole_area=4.0)
+    # hole and sprinkle filling before the resize: exact components
+    jax_t, port_t = JaxTransforms(128, 0.0, 8.0, 8.0), SAM2Transforms(128, 0.0, 8.0, 8.0)
+    np.testing.assert_allclose(port_t.postprocess_masks(masks, (100, 150)).numpy(),
+                               np.asarray(jax_t.postprocess_masks(masks, (100, 150))),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_unported_options_raise(predictors, tiny128_cfg):
     _, port_pred = predictors
-    with pytest.raises(NotImplementedError):
-        SAM2ImagePredictor(port_pred.model, max_hole_area=8.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_pred.model.speedup("int8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SAM2VideoPredictor(port_pred.model).init_state(_image()[None], async_loading_frames=True)
     with pytest.raises(ValueError):  # bf16 on "cuda" is the one reduced precision
         port_pred.speedup("tensorrt")
     with pytest.raises(TypeError):

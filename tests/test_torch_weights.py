@@ -53,7 +53,8 @@ def test_bridge_keys_and_shapes_match_state_dict(variant):
 
 def test_bridge_loads_strictly_with_values(tiny128_cfg, tiny128_params):
     """Values land transposed where they must: a linear, a conv, a
-    conv-transpose, a positional embedding and an embedding."""
+    conv-transpose, a positional embedding, an embedding, the memory
+    encoder's depthwise conv and the temporal slot embedding."""
     sd = weights.state_dict_from_params(jax.tree_util.tree_map(np.asarray, tiny128_params))
     module = SAM2Base(model_config("hiera_t", image_size=128))
     module.load_state_dict(sd, strict=True)
@@ -73,6 +74,14 @@ def test_bridge_loads_strictly_with_values(tiny128_cfg, tiny128_params):
     np.testing.assert_array_equal(
         module.sam_mask_decoder.mask_tokens.weight.detach().numpy(),
         np.asarray(p["sam_mask_decoder"]["mask_tokens"]["weight"]))
+    # the two memory tensors off the plain rules: the depthwise conv (HWIO
+    # [7,7,1,256] -> [256,1,7,7]) and the temporal slot embedding (unchanged)
+    np.testing.assert_array_equal(
+        module.memory_encoder.fuser.layers[0].dwconv.weight.detach().numpy(),
+        np.asarray(p["memory_encoder"]["fuser"]["layers"][0]["dwconv"]["weight"])
+        .transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(module.maskmem_tpos_enc.detach().numpy(),
+                                  np.asarray(p["maskmem_tpos_enc"]))
 
 
 def _imported_modules(path: Path):
