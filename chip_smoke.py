@@ -37,7 +37,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    time and idle share (1 - busy / wall; one stream, so kernels do not
    overlap); K1 and K2 beside their plain versions, the library calls
    (`F.scaled_dot_product_attention`, after the rotation in plain torch for
-   K2: yardsticks the port never calls) and their bounds.
+   K2: yardsticks the port never calls) and their bounds;
+8. K3 (the flash-attention backward: K3a dK/dV, K3b dQ) against its plain
+   version at the three training shapes (hiera-b+ global blocks as one
+   8-frame batch, memory-attention cross and self attention), bf16 and
+   fp32, with masked slots and an all-masked batch row, the global-block
+   case also as strided views of one [8, 4096, 3, 8, 56] projection; a
+   negative control (lse shifted by +1) that must fail; times beside the
+   bound, the plain version and the SDPA backward;
+9. training, fp32 on the card against the CPU with the same weights:
+   hiera-b+ at 1024², 2 frames, one object, mask prompt, through
+   `video_train_loss` and backward: the loss and every gradient agree, and
+   memory attention's q/k projections get a nonzero gradient;
+10. training through `Trainer.run` (the slice's main path): hiera-b+ at
+   1024², one 8-frame video of two objects per batch, remat "encoder", 3
+   steps in fp32 and 3 in bf16, with exact K1/K2/K3 launch counts per step;
+   finite losses, fp32 masters that moved, bf16 within 10% of fp32 on the
+   first step; ms per step, peak memory and the device split and idle share
+   of one profiled step; and, where Pillow is installed, the CLI on a small
+   PNG folder.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -46,6 +64,7 @@ line is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -514,8 +533,9 @@ def phase_slice(flash_attention):
     return predictor, image, launches
 
 
-# kernel-name patterns for the split of set_image's device time, first match wins
+# kernel-name patterns for the split of device time, first match wins
 FAMILIES = [
+    ("K3 flash_attention_bwd (csrc)", r"bwd_dkdv_kernel|bwd_dq_kernel"),
     ("K2 flash_attention_rope (csrc)", r"flash_rope_"),
     ("K1 flash_attention (csrc)", r"flash_fwd_"),
     ("convolution", r"conv|fprop|dgrad|wgrad|cudnn|implicit_gemm|winograd"),
@@ -678,6 +698,395 @@ def phase_video_times(predictor, video, points, flash_attention_rope,
     return times, k2
 
 
+# --------------------------------------------------------------------------- #
+# slice 3: training
+# --------------------------------------------------------------------------- #
+
+# K3 at the training shapes, (B, H, Sq, Skv, D): hiera-b+'s global blocks with
+# the 8 frames of a rollout encoded as one batch (B*H = 64), and memory
+# attention at two objects: cross (7 slots x 4096 + 8 pointers x 4 tokens)
+# and self.
+K3_B_SHAPE = (8, 8, 4096, 4096, 56)
+K3_CROSS = (2, 1, 4096, K2_SLOTS * 4096 + 4 * 8, 256)
+K3_SELF = (2, 1, 4096, 4096, 256)
+# fp32: kernel and plain version sum the same fp32 products in other orders
+K3_FP32_REL = 1e-4
+TRAIN_FRAMES, TRAIN_OBJECTS, TRAIN_STEPS = 8, 2, 3
+# fp32 on the card vs the CPU, hiera-b+ at 1024², 2 frames (see phase 9)
+TRAIN_CPU_LOSS_RTOL = 1e-4
+TRAIN_CPU_GRAD_TOL = 1e-3    # of each gradient's own max |g| ...
+TRAIN_CPU_GRAD_FLOOR = 1e-7  # ... plus this much of the model's largest gradient
+TRAIN_BF16_LOSS_RTOL = 0.1
+
+
+def k3_bound_ms(B, H, Sq, Skv, D, dtype, part, valid_keys=None):
+    """Least time for K3a ("dkdv": S, dP, dV, dK: 4 products) or K3b ("dq":
+    S, dP, dQ: 3 products) on these inputs, 2 operations per multiply-add,
+    each input (q, k, v, dO in the dtype, lse and delta fp32) read once and
+    each fp32 gradient written once. Masked keys need no work."""
+    valid = B * Skv if valid_keys is None else valid_keys
+    products = 4 if part == "dkdv" else 3
+    flops = 2.0 * products * H * Sq * valid * D
+    itemsize = torch.finfo(dtype).bits // 8
+    out_rows = 2 * Skv if part == "dkdv" else Sq
+    nbytes = (itemsize * B * H * D * (2 * Sq + 2 * Skv) + 8 * B * H * Sq + B * Skv
+              + 4 * B * H * D * out_rows)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k3_within(got, ref, bounds):
+    """(all within, the largest |error| over the three gradients, the
+    fraction of elements outside). fp32 (bounds None): K3_FP32_REL of each
+    gradient's max |g|; bf16: the per-element rounding bounds of
+    `flash_attention_bwd_bf16_bound`."""
+    ok, worst, outside, total = True, 0.0, 0, 0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        err = (a - b).abs()
+        lim = K3_FP32_REL * b.abs().max() if bounds is None else bounds[i] + 1e-6 * b.abs().max()
+        bad = err > lim
+        ok = ok and not bool(bad.any())
+        outside += int(bad.sum())
+        total += bad.numel()
+        worst = max(worst, err.max().item())
+    return ok, worst, outside / total
+
+
+def k3_cases(dtype):
+    """(label, q, k, v, do, kv_mask) for phase 8, from the seed."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cpu_gen = torch.Generator().manual_seed(SEED + 4)
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(dtype)  # noqa: E731
+    B, H, S, _, D = K3_B_SHAPE
+    yield ("b+ global blocks", randn(B, H, S, D), randn(B, H, S, D), randn(B, H, S, D),
+           randn(B, H, S, D), None)
+    q, k, v = (t.transpose(1, 2) for t in randn(B, S, 3, H, D).unbind(2))
+    check(q.stride() == (S * 3 * H * D, D, 3 * H * D, 1), "qkv views must stay strided")
+    mask = torch.rand(B, S, device="cuda", generator=gen) > 0.2
+    mask[B - 1] = False
+    yield ("b+ qkv views, masked keys, frame 7 fully masked", q, k, v, randn(B, H, S, D), mask)
+    B, H, Sq, Skv, D = K3_CROSS
+    full = memory_mask(1, cpu_gen)  # 16 pointers; keep the last 8
+    mask = torch.cat([torch.cat([full[:, :K2_SLOTS * 4096], full[:, -32:]], 1),
+                      torch.zeros(1, Skv, dtype=torch.bool, device="cuda")])
+    yield ("cross, 3/7 slots + pointers masked, object 1 fully masked", randn(B, H, Sq, D),
+           randn(B, H, Skv, D), randn(B, H, Skv, D), randn(B, H, Sq, D), mask)
+    B, H, Sq, Skv, D = K3_SELF
+    yield ("self", randn(B, H, Sq, D), randn(B, H, Skv, D), randn(B, H, Skv, D),
+           randn(B, H, Sq, D), None)
+
+
+def phase_k3():
+    """K3a and K3b against their plain versions on the card; returns the
+    largest error per kernel. The negative control runs the cross case with
+    lse + 1: the check must fail."""
+    from sam2_opt_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_bf16_bound,
+        flash_attention_bwd_delta,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dkdv_ref,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_dq_ref,
+        flash_attention_ref,
+    )
+
+    max_err = {"dkdv": 0.0, "dq": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, q, k, v, do, mask in k3_cases(dtype):
+            out, lse = flash_attention_ref(q, k, v, mask)
+            delta = flash_attention_bwd_delta(out, do)
+            del out
+            dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, mask)
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, mask)
+            torch.cuda.synchronize()
+            ref = (flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, mask),
+                   *flash_attention_bwd_dkdv_ref(q, k, v, do, lse, delta, mask))
+            bounds = None if dtype == torch.float32 else flash_attention_bwd_bf16_bound(
+                q, k, v, do, lse, delta, mask)
+            ok, worst, _ = k3_within((dq, dk, dv), ref, bounds)
+            errs = [(a - b).abs().max().item() for a, b in zip((dq, dk, dv), ref)]
+            max_err["dq"] = max(max_err["dq"], errs[0])
+            max_err["dkdv"] = max(max_err["dkdv"], errs[1], errs[2])
+            scales = [b.abs().max().item() for b in ref]
+            log(f"K3 {dtype} {tuple(q.shape)} Skv={k.shape[2]} {label}: max|err| dq/dk/dv "
+                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (max|g| {scales[0]:.3e}/"
+                f"{scales[1]:.3e}/{scales[2]:.3e}; "
+                + ("fp32: limit 1e-4 of max|g|)" if bounds is None else
+                   "bf16: per-element rounding bound)"))
+            check(ok, "K3 disagrees with its plain version")
+            if mask is not None:
+                dead = ~mask.any(1)
+                check(bool(dead.any()) and not dq[dead].any() and not dk[dead].any()
+                      and not dv[dead].any(), "K3: a fully masked row must get zero gradients")
+            if label.startswith("cross"):
+                bad_lse = lse + 1.0
+                dk2, dv2 = flash_attention_bwd_dkdv(q, k, v, do, bad_lse, delta, mask)
+                dq2 = flash_attention_bwd_dq(q, k, v, do, bad_lse, delta, mask)
+                torch.cuda.synchronize()
+                bad, worst2, frac = k3_within((dq2, dk2, dv2), ref, bounds)
+                log(f"  negative control (lse + 1): max|err| {worst2:.3e}, {frac:.1%} of "
+                    f"elements outside")
+                check(not bad, "K3's check cannot see a wrong lse")
+            del q, k, v, do, lse, delta, dq, dk, dv, ref, bounds
+            torch.cuda.empty_cache()
+    return max_err
+
+
+def phase_k3_times():
+    """K3a and K3b beside their plain versions, the SDPA backward and their
+    bounds, at the three training shapes, every key valid (the steady state;
+    the early frames' masked slots are skipped work), cold L2."""
+    from sam2_opt_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_delta,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dkdv_ref,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_dq_ref,
+        flash_attention_ref,
+    )
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    k3 = {}
+    for label, (B, H, Sq, Skv, D) in (("b+ global", K3_B_SHAPE), ("cross", K3_CROSS),
+                                      ("self", K3_SELF)):
+        base = [torch.randn(B, H, n, D, device="cuda", generator=gen) for n in (Sq, Skv, Skv, Sq)]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (t.to(dtype) for t in base)
+            mask = torch.ones(B, Skv, dtype=torch.bool, device="cuda") if label == "cross" else None
+            out, lse = flash_attention_ref(q, k, v, mask)
+            delta = flash_attention_bwd_delta(out, do)
+            row = {}
+            for part, kernel, plain in (("dkdv", flash_attention_bwd_dkdv,
+                                         flash_attention_bwd_dkdv_ref),
+                                        ("dq", flash_attention_bwd_dq, flash_attention_bwd_dq_ref)):
+                ms = cuda_ms(lambda: kernel(q, k, v, do, lse, delta, mask), reps=3, warmup=1,
+                             flush=flush)
+                plain_ms = cuda_ms(lambda: plain(q, k, v, do, lse, delta, mask), reps=2,
+                                   warmup=1, flush=flush)
+                bound_ms, bound_by = k3_bound_ms(B, H, Sq, Skv, D, dtype, part)
+                row[part] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            # the library yardstick: autograd of SDPA with the same bool mask,
+            # backward only (dQ, dK and dV together)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            attn_mask = None if mask is None else mask[:, None, None, :]
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                                             retain_graph=True),
+                                 reps=3, warmup=1, flush=flush)
+            both = row["dkdv"]["ms"] + row["dq"]["ms"]
+            fused_bound = 1e3 * 10.0 * B * H * Sq * Skv * D / PEAK_FLOPS[dtype]
+            log(f"K3 {dtype} {label} {(B * H, Sq, Skv, D)}: K3a {row['dkdv']['ms']:.4f} ms "
+                f"(plain {row['dkdv']['plain_ms']:.4f}, bound {row['dkdv']['bound_ms']:.4f}), K3b "
+                f"{row['dq']['ms']:.4f} ms (plain {row['dq']['plain_ms']:.4f}, bound "
+                f"{row['dq']['bound_ms']:.4f}); together {both:.4f} ms = "
+                f"{fused_bound / both:.1%} of the 10-product bound {fused_bound:.4f} ms; SDPA "
+                f"backward {library_ms:.4f} ms")
+            for part in row:
+                row[part]["library_ms"] = library_ms
+            k3[(label, dtype)] = dict(row, both_ms=both, fused_bound_ms=fused_bound)
+            del q, k, v, do, out, lse, delta, qg, kg, vg, lib_out
+            torch.cuda.empty_cache()
+    return k3
+
+
+def training_video(T=TRAIN_FRAMES, S=1024, seed=SEED):
+    """One collated batch: images uint8 [1, T, S, S, 3], masks bool
+    [1, T, 2, S, S], obj_valid [1, 2]: a background of 16 x 16 random colour
+    blocks and two textured squares (about S/5 and S/6) moving in opposite
+    directions."""
+    rng = np.random.default_rng(seed)
+    block = S // 16
+    frames = np.repeat(np.kron(rng.random((16, 16, 3)), np.ones((block, block, 1)))[None], T, 0)
+    masks = np.zeros((1, T, TRAIN_OBJECTS, S, S), bool)
+    for j, (size, y, x, dx) in enumerate(((S // 5, S // 5, S // 6, S // 40),
+                                          (S // 6, 3 * S // 5, 2 * S // 3, -(S // 50)))):
+        tex = np.kron(rng.random((8, 8, 3)) * 0.5 + 0.25 * (1 - j), np.ones((size // 8,) * 2 + (1,)))
+        n = tex.shape[0]
+        for t in range(T):
+            x0 = x + dx * t
+            frames[t, y:y + n, x0:x0 + n] = tex
+            masks[0, t, j, y:y + n, x0:x0 + n] = True
+    return {"images": (frames[None] * 255).astype(np.uint8), "masks": masks,
+            "obj_valid": np.ones((1, TRAIN_OBJECTS), bool)}
+
+
+def b_plus(device, state_dict=None):
+    """hiera-b+ at 1024², random weights from the seed (or `state_dict`),
+    the object-score head's last bias raised by OBJ_BIAS so the tracked
+    objects score present and the mask losses carry gradient."""
+    from sam2_opt_tpu_torch.models.model import build_sam2
+
+    m = build_sam2("hiera_b+", seed=SEED, state_dict=state_dict, device=device).module
+    if state_dict is None:
+        with torch.no_grad():
+            m.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += OBJ_BIAS
+    return m
+
+
+def phase_train_vs_cpu():
+    """fp32 loss and gradients on the card against the CPU, same weights."""
+    from sam2_opt_tpu_torch.config import model_config
+    from sam2_opt_tpu_torch.training.sam2_train import video_train_loss
+
+    t0 = time.perf_counter()
+    cfg = model_config("hiera_b+")
+    batch = training_video(T=2)
+    results = {}
+    card = b_plus("cuda")
+    cpu = b_plus("cpu", {k: v.cpu() for k, v in card.state_dict().items()})
+    for name, m in (("card", card), ("cpu", cpu)):
+        dev = next(m.parameters()).device
+        images = torch.as_tensor(batch["images"][0], device=dev).float() / 255.0
+        masks = torch.as_tensor(batch["masks"][0, :, :1], device=dev)
+        loss, aux = video_train_loss(m, cfg, images, masks, torch.Generator(device=dev),
+                                     use_mask_input=True, num_correction_clicks=0,
+                                     use_remat=False)
+        loss.backward()
+        results[name] = (loss.item(), {n: p.grad.float().cpu() for n, p in m.named_parameters()
+                                       if p.grad is not None})
+    (l_card, g_card), (l_cpu, g_cpu) = results["card"], results["cpu"]
+    check(sorted(g_card) == sorted(g_cpu), "the card and the CPU differentiate other parameters")
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_name, bad = 0.0, "", []
+    for n, want in g_cpu.items():
+        err = (g_card[n] - want).abs().max().item()
+        scale = want.abs().max().item()
+        if err > TRAIN_CPU_GRAD_TOL * scale + TRAIN_CPU_GRAD_FLOOR * gmax:
+            bad.append((n, err, scale))
+        if scale >= 1e-6 * gmax and err / scale > worst:
+            worst, worst_name = err / scale, n
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    qk = [g_card[f"memory_attention.layers.{i}.{a}.{p}_proj.weight"].abs().max().item()
+          for i in range(4) for a in ("self_attn", "cross_attn_image") for p in ("q", "k")]
+    log(f"training fp32 card vs CPU, hiera-b+ 1024², 2 frames ({time.perf_counter() - t0:.1f} s):"
+        f" loss {l_card:.6f} vs {l_cpu:.6f} (rel {rel:.2e}, limit {TRAIN_CPU_LOSS_RTOL}); "
+        f"{len(g_cpu)} gradients, worst |err|/max|g| {worst:.2e} ({worst_name}; limit "
+        f"{TRAIN_CPU_GRAD_TOL} + {TRAIN_CPU_GRAD_FLOOR} of the largest, {gmax:.3e}); "
+        f"outside: {bad[:3]}; memory-attention q/k grad max|g| min {min(qk):.3e}")
+    check(rel <= TRAIN_CPU_LOSS_RTOL, "the training loss on the card disagrees with the CPU")
+    check(not bad, "training gradients on the card disagree with the CPU")
+    check(min(qk) > 0, "memory attention's q/k projections get no gradient")
+    del card, cpu, results
+    torch.cuda.empty_cache()
+    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel, worst_grad_rel=worst)
+
+
+def launches_per_step(T=TRAIN_FRAMES):
+    """Kernel launches of one trainer step, point prompt on frame 0 and one
+    correction click, remat "encoder": K1 runs in the 3 global blocks of the
+    8-frame encoder batch, once forward and once in the backward's recompute;
+    K2 in 4 layers x (self + cross) of each of the T - 1 tracked frames
+    (both objects as one batch); K3a and K3b once per K1 or K2 launch of the
+    forward."""
+    k1, k2 = 2 * 3, 8 * (T - 1)
+    return {"K1": k1, "K2": k2, "K3a": 3 + k2, "K3b": 3 + k2}
+
+
+def phase_trainer(counters):
+    """The main path: Trainer.run at hiera-b+ 1024², fp32 then bf16."""
+    import tempfile
+
+    from sam2_opt_tpu_torch.config import model_config
+    from sam2_opt_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = model_config("hiera_b+")
+    batch = training_video()
+    expect = launches_per_step()
+    runs, launches = {}, {k: 0 for k in counters}
+    tmp = tempfile.mkdtemp(prefix="sam2_chip_smoke_train_")
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        tcfg = TrainConfig(num_epochs=1, num_frames=TRAIN_FRAMES, max_num_objects=TRAIN_OBJECTS,
+                           prob_to_use_pt_input=1.0, prob_to_use_box_input=0.0,
+                           remat="encoder", compute_dtype=dtype, seed=SEED,
+                           checkpoint_dir=f"{tmp}/{dtype}/ckpt", log_dir=f"{tmp}/{dtype}/logs")
+        trainer = Trainer(cfg, b_plus("cuda"), tcfg)
+        before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts to 0 just before, read just after
+        for c in counters.values():
+            c.launches = 0
+        trainer.run(lambda epoch: iter([batch] * TRAIN_STEPS), steps_per_epoch=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(got == {k: TRAIN_STEPS * v for k, v in expect.items()},
+              f"{dtype} training launched {got}, expected {TRAIN_STEPS} x {expect}")
+        for k in launches:
+            launches[k] += got[k]
+        losses = trainer.step_losses
+        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), "training losses")
+        moved = [n for n, p in trainer.model.named_parameters() if not torch.equal(p, before[n])]
+        check(all(p.dtype == torch.float32 for p in trainer.model.parameters()) and moved,
+              "the fp32 master weights must stay fp32 and move")
+        step_ms = [1e3 * s for s in trainer.step_seconds]
+        median_ms = float(np.median(step_ms[1:]))
+        # one more step, profiled (its launches are not the main path's)
+        step_fn = next(iter(trainer._step_fns.values()))
+        images, masks, obj_valid = trainer._place_batch(batch, TRAIN_OBJECTS)
+
+        def one_step():
+            trainer.opt_state, metrics = step_fn(trainer.model, trainer.opt_state, images, masks,
+                                                 obj_valid, trainer._gen, 1e-6)
+            return float(metrics["loss"])
+
+        busy, fams, top = device_split(one_step, reps=1)
+        log(f"training {dtype}: Trainer.run, {TRAIN_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s; losses {[round(x, 4) for x in losses]}; ms per "
+            f"step {[round(x, 1) for x in step_ms]} (median after the first {median_ms:.1f}); "
+            f"peak device memory {peak:.2f} GiB; launches {got}; profiled step device busy "
+            f"{busy:.1f} ms, idle share {1 - busy / median_ms:.1%}; {len(moved)} of "
+            f"{len(before)} parameters moved")
+        log(json.dumps({"training_step_device_split": dtype, "families": fams,
+                        "top_kernels_ms": top}))
+        runs[dtype] = dict(losses=losses, step_ms=step_ms, median_step_ms=median_ms,
+                           peak_gib=peak, busy_ms=busy, idle_share=1 - busy / median_ms,
+                           launches=got)
+        del trainer, before
+        torch.cuda.empty_cache()
+    l32, l16 = runs["float32"]["losses"][0], runs["bfloat16"]["losses"][0]
+    log(f"bf16 vs fp32 first-step loss: {l16:.4f} vs {l32:.4f} (rel "
+        f"{abs(l16 - l32) / abs(l32):.3f}, limit {TRAIN_BF16_LOSS_RTOL})")
+    check(abs(l16 - l32) <= TRAIN_BF16_LOSS_RTOL * abs(l32), "bf16 training drifts from fp32")
+    return runs, launches
+
+
+def phase_train_cli():
+    """The CLI on a small PNG folder where Pillow is installed (hiera_t at
+    256 px, 2 frames, 1 step: the folder reader and loader on the card)."""
+    import importlib.util
+    import tempfile
+
+    if importlib.util.find_spec("PIL") is None:
+        log("Pillow is not installed here: the CLI's PNG reader is not run")
+        return None
+    from PIL import Image
+
+    from sam2_opt_tpu_torch.training.train import main as train_main
+
+    root = tempfile.mkdtemp(prefix="sam2_chip_smoke_cli_")
+    batch = training_video(T=2, S=256)
+    for t in range(2):
+        for sub, arr in (("JPEGImages", batch["images"][0, t]),
+                         ("Annotations", batch["masks"][0, t, 0].astype(np.uint8))):
+            d = f"{root}/{sub}/video0"
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(arr).save(f"{d}/{t:05d}.png")
+    t0 = time.perf_counter()
+    trainer = train_main(["--img_folder", f"{root}/JPEGImages", "--gt_folder",
+                          f"{root}/Annotations", "--variant", "hiera_t", "--image-size", "256",
+                          "--num-epochs", "1", "--num-frames", "2", "--max-objects", "1",
+                          "--checkpoint-dir", f"{root}/ckpt", "--log-dir", f"{root}/logs"])
+    check(trainer.device.type == "cuda" and trainer.steps == 1
+          and np.isfinite(trainer.step_losses).all(), "the training CLI on the card")
+    log(f"training CLI (hiera_t, 256 px, PNG folder): 1 step, loss {trainer.step_losses[0]:.4f}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return trainer.step_losses[0]
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -691,6 +1100,8 @@ def main():
     from sam2_opt_tpu_torch.kernels import _build
     from sam2_opt_tpu_torch.kernels.flash_attention import (
         flash_attention,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq,
         flash_attention_ref,
         flash_attention_rope,
         flash_attention_rope_ref,
@@ -705,6 +1116,8 @@ def main():
 
     k1_err = phase_k1(flash_attention, flash_attention_ref)
     k2_err = phase_k2(flash_attention_rope, flash_attention_rope_ref)
+    k3_err = phase_k3()
+    k3 = phase_k3_times()
     predictor, image, image_launches = phase_slice(flash_attention)
     times, k1 = phase_times(predictor, image, flash_attention, flash_attention_ref)
     del predictor
@@ -712,6 +1125,14 @@ def main():
         flash_attention, flash_attention_rope)
     video_times, k2 = phase_video_times(video_predictor, video, points, flash_attention_rope,
                                         flash_attention_rope_ref)
+    del video_predictor
+    torch.cuda.empty_cache()
+
+    train_cpu = phase_train_vs_cpu()
+    counters = {"K1": flash_attention, "K2": flash_attention_rope,
+                "K3a": flash_attention_bwd_dkdv, "K3b": flash_attention_bwd_dq}
+    train_runs, train_launches = phase_trainer(counters)
+    cli_loss = phase_train_cli()
 
     source = "sam2_opt_tpu_torch/csrc/flash_attention.cu"
     entries = [{
@@ -740,9 +1161,34 @@ def main():
         "self": {"shape": list(K2_SELF), "bfloat16": k2[("self", torch.bfloat16)],
                  "fp32": k2[("self", torch.float32)]},
     }]
+    entries[0]["training_launches"] = train_launches["K1"]
+    entries[1]["training_launches"] = train_launches["K2"]
+    source = "sam2_opt_tpu_torch/csrc/flash_attention_bwd.cu"
+    for key, part, kernel, line in (("K3a", "dkdv", "flash_attention_bwd_dkdv (K3a)", 379),
+                                    ("K3b", "dq", "flash_attention_bwd_dq (K3b)", 420)):
+        main_row = k3[("cross", torch.bfloat16)][part]
+        entries.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": source,
+            "replaces": f"sam2_opt_tpu/kernels/flash_attention.py:{line}",
+            "launches": train_launches[key],
+            "max_abs_err": k3_err[part],
+            **main_row,
+            "shape": list(K3_CROSS),
+            "dtype": "bfloat16",
+            "library": "F.scaled_dot_product_attention backward (dQ, dK, dV together)",
+            "fp32": k3[("cross", torch.float32)][part],
+            "b+ global": {"shape": list(K3_B_SHAPE),
+                          "bfloat16": k3[("b+ global", torch.bfloat16)][part],
+                          "fp32": k3[("b+ global", torch.float32)][part]},
+            "self": {"shape": list(K3_SELF), "bfloat16": k3[("self", torch.bfloat16)][part],
+                     "fp32": k3[("self", torch.float32)][part]},
+        })
     log(json.dumps({"slice": {str(dt).replace("torch.", ""): t for dt, t in times.items()},
                     "video": {str(dt).replace("torch.", ""): t for dt, t in video_times.items()},
-                    "card": smi[0]}))
+                    "training": train_runs, "training_vs_cpu": train_cpu,
+                    "training_cli_loss": cli_loss, "card": smi[0]}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

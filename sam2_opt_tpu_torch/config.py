@@ -31,9 +31,8 @@ class HieraConfig:
     patch_padding: Tuple[int, int] = (3, 3)
     mlp_ratio: float = 4.0
     drop_path_rate: float = 0.0
-    # Training-memory knob (rematerialize each trunk block under autodiff).
-    # Kept for field-for-field equality with the JAX config; the port has no
-    # training path yet, so it has no effect here.
+    # Training-memory knob: under autograd each trunk block runs in
+    # torch.utils.checkpoint, so the backward recomputes one block at a time.
     remat_blocks: bool = False
 
     @property

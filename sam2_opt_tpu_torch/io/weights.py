@@ -60,7 +60,9 @@ def to_torch_layout(key: str, value: np.ndarray) -> np.ndarray:
 
 def state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's params tree -> a state_dict that loads strictly into
-    `SAM2Base`, fp32."""
+    `SAM2Base`, fp32. Any tree shaped like the params maps the same way:
+    JAX gradients and optax's Adam moments (`mu`, `nu`) come out under the
+    port's names and layouts, as the training tests compare them."""
     return {k: torch.from_numpy(np.array(to_torch_layout(k, v), np.float32))
             for k, v in flatten_params(params).items()}
 

@@ -14,6 +14,7 @@ from typing import List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sam2_opt_tpu_torch.config import FpnNeckConfig, HieraConfig
 from sam2_opt_tpu_torch.ops import common as ops
@@ -148,6 +149,7 @@ class Hiera(nn.Module):
                             s["q_pool"], cfg.q_stride, cfg.mlp_ratio)
             for s in cfg.block_plan())
         self.stage_ends = set(cfg.stage_ends)
+        self.remat_blocks = cfg.remat_blocks  # the trainer sets it per step
 
     def forward(self, x) -> List[torch.Tensor]:
         x = self.patch_embed(x).permute(0, 2, 3, 1)
@@ -155,7 +157,12 @@ class Hiera(nn.Module):
                                 x.shape[1], x.shape[2]).to(x.dtype)
         outputs = []
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            # remat_blocks: the backward recomputes one block at a time
+            # (the JAX package's per-block jax.checkpoint, hiera.py:429,460)
+            if self.remat_blocks and torch.is_grad_enabled():
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
             if i in self.stage_ends:
                 outputs.append(x.permute(0, 3, 1, 2))
         return outputs

@@ -11,9 +11,12 @@ with a boolean validity mask. Spatial keys get the axial RoPE table tiled per
 frame; pointer keys get identity rows (cos = 1, sin = 0), which is the
 reference's `num_k_exclude_rope`.
 
-The q/k projections run with `split_perm` applied to their output channels
-(cached per parameter storage), so the rotation works on two contiguous
-halves; the tables are built once per shape, device and dtype. On a CUDA
+The q/k projections run with `split_perm` applied to their output channels,
+so the rotation works on two contiguous halves: under autograd the
+permutation is taken inside the graph on every call (the JAX `_perm_proj`),
+so gradients reach the q/k projections; without grad the permuted weights
+are cached per parameter storage. The tables are built once per shape,
+device and dtype. On a CUDA
 tensor with q * kv >= 1024² and q of one frame's tokens, attention goes to
 K2 (`flash_attention_rope`), which rotates K inside the kernel; otherwise it
 runs K2's plain version, as the JAX package takes its unfused path on the
@@ -48,10 +51,13 @@ def _rope_half_tables(dim: int, end_x: int, end_y: int, theta: float, reps: int,
     n_extra = 0 give the query table (the JAX package's `_rope_half_tables`;
     its `_kv_half_tables` otherwise); the interleaved `_rope_tables` are not
     needed, as the port always rotates in the split layout."""
-    c, s = posenc.rope_half_tables(dim, end_x, end_y, theta)
-    c = torch.cat([c.repeat(reps, 1), torch.ones(n_extra, c.shape[1])])
-    s = torch.cat([s.repeat(reps, 1), torch.zeros(n_extra, s.shape[1])])
-    return c.to(device, dtype), s.to(device, dtype)
+    # built outside inference mode, so tables first cached by a predictor
+    # can be saved for a later training step's backward
+    with torch.inference_mode(False):
+        c, s = posenc.rope_half_tables(dim, end_x, end_y, theta)
+        c = torch.cat([c.repeat(reps, 1), torch.ones(n_extra, c.shape[1])])
+        s = torch.cat([s.repeat(reps, 1), torch.zeros(n_extra, s.shape[1])])
+        return c.to(device, dtype), s.to(device, dtype)
 
 
 def _use_fused_rope(q, kv_len: int, frame_tokens: int) -> bool:
@@ -67,14 +73,23 @@ class RoPEAttention(ops.Attention):
     _split_key = None
 
     def split_qk(self):
-        """(wq, bq, wk, bk) with `split_perm` on the output channels, built
-        once per parameter storage, so `speedup()`'s bf16 copy, a new device
-        or a loaded state dict builds its own on first use. They are
-        detached: inference only."""
+        """(wq, bq, wk, bk) with `split_perm` on the output channels. Under
+        autograd they are indexed inside the graph on every call, so the
+        gradient flows back to the projections (the JAX `_perm_proj`,
+        memory_attention.py:91). Without grad (no_grad or inference mode)
+        they are detached copies built once per parameter storage, so
+        `speedup()`'s bf16 copy, a new device or a loaded state dict builds
+        its own on first use."""
         params = (self.q_proj.weight, self.q_proj.bias, self.k_proj.weight, self.k_proj.bias)
-        key = tuple((p.data_ptr(), p.dtype, p._version) for p in params)
-        if self._split_key != key:
-            head_dim = self.q_proj.out_features // self.num_heads
+        head_dim = self.q_proj.out_features // self.num_heads
+        if torch.is_grad_enabled():
+            perm = posenc.split_perm(head_dim, self.num_heads).to(self.q_proj.weight.device)
+            return tuple(p[perm] for p in params)
+        # the key holds the tensors themselves, so a freed storage cannot
+        # come back at the same address and pass for a cached one
+        key = tuple((p, p.data_ptr(), p.dtype, p._version) for p in params)
+        if self._split_key is None or any(
+                a[0] is not b[0] or a[1:] != b[1:] for a, b in zip(self._split_key, key)):
             perm = posenc.split_perm(head_dim, self.num_heads).to(self.q_proj.weight.device)
             self._split = tuple(p.detach()[perm] for p in params)
             self._split_key = key

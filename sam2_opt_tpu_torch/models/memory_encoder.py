@@ -40,8 +40,10 @@ class CXBlock(nn.Module):
 
 @lru_cache(maxsize=8)
 def _sine_pe(h: int, w: int, c: int, device, dtype):
-    """[1, c, h, w] sine PE, a constant per shape."""
-    return posenc.sine_pos_embed_2d(h, w, c).permute(2, 0, 1)[None].to(device, dtype)
+    """[1, c, h, w] sine PE, a constant per shape (built outside inference
+    mode, so training can use what a predictor cached)."""
+    with torch.inference_mode(False):
+        return posenc.sine_pos_embed_2d(h, w, c).permute(2, 0, 1)[None].to(device, dtype)
 
 
 class MemoryEncoder(nn.Module):

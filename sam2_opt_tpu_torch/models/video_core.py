@@ -41,8 +41,10 @@ class MemoryInput(NamedTuple):
 
 @lru_cache(maxsize=8)
 def _sine_tokens(h: int, w: int, c: int, device, dtype):
-    """[h*w, c] sine PE of a feature grid, a constant per shape."""
-    return posenc.sine_pos_embed_2d(h, w, c).reshape(h * w, c).to(device, dtype)
+    """[h*w, c] sine PE of a feature grid, a constant per shape (built
+    outside inference mode, so training can use what a predictor cached)."""
+    with torch.inference_mode(False):
+        return posenc.sine_pos_embed_2d(h, w, c).reshape(h * w, c).to(device, dtype)
 
 
 def _memory_tokens(m: base.SAM2Base, cfg: SAM2Config, mem: MemoryInput, dtype):

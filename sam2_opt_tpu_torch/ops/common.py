@@ -125,8 +125,9 @@ def scaled_dot_product_attention(q, k, v, mask=None):
 
 def flash_or_sdpa(q, k, v, kv_mask=None, min_seq: int = 1024):
     """Dispatch on [B, heads, seq, head_dim]: the hand-written flash kernel
-    (K1) for CUDA tensors with q_len * kv_len >= min_seq², else plain
-    attention. kv_mask: [B, Skv] bool or None."""
+    (K1, differentiable: its backward is K3) for CUDA tensors with q_len *
+    kv_len >= min_seq², else plain attention. kv_mask: [B, Skv] bool or
+    None."""
     if q.is_cuda and q.shape[-2] * k.shape[-2] >= min_seq * min_seq:
         from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention
 

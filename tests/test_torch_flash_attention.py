@@ -249,3 +249,203 @@ def test_cuda_rope_kernel_matches_ref(B, Sq, Skv, D, n_identity, mask, dtype):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     if mask == "random+empty row":
         assert not out[-1].any() and bool((lse[-1] == -1e30).all())
+
+
+# K3: the backward. The plain version against the JAX package's Pallas flash
+# backward (`_flash_bwd`, interpret mode, padded to 128 as `_jax_k1` pads),
+# fp32: each of dq/dk/dv within 1e-5 of its own max |g| (the two sum the
+# same fp32 products in different orders).
+BWD_CASES = [  # B, H, Sq, Skv, D, mask
+    (1, 2, 200, 300, 56, None),
+    (2, 1, 200, 300, 56, "random+empty row"),
+    (1, 2, 256, 384, 72, "random"),
+    (2, 1, 130, 260, 72, "random+empty row"),
+]
+
+
+def _rel_close(got, ref, rel=1e-5):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = max(np.abs(ref).max(), 1e-30)
+    err = np.abs(got - ref).max()
+    assert err <= rel * scale, (err, scale)
+
+
+def _jax_k3(q, k, v, kv_mask, do):
+    """(dq, dk, dv) of the Pallas backward on the padded layout, unpadded."""
+    import jax.numpy as jnp
+
+    from sam2_opt_tpu.kernels import flash_attention as jfa
+
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    sq_pad, skv_pad = -(-Sq // 128) * 128, -(-Skv // 128) * 128
+    pad = lambda x, s: jnp.pad(jnp.asarray(x), ((0, 0), (0, 0), (0, s - x.shape[2]),  # noqa: E731
+                                                (0, 128 - D))).reshape(B * H, s, 128)
+    m = np.ones((B, Skv), bool) if kv_mask is None else kv_mask
+    maskf = jnp.pad(jnp.asarray(m, jnp.float32), ((0, 0), (0, skv_pad - Skv)))
+    maskf = jnp.broadcast_to(maskf[:, None, :], (B, H, skv_pad)).reshape(B * H, 1, skv_pad)
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = pad(q, sq_pad), pad(k, skv_pad), pad(v, skv_pad), pad(do, sq_pad)
+    out, lse = jfa._forward_impl(scale, 128, 128, True, False, qf, kf, vf, maskf)
+    dq, dk, dv = jfa._flash_bwd(scale, True, qf, kf, vf, maskf, dof, out, lse)
+    unpad = lambda x, s: np.asarray(x).reshape(B, H, -1, 128)[:, :, :s, :D]  # noqa: E731
+    return unpad(dq, Sq), unpad(dk, Skv), unpad(dv, Skv)
+
+
+@pytest.mark.parametrize("B,H,Sq,Skv,D,mask", BWD_CASES)
+def test_bwd_ref_matches_jax_kernel(B, H, Sq, Skv, D, mask):
+    from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention_bwd_ref
+
+    q, k, v, kv_mask = _inputs(B, H, Sq, Skv, D, mask)
+    do = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    ref = _jax_k3(q, k, v, kv_mask, do)
+    t = torch.from_numpy
+    m = None if kv_mask is None else t(kv_mask)
+    out, lse = flash_attention_ref(t(q), t(k), t(v), m)
+    grads = flash_attention_bwd_ref(t(q), t(k), t(v), out, lse, t(do), m)
+    for got, want in zip(grads, ref):
+        _rel_close(got.numpy(), want)
+    if mask == "random+empty row":  # rows that see no key, and keys no row sees
+        assert not grads[0][-1].any() and not grads[1][-1].any() and not grads[2][-1].any()
+
+
+def test_bwd_rope_matches_jax_grad():
+    """The port's K2 Function (plain forward and backward on the CPU) against
+    `jax.grad` of the JAX K2 (Pallas interpret mode, its `_attn_rope_bwd`):
+    D 64, 32 pointer identity rows, a random mask with an empty batch row."""
+    import jax
+    import jax.numpy as jnp
+
+    from sam2_opt_tpu.kernels import flash_attention as jfa
+
+    q, k, v, cos, sin, kv_mask = _rope_inputs(2, 200, 288, 64, 32, "random+empty row")
+    g = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+
+    def loss(q, k, v):
+        out = jfa.flash_attention(q, k, v, kv_mask=jnp.asarray(kv_mask), rope_cos_k=jnp.asarray(cos),
+                                  rope_sin_k=jnp.asarray(sin), block_q=128, block_k=128,
+                                  interpret=True)
+        return jnp.sum(out * g)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, _ = flash_attention_rope(tq, tk, tv, torch.from_numpy(cos), torch.from_numpy(sin),
+                                  torch.from_numpy(kv_mask))
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    for got, want in zip(grads, ref):
+        _rel_close(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("rope", [False, True])
+def test_autograd_functions_match_autograd_of_plain_forward(rope):
+    """On CPU tensors both Functions run the plain forward and the plain
+    backward (K3's plain version); their gradients equal autograd through the
+    plain forward (1e-5 of max |g|)."""
+    q, k, v, cos, sin, kv_mask = map(torch.from_numpy,
+                                     _rope_inputs(2, 70, 96, 64, 16, "random+empty row"))
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(q.shape).astype(np.float32))
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    if rope:
+        out = flash_attention_rope(*qkv, cos, sin, kv_mask)[0]
+        plain = flash_attention_rope_ref(*qkv, cos, sin, kv_mask)[0]
+    else:
+        out = flash_attention(*qkv, kv_mask)[0]
+        plain = flash_attention_ref(*qkv, kv_mask)[0]
+    got = torch.autograd.grad(out, qkv, g)
+    want = torch.autograd.grad(plain, qkv, g)
+    for a, b in zip(got, want):
+        _rel_close(a.numpy(), b.numpy())
+
+
+def _assert_bwd_within(got, ref, bounds):
+    """fp32 (bounds None): each gradient within 1e-4 of its own max |g| (the
+    two sum in different orders); bf16: within the per-element bounds of
+    `flash_attention_bwd_bf16_bound`."""
+    for name, a, b, i in zip(("dq", "dk", "dv"), got, ref, range(3)):
+        err = (a - b).abs()
+        if bounds is None:
+            assert err.max().item() <= 1e-4 * b.abs().max().item(), (name, err.max().item())
+        else:
+            over = (err - bounds[i]).max().item()
+            assert over <= 1e-6 * b.abs().max().item(), (name, over)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Skv,D,mask", BWD_CASES + [
+    (1, 1, 65, 4100, 256, "random+empty row"), (2, 1, 300, 700, 128, "random"),
+    (1, 3, 130, 70, 8, None), (1, 1, 100, 90, 200, None)])
+def test_cuda_bwd_kernels_match_ref(B, H, Sq, Skv, D, mask, dtype):
+    """K3a and K3b against their plain versions on the card (bounds in
+    `_assert_bwd_within`); one launch of each; fully masked rows give zero dq and
+    unseen keys zero dk/dv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sam2_opt_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_bf16_bound,
+        flash_attention_bwd_delta,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dkdv_ref,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_dq_ref,
+    )
+
+    q, k, v, kv_mask = _inputs(B, H, Sq, Skv, D, mask)
+    do = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    dev = lambda x: torch.from_numpy(x).cuda().to(dtype)  # noqa: E731
+    q, k, v, do = dev(q), dev(k), dev(v), dev(do)
+    m = None if kv_mask is None else torch.from_numpy(kv_mask).cuda()
+    out, lse = flash_attention_ref(q, k, v, m)
+    delta = flash_attention_bwd_delta(out, do)
+    before = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, m)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, m)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = (flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, m),
+           *flash_attention_bwd_dkdv_ref(q, k, v, do, lse, delta, m))
+    bounds = None if dtype == torch.float32 else flash_attention_bwd_bf16_bound(
+        q, k, v, do, lse, delta, m)
+    _assert_bwd_within((dq, dk, dv), ref, bounds)
+    if mask == "random+empty row":
+        assert not dq[-1].any() and not dk[-1].any() and not dv[-1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_autograd_through_kernels(dtype):
+    """Both Functions on the card: gradients of K1 on strided q/k/v views
+    (as Hiera hands them over, D = 56) and of K2 (D = 256, identity rows)
+    launch K3 once each and agree with the plain backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sam2_opt_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_ref,
+    )
+
+    rng = np.random.default_rng(4)
+    qkv = torch.from_numpy(rng.standard_normal((2, 300, 3, 2, 56)).astype(np.float32))
+    qkv = qkv.cuda().to(dtype).requires_grad_()
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    out, lse = flash_attention(q, k, v)
+    g = torch.randn_like(out)
+    before = flash_attention_bwd_dkdv.launches
+    (grad,) = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dkdv.launches == before + 1
+    ref = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(), lse, g)
+    ref = torch.stack([r.transpose(1, 2) for r in ref], 2).to(dtype).float()
+    assert (grad.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+    q, k, v, cos, sin, kv_mask = _rope_inputs(1, 300, 500, 256, 20, "random")
+    q, k, v = (torch.from_numpy(x).cuda().to(dtype).requires_grad_() for x in (q, k, v))
+    cos, sin = (torch.from_numpy(x).cuda().to(dtype) for x in (cos, sin))
+    m = torch.from_numpy(kv_mask).cuda()
+    out, _ = flash_attention_rope(q, k, v, cos, sin, m)
+    got = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    plain = flash_attention_rope_ref(q, k, v, cos, sin, m)[0]
+    want = torch.autograd.grad(plain, (q, k, v), torch.ones_like(plain))
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item()
