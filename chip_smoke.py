@@ -57,13 +57,41 @@ Phases (any failure exits non-zero, and no result line is printed):
    of one profiled step; and, where Pillow is installed, the CLI on a small
    PNG folder.
 
+11. K5, K6 and K7 (one per-window attention kernel behind three wrappers)
+   against their plain version, bf16 and fp32: at hiera-L's four windowed
+   stage shapes as strided views of one [N, S, 3, heads, 72] projection
+   (K5 on the [N, heads, S, D] views `flash_or_sdpa` hands over), ragged
+   windows of 49 and 196 tokens at D = 56 and 96, K7 with 16 queries over 64
+   keys; a negative control (the plain version at twice the scale) that
+   must fail;
+12. K8 (the fused block MLP) against its plain version, bf16: hiera-L's and
+   b+'s four block-MLP shapes and a ragged N = 1000; a negative control
+   (the plain version without its GELU) that must fail; gradients
+   through K6, K7 and K8 against autograd through their plain versions, and
+   K5 under autograd raising;
+13. the slice: the hiera-L image predictor of phase 5 with the JAX
+   package's trunk switches (W1: SAM2_TPU_WINDOW_KERNEL=1,
+   SAM2_TPU_FLASH_WINDOW_MIN=64, SAM2_TPU_FUSED_MLP=1; W2:
+   SAM2_TPU_PACKED_WINDOW=256, SAM2_TPU_FUSED_MLP=1), in bf16 (W1, W2) and
+   fp32 (W1): exact launch counts per `set_image`, masks held to the
+   default bf16 and fp32 routes by mIoU, fp32 logits to the default fp32
+   route; in phase 6, 3 bf16 video frames under W1 with per-frame counts;
+14. times: `set_image` wall and device split under W1 and W2 beside the
+   default route; K5-K8 at their main-path shapes beside their bounds,
+   plain versions and library yardsticks (`F.scaled_dot_product_attention`;
+   for K8 the unfused bf16 Linear -> GELU -> Linear, three calls).
+Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10; each phase
+that sets a switch restores it.
+
 The line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -121,6 +149,38 @@ VIDEO_SQUARE = (300, 150)  # (x, y) of the moving square's corner on frame 0
 OBJ_BIAS = 10.0            # added to the object-score head's last bias
 # bf16 vs fp32 per-frame video masks: the image gate (sound runs: >= 0.9877)
 VIDEO_BF16_MIOU_MIN = 0.97
+# slice 4: the JAX package's trunk switches, two settings
+ROUTES = {
+    "W1": {"SAM2_TPU_WINDOW_KERNEL": "1", "SAM2_TPU_FLASH_WINDOW_MIN": "64",
+           "SAM2_TPU_FUSED_MLP": "1"},
+    "W2": {"SAM2_TPU_PACKED_WINDOW": "256", "SAM2_TPU_FUSED_MLP": "1"},
+}
+# launches per hiera-L set_image at 1024² (block plan: 42 windowed blocks
+# without q-pool, 2 at S = 64, 5 at 16, 32 at 256, 3 at 64; 3 q-pool blocks,
+# plain; 3 global blocks, K1; 48 block MLPs); the K6/K7 and K8 routes are
+# bf16-only, so in fp32 every windowed block reaches K5
+ROUTE_LAUNCHES = {
+    ("W1", torch.bfloat16): {"K1": 3, "K5": 5, "K6": 37, "K7": 0, "K8": 48},
+    ("W2", torch.bfloat16): {"K1": 3, "K5": 0, "K6": 0, "K7": 42, "K8": 48},
+    ("W1", torch.float32): {"K1": 3, "K5": 42, "K6": 0, "K7": 0, "K8": 0},
+}
+# hiera-L's windowed attention at 1024², (N windows, S tokens, heads, D), and
+# its block MLPs (N tokens, C; hidden 4C); hiera-b+'s MLPs
+WINDOW_SHAPES = [(1024, 64, 2, 72), (1024, 16, 4, 72), (16, 256, 8, 72), (16, 64, 16, 72)]
+MLP_SHAPES_L = [(65536, 144), (16384, 288), (4096, 576), (1024, 1152)]
+MLP_SHAPES_BP = [(65536, 112), (16384, 224), (4096, 448), (1024, 896)]
+# The window kernel vs plain: fp32 runs true fp32 FMAs on both sides, so
+# K1's fp32 tolerance; bf16 within `window_attention_bf16_bound` (both round
+# the normalized p and out to bf16 from fp32 values that may differ in their
+# last bits, so each may land one ulp, at most 2^-7 relative, apart:
+# 2^-7 (p.|v| + |ref|) per element). K8 bf16 within `fused_mlp_bf16_bound`
+# (a rounding of h, g or out may land one ulp apart: 2^-7 ((|g| + |h
+# gelu'(h)|).|w2| + |ref|) per element).
+WINDOW_FP32_TOL = (1e-5, 1e-5)  # (rtol, atol)
+# K8's gradient vs autograd of the plain version (bf16): the backward is the
+# JAX `_bwd` (fp32 GELU), the plain version's autograd differentiates the
+# bf16 GELU, so they differ by bf16 roundings; K6/K7's in fp32 by sum order
+ROUTE_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max |g|
 
 
 def log(*args):
@@ -130,6 +190,21 @@ def log(*args):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+@contextlib.contextmanager
+def switches(env):
+    """Set environment switches for the block, restore them after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def cuda_ms(fn, reps=10, warmup=3, flush=None):
@@ -148,6 +223,37 @@ def cuda_ms(fn, reps=10, warmup=3, flush=None):
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
+    return total / reps
+
+
+def graph_ms(fn, reps=10, flush=None):
+    """Mean device time of fn() in ms, replayed from a CUDA graph so that
+    the host's launch overhead (tens of us for a wrapper, more than a small
+    kernel takes) is not timed; `flush` is rewritten before each replay, so
+    every replay finds the L2 cold. Kernel launch counters move once, at
+    capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    del graph
     return total / reps
 
 
@@ -411,6 +517,28 @@ def phase_video(flash_attention, flash_attention_rope):
     check(per_frame == [(0, 0), (3, 8), (3, 8)],
           "two objects must be tracked as one batch: 8 K2 launches per frame")
 
+    # the trunk routes on the video path: 3 bf16 frames under W1
+    from sam2_opt_tpu_torch.kernels.fused_mlp import fused_mlp
+    from sam2_opt_tpu_torch.kernels.window_attention import window_attention, window_flash_3d
+
+    route_kernels = (flash_attention, flash_attention_rope, window_attention, window_flash_3d,
+                     fused_mlp)
+    with switches(ROUTES["W1"]):
+        for c in route_kernels:
+            c.launches = 0
+        _, w1_masks, per_frame = track(predictor, video, 3, points, counts=route_kernels)
+        torch.cuda.synchronize()
+        video_route_launches = {"K5": window_attention.launches,
+                                "K6": window_flash_3d.launches, "K8": fused_mlp.launches}
+    w1_ious = [miou(a[0, 0].cpu().numpy() > 0, b.cpu().numpy())
+               for a, b in zip(w1_masks, runs[torch.bfloat16][:3])]
+    log(f"W1, 3 frames, bf16: per frame (K1, K2, K5, K6, K8) {per_frame}; mask mIoU vs the "
+        f"default bf16 route {[round(float(x), 4) for x in w1_ious]}")
+    expect = (3, 8, 5, 37, 48)
+    check(per_frame == [(0,) * 5, expect, expect],
+          "each tracked frame under W1 must launch K1 3, K2 8, K5 5, K6 37 and K8 48 times")
+    check(min(w1_ious) > VIDEO_BF16_MIOU_MIN, "W1 video masks drift from the default route")
+
     # fp32 on the card vs the same weights on the CPU, first 3 frames; no
     # hole filling on either side, so a logit on the threshold cannot move a
     # whole small component (connected components are exact, tests hold them)
@@ -431,7 +559,7 @@ def phase_video(flash_attention, flash_attention_rope):
     check(worst <= CPU_LOGIT_RTOL, "fp32 video logits on the card disagree with the CPU")
     predictor.fill_hole_area = 8
     del cpu_pred, cpu_sd
-    return predictor, video, points, launches
+    return predictor, video, points, launches, video_route_launches
 
 
 def structured_image(seed):
@@ -530,11 +658,13 @@ def phase_slice(flash_attention):
     log(f"bf16 vs fp32: min mask mIoU {worst_miou:.4f} (limit > {BF16_MIOU_MIN}), "
         f"max|dIoU| {worst_diou:.3e} (limit < {BF16_IOU_ATOL})")
     check(worst_miou > BF16_MIOU_MIN and worst_diou < BF16_IOU_ATOL, "bf16 masks drift from fp32")
-    return predictor, image, launches
+    return predictor, image, launches, {torch.float32: fp32, torch.bfloat16: bf16}
 
 
 # kernel-name patterns for the split of device time, first match wins
 FAMILIES = [
+    ("K5-K7 window_attention (csrc)", r"window_attn_"),
+    ("K8 fused_mlp (csrc)", r"fused_mlp_kernel"),
     ("K3 flash_attention_bwd (csrc)", r"bwd_dkdv_kernel|bwd_dq_kernel"),
     ("K2 flash_attention_rope (csrc)", r"flash_rope_"),
     ("K1 flash_attention (csrc)", r"flash_fwd_"),
@@ -1087,6 +1217,296 @@ def phase_train_cli():
 
 
 
+# --------------------------------------------------------------------------- #
+# slice 4: the trunk's opt-in kernel routes (K5-K8)
+# --------------------------------------------------------------------------- #
+
+
+def window_bound_ms(N, H, Sq, Skv, D, dtype):
+    """Least time for per-window attention on these inputs: 4*Sq*Skv*D
+    operations per (window, head); q, k, v read once, out written once."""
+    flops = 4.0 * N * H * Sq * Skv * D
+    nbytes = (torch.finfo(dtype).bits // 8) * N * H * D * (2 * Sq + 2 * Skv)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mlp_bound_ms(N, C, H, C_out):
+    """Least time for K8 (bf16): 2*N*C*H + 2*N*H*C_out operations; x, the
+    weights and biases read once, out written once."""
+    flops = 2.0 * N * H * (C + C_out)
+    nbytes = 2 * (N * C + N * C_out + H * C + C_out * H + H + C_out)
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def window_within(out, ref, q, k, v):
+    """(within, |out - ref|) on the [..., S, D] layout."""
+    from sam2_opt_tpu_torch.kernels.window_attention import window_attention_bf16_bound
+
+    err = (out.float() - ref.float()).abs()
+    if q.dtype == torch.float32:
+        lim = WINDOW_FP32_TOL[1] + WINDOW_FP32_TOL[0] * ref.abs()
+    else:
+        lim = window_attention_bf16_bound(q, k, v, ref)
+    return bool((err <= lim).all()), err
+
+
+def window_cases(dtype):
+    """(label, q, k, v) on [N, S, heads, D] for phase 11, from the seed: the
+    four hiera-L stage shapes and the ragged windows as views of one
+    [N, S, 3, heads, D] projection; K7's 16 queries over 64 keys."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(dtype)  # noqa: E731
+    for N, S, H, D in WINDOW_SHAPES + [(16, 49, 16, 56), (16, 196, 8, 56), (16, 49, 8, 96),
+                                       (16, 196, 4, 96)]:
+        q, k, v = randn(N, S, 3, H, D).unbind(2)
+        yield f"{(N, S, H, D)} qkv views", q, k, v
+    yield "(256, 16 queries / 64 keys, 4, 72)", randn(256, 16, 4, 72), randn(256, 64, 4, 72), \
+        randn(256, 64, 4, 72)
+
+
+def phase_windows():
+    """K5, K6 and K7 against their plain version on the card; returns the
+    largest error per wrapper."""
+    from sam2_opt_tpu_torch.kernels.window_attention import (
+        packed_window_attention,
+        window_attention,
+        window_attention_ref,
+        window_flash_3d,
+    )
+
+    t = lambda x: x.transpose(1, 2)  # noqa: E731  [N, S, h, D] <-> [N, h, S, D]
+    max_err = {"K5": 0.0, "K6": 0.0, "K7": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, q, k, v in window_cases(dtype):
+            ref = window_attention_ref(t(q), t(k), t(v))
+            same = q.shape[1] == k.shape[1]
+            runs = [("K7", t(packed_window_attention(q, k, v)))]
+            if same:
+                runs += [("K6", t(window_flash_3d(q, k, v))), ("K5", window_attention(t(q), t(k), t(v)))]
+            torch.cuda.synchronize()
+            errs = []
+            for key, out in runs:
+                ok, err = window_within(out, ref, t(q), t(k), t(v))
+                max_err[key] = max(max_err[key], err.max().item())
+                errs.append(f"{key} {err.max().item():.3e}")
+                check(ok, f"{key} disagrees with its plain version ({dtype}, {label})")
+            log(f"window {dtype} {label}: max|out-ref| {', '.join(errs)} (mean |ref| "
+                f"{ref.float().abs().mean().item():.3e}; "
+                + ("fp32: rtol 1e-5 + atol 1e-5)" if dtype == torch.float32 else
+                   "bf16: per-element rounding bound)"))
+            if label.startswith(str(WINDOW_SHAPES[2])):
+                bad_ref = window_attention_ref(2 * t(q), t(k), t(v))
+                bad, err = window_within(runs[0][1], bad_ref, 2 * t(q), t(k), t(v))
+                log(f"  negative control (plain version at twice the scale): max|out-ref| "
+                    f"{err.max().item():.3e}")
+                check(not bad, "the window check cannot see the softmax scale")
+    return max_err
+
+
+def mlp_inputs(N, C, gen):
+    """bf16 x [N, C], w1 [4C, C], b1, w2 [C, 4C], b2 from the seed, at the
+    scale of a trained layer (weights ~ 1/sqrt(fan-in), biases ~ 0.1)."""
+    H = 4 * C
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+    return [a.to(torch.bfloat16) for a in (randn(N, C), randn(H, C) / math.sqrt(C),
+                                           0.1 * randn(H), randn(C, H) / math.sqrt(H),
+                                           0.1 * randn(C))]
+
+
+def phase_k8():
+    """K8 against its plain version on the card, bf16; returns the largest
+    error. The negative control leaves out the GELU in the plain version:
+    the check must fail."""
+    from sam2_opt_tpu_torch.kernels.fused_mlp import fused_mlp, fused_mlp_bf16_bound, fused_mlp_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    max_err = 0.0
+    for N, C in MLP_SHAPES_L + MLP_SHAPES_BP + [(1000, 144)]:
+        x, w1, b1, w2, b2 = mlp_inputs(N, C, gen)
+        out = fused_mlp(x, w1, b1, w2, b2, fast_act=True)
+        torch.cuda.synchronize()
+        ref = fused_mlp_ref(x, w1, b1, w2, b2, fast_act=True)
+        err = (out.float() - ref.float()).abs()
+        ok = bool((err <= fused_mlp_bf16_bound(x, w1, b1, w2, ref)).all())
+        max_err = max(max_err, err.max().item())
+        log(f"K8 bf16 N={N} C={C} H={4 * C}: max|out-ref| {err.max().item():.3e} (mean |ref| "
+            f"{ref.float().abs().mean().item():.3e}; per-element rounding bound)")
+        check(ok, "K8 disagrees with its plain version")
+        if (N, C) == MLP_SHAPES_L[2]:
+            h = (torch.matmul(x.float(), w1.float().t()) + b1.float()).to(x.dtype)
+            bad_ref = (torch.matmul(h.float(), w2.float().t()) + b2.float()).to(x.dtype)
+            bad_err = (out.float() - bad_ref.float()).abs()
+            frac = (bad_err > fused_mlp_bf16_bound(x, w1, b1, w2, bad_ref)).float().mean().item()
+            log(f"  negative control (no GELU): max|out-ref| {bad_err.max().item():.3e}, "
+                f"{frac:.1%} of elements outside")
+            check(frac > 0, "K8's check cannot see the activation")
+    return max_err
+
+
+def phase_route_grads():
+    """Autograd through K6, K7 (fp32) and K8 (bf16) against autograd through
+    their plain versions, at one small shape; K5 under autograd raises."""
+    from sam2_opt_tpu_torch.kernels.fused_mlp import fused_mlp, fused_mlp_ref
+    from sam2_opt_tpu_torch.kernels.window_attention import (
+        packed_window_attention,
+        window_attention,
+        window_attention_nshd_ref,
+        window_flash_3d,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    q, k, v, g = (torch.randn(16, 64, 2, 72, device="cuda", generator=gen) for _ in range(4))
+    cases = [("K6", window_flash_3d, window_attention_nshd_ref, (q, k, v), g, torch.float32),
+             ("K7", packed_window_attention, window_attention_nshd_ref, (q, k, v), g,
+              torch.float32)]
+    mlp = mlp_inputs(256, 144, gen)
+    cases.append(("K8", lambda *a: fused_mlp(*a, fast_act=True),
+                  lambda *a: fused_mlp_ref(*a, fast_act=True), mlp,
+                  torch.randn(256, 144, device="cuda", generator=gen).to(torch.bfloat16),
+                  torch.bfloat16))
+    for key, fn, plain, args, dout, dtype in cases:
+        a = [x.clone().requires_grad_() for x in args]
+        b = [x.clone().requires_grad_() for x in args]
+        got = torch.autograd.grad(fn(*a), a, dout)
+        want = torch.autograd.grad(plain(*b), b, dout)
+        worst = max((x.float() - y.float()).abs().max().item() / y.float().abs().max().item()
+                    for x, y in zip(got, want))
+        log(f"{key} gradients through the kernel vs autograd of the plain version ({dtype}): "
+            f"worst |err|/max|g| {worst:.2e} (limit {ROUTE_GRAD_TOL[dtype]})")
+        check(worst <= ROUTE_GRAD_TOL[dtype], f"{key}'s gradients disagree with the plain version")
+    try:
+        window_attention(*(x.transpose(1, 2).requires_grad_() for x in (q, k, v)))
+    except RuntimeError as e:
+        log(f"K5 under autograd raises: {e}")
+    else:
+        raise RuntimeError("K5 under autograd must raise")
+
+
+def worst_masks(outs, ref):
+    """(min mask mIoU, max |dlogit|/scale, max |dIoU|) of prompt outputs
+    against reference outputs."""
+    worst_miou, worst_logit, worst_diou = 1.0, 0.0, 0.0
+    for key, (masks, ious, low) in outs.items():
+        ref_masks, ref_ious, ref_low = ref[key]
+        worst_miou = min(worst_miou, min(miou(a, b) for a, b in zip(ref_masks, masks)))
+        scale = max(1.0, float(np.abs(ref_low).max()))
+        worst_logit = max(worst_logit, float(np.abs(low - ref_low).max()) / scale)
+        worst_diou = max(worst_diou, float(np.abs(ious - ref_ious).max()))
+    return worst_miou, worst_logit, worst_diou
+
+
+def phase_routes(predictor, image, default, counters):
+    """The slice's main path: the hiera-L image predictor's set_image and
+    predict under W1 and W2 (bf16) and W1 (fp32); returns the launches of
+    each kernel summed over the three set_image calls."""
+    orig_hw = image.shape[:2]
+    launches = dict.fromkeys(counters, 0)
+    for (setting, dtype), expect in ROUTE_LAUNCHES.items():
+        predictor.set_runtime_backend("cuda" if dtype == torch.bfloat16 else "eager")
+        with switches(ROUTES[setting]):
+            # the main path: counts to 0 just before, read just after
+            for c in counters.values():
+                c.launches = 0
+            predictor.set_image(image)
+            torch.cuda.synchronize()
+            got = {key: c.launches for key, c in counters.items()}
+            outs = run_prompts(predictor, orig_hw)
+            after = {key: c.launches for key, c in counters.items()}
+        check(got == expect, f"{setting} {dtype} set_image launched {got}, expected {expect}")
+        check(after == got, "predict must launch no trunk kernel")
+        for key in launches:
+            launches[key] += got[key]
+        if dtype == torch.bfloat16:
+            vs_bf16 = worst_masks(outs, default[torch.bfloat16])
+            vs_fp32 = worst_masks(outs, default[torch.float32])
+            log(f"{setting} bf16: launches {got}; min mask mIoU vs the default bf16 route "
+                f"{vs_bf16[0]:.4f}, vs the default fp32 route {vs_fp32[0]:.4f} (limit > "
+                f"{BF16_MIOU_MIN}); max|dIoU| vs fp32 {vs_fp32[2]:.3e}")
+            check(min(vs_bf16[0], vs_fp32[0]) > BF16_MIOU_MIN,
+                  f"{setting} bf16 masks drift from the default routes")
+        else:
+            vs_fp32 = worst_masks(outs, default[torch.float32])
+            log(f"{setting} fp32: launches {got}; max|dlogit|/scale vs the default fp32 route "
+                f"{vs_fp32[1]:.3e} (limit {CPU_LOGIT_RTOL}), max|dIoU| {vs_fp32[2]:.3e}")
+            check(vs_fp32[1] <= CPU_LOGIT_RTOL, f"{setting} fp32 logits drift from the default")
+    return launches
+
+
+def phase_route_times(predictor, image):
+    """bf16 set_image wall, device split and idle share under the default
+    route, W1 and W2."""
+    predictor.set_runtime_backend("cuda")
+    times = {}
+    for setting in ("default", "W1", "W2"):
+        with switches(ROUTES.get(setting, {})):
+            wall = cuda_ms(lambda: predictor.set_image(image), reps=5, warmup=2)
+            busy, fams, top = device_split(lambda: predictor.set_image(image))
+        launches = sum(f["launches"] for f in fams.values())
+        log(f"bf16 set_image, {setting}: {wall:.3f} ms (device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / wall:.1%}, {launches:.0f} kernel launches)")
+        log(json.dumps({"set_image_device_split": f"bfloat16 {setting}", "families": fams,
+                        "top_kernels_ms": top}))
+        times[setting] = dict(set_image_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                              launches=launches)
+    return times
+
+
+def phase_route_kernel_times():
+    """K5, K6, K7 at hiera-L's windowed shapes (bf16; K5 also fp32) and K8
+    at its four block-MLP shapes, cold L2, beside bound, plain version and
+    library yardstick; device times from CUDA graph replays (`graph_ms`)."""
+    from sam2_opt_tpu_torch.kernels.fused_mlp import fused_mlp, fused_mlp_ref
+    from sam2_opt_tpu_torch.kernels.window_attention import (
+        packed_window_attention,
+        window_attention,
+        window_attention_nshd_ref,
+        window_flash_3d,
+    )
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for N, S, H, D in WINDOW_SHAPES:
+            q, k, v = torch.randn(N, S, 3, H, D, device="cuda", generator=gen).to(dtype).unbind(2)
+            plain_ms = graph_ms(lambda: window_attention_nshd_ref(q, k, v), reps=5, flush=flush)
+            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(t(q), t(k), t(v)),
+                                 flush=flush)
+            bound_ms, bound_by = window_bound_ms(N, H, S, S, D, dtype)
+            wrappers = [("K5", lambda: window_attention(t(q), t(k), t(v)))]
+            if dtype == torch.bfloat16:
+                wrappers += [("K6", lambda: window_flash_3d(q, k, v)),
+                             ("K7", lambda: packed_window_attention(q, k, v))]
+            line = []
+            for key, fn in wrappers:
+                ms = graph_ms(fn, flush=flush)
+                rows[(key, dtype, (N, S, H, D))] = dict(ms=ms, plain_ms=plain_ms,
+                                                        library_ms=library_ms, bound_ms=bound_ms,
+                                                        bound_by=bound_by)
+                line.append(f"{key} {ms:.4f} ms ({bound_ms / ms:.1%} of bound)")
+            log(f"window {dtype} {(N, S, H, D)}: {', '.join(line)}; plain {plain_ms:.4f} ms, "
+                f"F.scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+    for N, C in MLP_SHAPES_L:
+        x, w1, b1, w2, b2 = mlp_inputs(N, C, gen)
+        ms = graph_ms(lambda: fused_mlp(x, w1, b1, w2, b2, fast_act=True), flush=flush)
+        plain_ms = graph_ms(lambda: fused_mlp_ref(x, w1, b1, w2, b2, fast_act=True), reps=5,
+                           flush=flush)
+        library_ms = graph_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1), approximate="tanh"),
+                                              w2, b2), flush=flush)
+        bound_ms, bound_by = mlp_bound_ms(N, C, 4 * C, C)
+        log(f"K8 bf16 N={N} C={C}: {ms:.4f} ms ({bound_ms / ms:.1%} of bound), plain "
+            f"{plain_ms:.4f} ms, unfused bf16 Linear -> GELU -> Linear (3 calls) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        rows[("K8", torch.bfloat16, (N, C))] = dict(ms=ms, plain_ms=plain_ms,
+                                                   library_ms=library_ms, bound_ms=bound_ms,
+                                                   bound_by=bound_by)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1098,6 +1518,12 @@ def main():
     log(smi[0])
 
     from sam2_opt_tpu_torch.kernels import _build
+    from sam2_opt_tpu_torch.kernels.fused_mlp import fused_mlp
+    from sam2_opt_tpu_torch.kernels.window_attention import (
+        packed_window_attention,
+        window_attention,
+        window_flash_3d,
+    )
     from sam2_opt_tpu_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd_dkdv,
@@ -1118,10 +1544,19 @@ def main():
     k2_err = phase_k2(flash_attention_rope, flash_attention_rope_ref)
     k3_err = phase_k3()
     k3 = phase_k3_times()
-    predictor, image, image_launches = phase_slice(flash_attention)
+    window_err = phase_windows()
+    k8_err = phase_k8()
+    phase_route_grads()
+    predictor, image, image_launches, default_outs = phase_slice(flash_attention)
     times, k1 = phase_times(predictor, image, flash_attention, flash_attention_ref)
+    route_counters = {"K1": flash_attention, "K5": window_attention, "K6": window_flash_3d,
+                      "K7": packed_window_attention, "K8": fused_mlp}
+    route_launches = phase_routes(predictor, image, default_outs, route_counters)
+    route_times = phase_route_times(predictor, image)
     del predictor
-    video_predictor, video, points, (k1_launches, k2_launches) = phase_video(
+    torch.cuda.empty_cache()
+    route_kernels = phase_route_kernel_times()
+    video_predictor, video, points, (k1_launches, k2_launches), video_route_launches = phase_video(
         flash_attention, flash_attention_rope)
     video_times, k2 = phase_video_times(video_predictor, video, points, flash_attention_rope,
                                         flash_attention_rope_ref)
@@ -1185,7 +1620,37 @@ def main():
             "self": {"shape": list(K3_SELF), "bfloat16": k3[("self", torch.bfloat16)][part],
                      "fp32": k3[("self", torch.float32)][part]},
         })
+    # K5-K8: one kernel behind K5, K6 and K7; each row at the shape that
+    # launches most on its main path, the other shapes beside it
+    source = "sam2_opt_tpu_torch/csrc/window_attention.cu"
+    shape_label = lambda shape: "x".join(map(str, shape))  # noqa: E731
+    for key, kernel_name, line, main_shape, dtype in (
+            ("K5", "window_attention (K5)", "sam2_opt_tpu/kernels/window_attention.py:25",
+             WINDOW_SHAPES[1], torch.bfloat16),
+            ("K6", "window_flash_3d (K6)", "sam2_opt_tpu/kernels/window_attention.py:73",
+             WINDOW_SHAPES[2], torch.bfloat16),
+            ("K7", "packed_window_attention (K7)", "sam2_opt_tpu/kernels/window_attention.py:159",
+             WINDOW_SHAPES[2], torch.bfloat16),
+            ("K8", "fused_mlp (K8)", "sam2_opt_tpu/kernels/fused_mlp.py:40", MLP_SHAPES_L[2],
+             torch.bfloat16)):
+        entries.append({
+            "name": kernel_name,
+            "route": "cuda",
+            "source": "sam2_opt_tpu_torch/csrc/fused_mlp.cu" if key == "K8" else source,
+            "replaces": line,
+            "launches": route_launches[key],
+            "max_abs_err": k8_err if key == "K8" else window_err[key],
+            **route_kernels[(key, dtype, main_shape)],
+            "shape": list(main_shape),
+            "dtype": "bfloat16",
+            "library": ("unfused bf16 Linear -> GELU -> Linear, 3 calls" if key == "K8" else
+                        "F.scaled_dot_product_attention on [N, heads, S, D]"),
+            "shapes": {f"{str(dt).replace('torch.', '')} {shape_label(sh)}": row
+                       for (k, dt, sh), row in route_kernels.items() if k == key},
+            "video_launches": video_route_launches.get(key, 0),
+        })
     log(json.dumps({"slice": {str(dt).replace("torch.", ""): t for dt, t in times.items()},
+                    "routes": route_times,
                     "video": {str(dt).replace("torch.", ""): t for dt, t in video_times.items()},
                     "training": train_runs, "training_vs_cpu": train_cpu,
                     "training_cli_loss": cli_loss, "card": smi[0]}))

@@ -1,0 +1,562 @@
+// Per-window softmax attention for Hopper (sm_90a), fp32 and bf16.
+//
+// Replaces three Pallas TPU kernels of sam2_opt_tpu/kernels/window_attention.py,
+// which compute one function in three TPU layouts:
+//   K5 _kernel        [N, S, D]            (window_attention)
+//   K6 _kernel_3d     [N, S, heads, d]     (window_flash_3d)
+//   K7 _packed_kernel [N, Sq/Skv, heads, d] (packed_window_attention; its
+//                     block-diagonal packing only shaped the MXU's products)
+// Here the layout is strides: every (window, head) pair is one attention of
+// Sq query rows over Skv keys, at window / head / row strides given per
+// tensor (unit stride along the head dim), so Hiera's q/k/v views of one
+// [N, S, 3, heads, d] projection are read where they lie and the output is
+// written as [N, S, heads, d] for the output projection. What it computes
+// is the Pallas kernels' plain softmax:
+//   s = (q . k^T) * scale in fp32, scale = 1/sqrt(D)
+//   p = exp(s - rowmax(s)) / rowsum(exp(s - rowmax(s))), rounded to v's dtype
+//   out = p . v in fp32, rounded to q's dtype
+// with no mask: the zero-padded tokens of window_partition attend, as they
+// do in the JAX package. The probabilities are normalized before they are
+// rounded, as the reference does, so each CTA walks the keys twice: pass 1
+// forms the logits and keeps the running row max and row sum, pass 2 forms
+// them again and multiplies the normalized probabilities into V.
+//
+// Bound. At hiera-L's shapes (1024 windows of 64 tokens at 2 heads, 1024 x 16
+// at 4, 16 x 256 at 8, 16 x 64 at 16; D = 72) bf16 does at most 4*S*D = 74K
+// operations per query row (S = 256) against 4*D*2 = 576 bytes of q, k, v
+// and out: 128 operations per byte, under the card's 295, so bf16 is bound
+// by bytes (22.5, 11.3, 5.6 and 2.8 us at 3.35 TB/s). fp32 does S/4
+// operations per byte against a ridge of 20, so it is bound by its FMAs from
+// S = 80 up. What the design does about it:
+//  - one launch per block, logits never leave the SM (an unfused graph
+//    writes and reads the [pairs, S, S] logits and probabilities);
+//  - thousands of 16-row windows (stage 2) do not get a 64-row tile each:
+//    a CTA of 4 warps gives each warp 16 query rows and packs up to 4
+//    (window, head) pairs into one CTA (1 per warp at S <= 16, 2 at S <= 32),
+//    each group of warps with its own kv tiles in shared memory;
+//  - bf16 runs on the tensor cores (mma.sync m16n8k16, fp32 accumulation):
+//    Q fragments straight from device memory, K and V tiles of 32 keys
+//    through a 2-stage cp.async ring and ldmatrix, S kept in registers and
+//    re-packed as the A operand of P . V, exp2 on the SFU;
+//  - fp32 runs true fp32 FMAs on 4 x 4 micro-tiles from 16-byte shared
+//    loads, laid out so that the 8 lanes of a quarter-warp hit distinct
+//    banks.
+// The second pass re-reads K from L2 (or shared memory when the window has
+// one kv tile); at 6*S*D operations per row bf16 stays bound by bytes.
+// wgmma, TMA and keeping whole windows in shared memory are later steps.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int ROWS = 16;  // query rows per warp
+constexpr int KT = 32;    // keys per kv tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int N, H, Sq, Skv, D;
+  long long q_sn, q_sh, q_ss;
+  long long k_sn, k_sh, k_ss;
+  long long v_sn, v_sh, v_ss;
+  long long o_sn, o_sh, o_ss;
+  float scale;
+  int wpp;  // warps per (window, head) pair in a CTA: 1, 2 or 4
+};
+
+// Which pair and rows a warp owns: CTA x packs WARPS / wpp pairs, y walks
+// the query rows in steps of wpp * 16.
+struct Slot {
+  int grp, gtid, gthreads, q0;
+  bool live;
+  long long off_q, off_k, off_v, off_o;
+};
+
+__device__ __forceinline__ Slot slot_of(const Params& p) {
+  const int warp = threadIdx.x >> 5;
+  const int ppc = WARPS / p.wpp;
+  Slot s;
+  s.grp = warp / p.wpp;
+  s.gthreads = p.wpp * 32;
+  s.gtid = threadIdx.x - s.grp * s.gthreads;
+  s.q0 = (blockIdx.y * p.wpp + warp % p.wpp) * ROWS;
+  const long long pair = static_cast<long long>(blockIdx.x) * ppc + s.grp;
+  s.live = pair < static_cast<long long>(p.N) * p.H;
+  const long long n = s.live ? pair / p.H : 0, h = s.live ? pair % p.H : 0;
+  s.off_q = n * p.q_sn + h * p.q_sh;
+  s.off_k = n * p.k_sn + h * p.k_sh;
+  s.off_v = n * p.v_sn + h * p.v_sh;
+  s.off_o = n * p.o_sn + h * p.o_sh;
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int ld_bf16(int dp) { return dp + 8; }  // odd multiple of 16 B
+
+template <int DP>
+constexpr int smem_bf16(int ppc) {  // {K, V} x 2 stages per pair group
+  return ppc * 4 * KT * ld_bf16(DP) * static_cast<int>(sizeof(__nv_bfloat16));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// 16-byte async copy to shared memory; fill = false writes 16 zero bytes
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool fill) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(addr), "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_newest_pending() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS) window_attn_bf16_kernel(const Params p) {
+  constexpr int LDK = ld_bf16(DP);
+  constexpr int KS = DP / 16;  // k-steps of Q . K^T
+  constexpr int ND = DP / 8;   // 8-column slices of the output
+  constexpr int NT = KT / 8;   // 8-key slices of S
+  constexpr int TILE = KT * LDK;
+  extern __shared__ __align__(16) __nv_bfloat16 smem_b[];
+
+  const Slot sl = slot_of(p);
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, lane in the quad
+  __nv_bfloat16* group = smem_b + sl.grp * 4 * TILE;  // [stage][K, V][KT][LDK]
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + sl.off_q;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + sl.off_k;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + sl.off_v;
+
+  // the padded head-dim columns [D, DP) stay zero: the copies never write them
+  const int total = (WARPS / p.wpp) * 4 * TILE;
+  for (int i = threadIdx.x * 8; i < total; i += THREADS * 8)
+    *reinterpret_cast<uint4*>(smem_b + i) = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  const int n_tiles = (p.Skv + KT - 1) / KT;
+  const int steps = 2 * n_tiles;  // pass 1: max and sum; pass 2: P . V
+  const int chunks = p.D / 8;     // 16-byte chunks per row
+  auto load = [&](int step, int stage) {
+    const int k0 = (step % n_tiles) * KT;
+    const bool with_v = step >= n_tiles;
+    __nv_bfloat16* ks = group + stage * 2 * TILE;
+    for (int idx = sl.gtid; idx < KT * chunks; idx += sl.gthreads) {
+      const int r = idx / chunks, c = (idx % chunks) * 8;
+      const bool in = sl.live && k0 + r < p.Skv;  // rows past Skv are zero-filled
+      const long long row = in ? k0 + r : 0;
+      cp_async_16(ks + r * LDK + c, kg + row * p.k_ss + c, in);
+      if (with_v) cp_async_16(ks + TILE + r * LDK + c, vg + row * p.v_ss + c, in);
+    }
+  };
+  load(0, 0);
+  cp_async_commit();
+
+  // this warp's 16 query rows as the A operand, straight from device memory
+  uint32_t qa[KS][4];
+  auto q_pair = [&](int row, int col) -> uint32_t {
+    return (sl.live && row < p.Sq && col < p.D)
+               ? *reinterpret_cast<const uint32_t*>(qg + row * p.q_ss + col)
+               : 0u;
+  };
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    qa[ks][0] = q_pair(sl.q0 + g, 16 * ks + 2 * t);
+    qa[ks][1] = q_pair(sl.q0 + g + 8, 16 * ks + 2 * t);
+    qa[ks][2] = q_pair(sl.q0 + g, 16 * ks + 8 + 2 * t);
+    qa[ks][3] = q_pair(sl.q0 + g + 8, 16 * ks + 8 + 2 * t);
+  }
+
+  // rows g and g + 8 of the warp's tile; logits kept in the log2 domain
+  const float scale_log2 = p.scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
+  float o[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) load(step + 1, (step + 1) & 1);
+    cp_async_commit();  // possibly empty: keeps "all but the newest group" = this step
+    cp_async_wait_newest_pending();
+    __syncthreads();
+    const __nv_bfloat16* ks_tile = group + (step & 1) * 2 * TILE;
+    const __nv_bfloat16* vs_tile = ks_tile + TILE;
+    const int k0 = (step % n_tiles) * KT;
+
+    // S = Q . K^T: [16 rows][32 keys] per warp, fp32
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    const __nv_bfloat16* kfrag =
+        ks_tile + ((lane & 7) + 8 * (lane >> 4)) * LDK + 8 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int nt = 0; nt < NT; nt += 2)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kfrag + 8 * nt * LDK + 16 * ks);
+        mma_bf16(s[nt], qa[ks], kb[0], kb[1]);
+        mma_bf16(s[nt + 1], qa[ks], kb[2], kb[3]);
+      }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool valid = k0 + 8 * nt + 2 * t + j < p.Skv;
+        s[nt][j] = valid ? s[nt][j] * scale_log2 : NEG_INF;
+        s[nt][2 + j] = valid ? s[nt][2 + j] * scale_log2 : NEG_INF;
+      }
+
+    if (step < n_tiles) {
+      // pass 1: running row max and row sum
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          sum += exp2f(s[nt][2 * i] - m_new) + exp2f(s[nt][2 * i + 1] - m_new);
+        l[i] = l[i] * exp2f(m[i] - m_new) + quad_sum(sum);
+        m[i] = m_new;
+      }
+    } else {
+      if (step == n_tiles) inv_l[0] = 1.f / l[0], inv_l[1] = 1.f / l[1];
+      // pass 2: O += P . V with P normalized, rounded to bf16 in registers
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        float pr[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            pr[h][j] = exp2f(s[2 * kk + h][j] - m[j >> 1]) * inv_l[j >> 1];
+        const uint32_t pa[4] = {pack_bf16(pr[0][0], pr[0][1]), pack_bf16(pr[0][2], pr[0][3]),
+                                pack_bf16(pr[1][0], pr[1][1]), pack_bf16(pr[1][2], pr[1][3])};
+        const __nv_bfloat16* vrow = vs_tile + (16 * kk + (lane & 15)) * LDK + 8 * (lane >> 4);
+#pragma unroll
+        for (int nd = 0; nd < ND; nd += 2) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vrow + 8 * nd);
+          mma_bf16(o[nd], pa, vb[0], vb[1]);
+          mma_bf16(o[nd + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  if (!sl.live) return;
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + sl.off_o;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = sl.q0 + g + 8 * i;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const int col = 8 * nd + 2 * t;
+      if (col < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(og + row * p.o_ss + col) =
+            __floats2bfloat162_rn(o[nd][2 * i], o[nd][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA-core FMAs
+// ---------------------------------------------------------------------------
+//
+// A warp's S tile is 16 rows x 32 keys: lane (rg = lane / 8, c = lane % 8)
+// holds rows rg + 4i and keys c + 8j (i, j < 4). A quarter-warp shares rg,
+// so its Q reads are broadcasts, and reads 8 consecutive K rows, whose
+// 16-byte chunks land on distinct banks because the row stride DP + 4 is an
+// odd multiple of 4 words. For P . V the lane holds rows rg + 4i and the
+// 16-byte column chunks c + 8m.
+
+__host__ __device__ constexpr int ld_f32(int dp) { return dp + 4; }
+constexpr int LDP = KT + 8;  // row stride of P: the 32 lanes' writes hit distinct banks
+
+template <int DP>
+constexpr int smem_f32(int ppc) {  // {K, V} per pair group + {Q, P} per warp
+  return (ppc * 2 * KT * ld_f32(DP) + WARPS * ROWS * (ld_f32(DP) + LDP)) *
+         static_cast<int>(sizeof(float));
+}
+
+__device__ __forceinline__ float group8_max(float x) {
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float group8_sum(float x) {
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS) window_attn_f32_kernel(const Params p) {
+  constexpr int LD = ld_f32(DP);
+  constexpr int C4 = DP / 4;          // 16-byte chunks per padded row
+  constexpr int MC = (C4 + 7) / 8;    // output chunks per lane
+  extern __shared__ __align__(16) float smem_f[];
+
+  const Slot sl = slot_of(p);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 3, c = lane & 7;
+  const int ppc = WARPS / p.wpp;
+  float* Ks = smem_f + sl.grp * 2 * KT * LD;  // [KT][LD]
+  float* Vs = Ks + KT * LD;                   // [KT][LD]
+  float* Qs = smem_f + ppc * 2 * KT * LD + warp * ROWS * (LD + LDP);  // [16][LD]
+  float* Ps = Qs + ROWS * LD;                                          // [16][LDP]
+  const float* qg = static_cast<const float*>(p.q) + sl.off_q;
+  const float* kg = static_cast<const float*>(p.k) + sl.off_k;
+  const float* vg = static_cast<const float*>(p.v) + sl.off_v;
+
+  for (int idx = lane; idx < ROWS * C4; idx += 32) {
+    const int r = idx / C4, ch = idx % C4;
+    const bool in = sl.live && sl.q0 + r < p.Sq && 4 * ch < p.D;
+    *reinterpret_cast<float4*>(Qs + r * LD + 4 * ch) =
+        in ? *reinterpret_cast<const float4*>(qg + (sl.q0 + r) * p.q_ss + 4 * ch)
+           : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  const int n_tiles = (p.Skv + KT - 1) / KT;
+  float m[4], l[4], inv_l[4], o[4][MC][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+    inv_l[i] = 0.f;
+#pragma unroll
+    for (int mc = 0; mc < MC; ++mc) o[i][mc][0] = o[i][mc][1] = o[i][mc][2] = o[i][mc][3] = 0.f;
+  }
+
+  for (int step = 0; step < 2 * n_tiles; ++step) {
+    const int k0 = (step % n_tiles) * KT;
+    const bool pass2 = step >= n_tiles;
+    __syncthreads();  // the previous step's K and V reads are done
+    for (int idx = sl.gtid; idx < KT * C4; idx += sl.gthreads) {
+      const int r = idx / C4, ch = idx % C4;
+      const bool in = sl.live && k0 + r < p.Skv && 4 * ch < p.D;
+      const long long row = k0 + r;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(Ks + r * LD + 4 * ch) =
+          in ? *reinterpret_cast<const float4*>(kg + row * p.k_ss + 4 * ch) : zero;
+      if (pass2)
+        *reinterpret_cast<float4*>(Vs + r * LD + 4 * ch) =
+            in ? *reinterpret_cast<const float4*>(vg + row * p.v_ss + 4 * ch) : zero;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int ch = 0; ch < C4; ++ch) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(Qs + (rg + 4 * i) * LD + 4 * ch);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(Ks + (c + 8 * j) * LD + 4 * ch);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool valid = k0 + c + 8 * j < p.Skv;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i][j] = valid ? s[i][j] * p.scale : NEG_INF;
+    }
+
+    if (!pass2) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float m_new =
+            fmaxf(m[i], group8_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]))));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
+        l[i] = l[i] * expf(m[i] - m_new) + group8_sum(sum);
+        m[i] = m_new;
+      }
+      continue;
+    }
+    if (step == n_tiles)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) inv_l[i] = 1.f / l[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Ps[(rg + 4 * i) * LDP + c + 8 * j] = expf(s[i][j] - m[i]) * inv_l[i];
+    __syncwarp();
+#pragma unroll 4
+    for (int kk = 0; kk < KT; ++kk) {
+      float pk[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pk[i] = Ps[(rg + 4 * i) * LDP + kk];
+#pragma unroll
+      for (int mc = 0; mc < MC; ++mc) {
+        const int ch = c + 8 * mc;
+        if (ch >= C4) continue;
+        const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * LD + 4 * ch);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][mc][0] = fmaf(pk[i], vv.x, o[i][mc][0]);
+          o[i][mc][1] = fmaf(pk[i], vv.y, o[i][mc][1]);
+          o[i][mc][2] = fmaf(pk[i], vv.z, o[i][mc][2]);
+          o[i][mc][3] = fmaf(pk[i], vv.w, o[i][mc][3]);
+        }
+      }
+    }
+    __syncwarp();  // P is read before the next step rewrites it
+  }
+
+  if (!sl.live) return;
+  float* og = static_cast<float*>(p.o) + sl.off_o;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = sl.q0 + rg + 4 * i;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int mc = 0; mc < MC; ++mc) {
+      const int ch = c + 8 * mc;
+      if (ch < C4 && 4 * ch < p.D)
+        *reinterpret_cast<float4*>(og + row * p.o_ss + 4 * ch) =
+            make_float4(o[i][mc][0], o[i][mc][1], o[i][mc][2], o[i][mc][3]);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int smem, const Params& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int ppc = WARPS / p.wpp;
+  const long long pairs = static_cast<long long>(p.N) * p.H;
+  const int row_blocks = (p.Sq + ROWS - 1) / ROWS;
+  const dim3 grid(static_cast<unsigned>((pairs + ppc - 1) / ppc), (row_blocks + p.wpp - 1) / p.wpp);
+  kernel<<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dp(bool bf16, const Params& p, cudaStream_t stream) {
+  const int ppc = WARPS / p.wpp;
+  if (bf16) return launch(window_attn_bf16_kernel<DP>, smem_bf16<DP>(ppc), p, stream);
+  return launch(window_attn_f32_kernel<DP>, smem_f32<DP>(ppc), p, stream);
+}
+
+cudaError_t dispatch(bool bf16, const Params& p, cudaStream_t stream) {
+  switch ((p.D + 15) / 16) {
+    case 1: return launch_dp<16>(bf16, p, stream);
+    case 2: return launch_dp<32>(bf16, p, stream);
+    case 3: return launch_dp<48>(bf16, p, stream);
+    case 4: return launch_dp<64>(bf16, p, stream);
+    case 5: return launch_dp<80>(bf16, p, stream);
+    case 6: return launch_dp<96>(bf16, p, stream);
+    case 7: return launch_dp<112>(bf16, p, stream);
+    case 8: return launch_dp<128>(bf16, p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the launch (0 = cudaSuccess). dtype: 0 fp32,
+// 1 bf16. N windows x H heads, each Sq query rows over Skv keys (1 to 1024
+// each), D a multiple of 8 up to 128; strides in elements for the window,
+// head and row axes of q, k, v and out (unit stride along D; rows 16-byte
+// aligned, which the wrapper checks). The caller allocates out.
+extern "C" int sam2_window_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, int dtype, int N, int H, int Sq,
+    int Skv, int D,
+    long long q_sn, long long q_sh, long long q_ss,
+    long long k_sn, long long k_sh, long long k_ss,
+    long long v_sn, long long v_sh, long long v_ss,
+    long long o_sn, long long o_sh, long long o_ss,
+    float scale, void* stream) {
+  if (N <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || Sq > 1024 || Skv > 1024 || D <= 0 ||
+      D > 128 || D % 8 != 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.N = N; p.H = H; p.Sq = Sq; p.Skv = Skv; p.D = D;
+  p.q_sn = q_sn; p.q_sh = q_sh; p.q_ss = q_ss;
+  p.k_sn = k_sn; p.k_sh = k_sh; p.k_ss = k_ss;
+  p.v_sn = v_sn; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.o_sn = o_sn; p.o_sh = o_sh; p.o_ss = o_ss;
+  p.scale = scale;
+  const int row_blocks = (Sq + ROWS - 1) / ROWS;
+  p.wpp = row_blocks >= 3 ? 4 : row_blocks;
+  return static_cast<int>(dispatch(dtype == 1, p, static_cast<cudaStream_t>(stream)));
+}

@@ -17,6 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sam2_opt_tpu_torch.models.model import default_device
 from sam2_opt_tpu_torch.utils.transforms import resize_to_model
 
 
@@ -56,10 +57,11 @@ def _resize_frame(frame_hwc: np.ndarray, image_size: int, device) -> torch.Tenso
 
 
 def load_video_frames(video_path, image_size: int = 1024, offload_video_to_cpu: bool = False,
-                      device="cpu") -> Tuple[torch.Tensor, int, int]:
+                      device=None) -> Tuple[torch.Tensor, int, int]:
     """Load a video resized to the model resolution. Returns (frames uint8
     [T, 3, S, S], video_height, video_width); the frames stay on `device`
-    unless `offload_video_to_cpu`."""
+    (the card unless the caller names another) unless `offload_video_to_cpu`."""
+    device = default_device(device)
     if isinstance(video_path, np.ndarray):
         if video_path.ndim != 4 or video_path.shape[-1] != 3:
             raise ValueError(f"video array must be [T, H, W, 3], got {video_path.shape}")

@@ -1,14 +1,22 @@
 """Hiera hierarchical ViT trunk + FPN neck.
 
-Counterpart of `sam2_opt_tpu/models/hiera.py` in its plain form (the JAX
-package's v5e layout routes are XLA-specific and equal to it). Modules and
-parameter names follow the reference trunk and neck
-(sam2/sam2/modeling/backbones/hieradet.py, image_encoder.py). The trunk works
-on NHWC tokens and returns NCHW maps; the neck is NCHW.
+Counterpart of `sam2_opt_tpu/models/hiera.py`. Modules and parameter names
+follow the reference trunk and neck (sam2/sam2/modeling/backbones/hieradet.py,
+image_encoder.py). The trunk works on NHWC tokens and returns NCHW maps; the
+neck is NCHW.
+
+The JAX package's opt-in trunk routes are here, under the same environment
+switches, defaults and precedence, read at every call (PyTorch runs
+eagerly): the bf16 window routes to the packed (K7) and per-window (K6)
+kernels, the window kernel in `ops.flash_or_sdpa` (K5), and the fused block
+MLP (K8). Its XLA layout routes (token-flat window runs, global blocks in
+window order, the space-to-depth patch embed) run no kernel and equal the
+plain form, so they are not ported.
 """
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import List
 
@@ -17,8 +25,58 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sam2_opt_tpu_torch.config import FpnNeckConfig, HieraConfig
+from sam2_opt_tpu_torch.kernels.fused_mlp import fused_mlp
+from sam2_opt_tpu_torch.kernels.window_attention import packed_window_attention, window_flash_3d
 from sam2_opt_tpu_torch.ops import common as ops
 from sam2_opt_tpu_torch.ops import posenc
+
+
+def _packed_window_max_tokens() -> int:
+    """bf16 windows of at most this many tokens route to the packed window
+    kernel (K7): `SAM2_TPU_PACKED_WINDOW=<tokens>`, default 0 (off); an
+    unparsable value is off (the JAX package's `hiera.py:60-74`)."""
+    try:
+        return int(os.environ.get("SAM2_TPU_PACKED_WINDOW", "") or 0)
+    except ValueError:
+        return 0
+
+
+def _flash_window_min_tokens() -> int:
+    """Smallest window of the split route that runs the per-window kernel
+    (K6): `SAM2_TPU_FLASH_WINDOW_MIN`, default 0 = off; a value <= 0 or an
+    unparsable one is off (`hiera.py:77-96`)."""
+    try:
+        v = int(os.environ.get("SAM2_TPU_FLASH_WINDOW_MIN", "0"))
+    except ValueError:
+        return 1 << 30
+    return v if v > 0 else 1 << 30
+
+
+def _split_window_min_tokens() -> int:
+    """Smallest bf16 window taken by the split route:
+    `SAM2_TPU_SPLIT_WINDOW_MIN`, default 64, also when unparsable
+    (`hiera.py:141-151`)."""
+    try:
+        return int(os.environ.get("SAM2_TPU_SPLIT_WINDOW_MIN", "64"))
+    except ValueError:
+        return 64
+
+
+def _use_fused_mlp() -> bool:
+    """The fused block MLP (K8) in bf16: `SAM2_TPU_FUSED_MLP=1`, default off
+    (`hiera.py:253-264`)."""
+    return os.environ.get("SAM2_TPU_FUSED_MLP", "0") == "1"
+
+
+def _split_window_attention(q, k, v):
+    """The split route (`hiera.py:154-213`) on [N, S, heads, d] views of the
+    block's one qkv projection: the per-window kernel (K6) from
+    `SAM2_TPU_FLASH_WINDOW_MIN` tokens up, else plain attention with bf16
+    logits. Returns [N, S, heads, d]."""
+    if q.shape[1] >= _flash_window_min_tokens():
+        return window_flash_3d(q, k, v)
+    return ops.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
 
 
 class MultiScaleAttention(nn.Module):
@@ -34,14 +92,23 @@ class MultiScaleAttention(nn.Module):
 
     def forward(self, x):
         B, H, W, _ = x.shape
-        qkv = self.qkv(x.reshape(B, H * W, -1)).reshape(B, H * W, 3, self.num_heads, -1)
+        S = H * W
+        qkv = self.qkv(x.reshape(B, S, -1)).reshape(B, S, 3, self.num_heads, -1)
         q, k, v = qkv.unbind(2)
+        # the bf16 window routes, in the JAX package's order (hiera.py:221-231):
+        # packed (K7), then split (K6 or plain bf16 attention)
+        if self.q_stride is None and x.dtype == torch.bfloat16:
+            if S <= _packed_window_max_tokens():
+                return self.proj(packed_window_attention(q, k, v).reshape(B, H, W, -1))
+            if _split_window_min_tokens() <= S <= 1024:
+                return self.proj(_split_window_attention(q, k, v).reshape(B, H, W, -1))
         if self.q_stride is not None:
             q = ops.max_pool2d(q.reshape(B, H, W, -1), self.q_stride, self.q_stride)
             H, W = q.shape[1], q.shape[2]
             q = q.reshape(B, H * W, self.num_heads, -1)
         # the global blocks (4096 tokens at 1024²) route to the flash kernel
-        # on CUDA; windowed blocks stay on plain matmul + softmax
+        # on CUDA; windowed blocks to K5 under SAM2_TPU_WINDOW_KERNEL=1, else
+        # plain matmul + softmax
         out = ops.flash_or_sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         return self.proj(out.transpose(1, 2).reshape(B, H, W, -1))
 
@@ -84,7 +151,17 @@ class MultiScaleBlock(nn.Module):
         if self.window_size > 0:
             x = ops.window_unpartition(x, ws, pad_hw, (H, W))
         x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        return x + self._mlp(self.norm2(x))
+
+    def _mlp(self, xn):
+        """The block MLP; in bf16 under `SAM2_TPU_FUSED_MLP=1` the fused
+        kernel (K8), where both layers hold a raw weight (`hiera.py:267-283`)."""
+        l1, l2 = self.mlp.layers
+        if (xn.dtype == torch.bfloat16 and _use_fused_mlp()
+                and isinstance(getattr(l1, "weight", None), torch.Tensor)
+                and isinstance(getattr(l2, "weight", None), torch.Tensor)):
+            return fused_mlp(xn, l1.weight, l1.bias, l2.weight, l2.bias, fast_act=True)
+        return self.mlp(xn)
 
 
 def _cubic_resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:

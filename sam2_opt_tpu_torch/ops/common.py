@@ -13,6 +13,7 @@ and one-pass LayerNorm variance.
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -123,15 +124,29 @@ def scaled_dot_product_attention(q, k, v, mask=None):
     return torch.matmul(probs.to(v.dtype), v)
 
 
+def use_window_kernel() -> bool:
+    """Opt-in per-window attention kernel (K5) for small unmasked windows,
+    `SAM2_TPU_WINDOW_KERNEL=1` as in the JAX package (`ops/common.py:232`);
+    read at every call."""
+    return os.environ.get("SAM2_TPU_WINDOW_KERNEL", "0") == "1"
+
+
 def flash_or_sdpa(q, k, v, kv_mask=None, min_seq: int = 1024):
     """Dispatch on [B, heads, seq, head_dim]: the hand-written flash kernel
     (K1, differentiable: its backward is K3) for CUDA tensors with q_len *
-    kv_len >= min_seq², else plain attention. kv_mask: [B, Skv] bool or
+    kv_len >= min_seq²; else, under `use_window_kernel()`, the window kernel
+    (K5) for unmasked attention with q_len == kv_len <= 1024 (its plain
+    version on CPU tensors); else plain attention. kv_mask: [B, Skv] bool or
     None."""
     if q.is_cuda and q.shape[-2] * k.shape[-2] >= min_seq * min_seq:
         from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention
 
         return flash_attention(q, k, v, kv_mask=kv_mask)[0]
+    if (kv_mask is None and use_window_kernel()
+            and q.shape[-2] == k.shape[-2] <= 1024):
+        from sam2_opt_tpu_torch.kernels.window_attention import window_attention
+
+        return window_attention(q, k, v)
     mask = None if kv_mask is None else kv_mask[:, None, None, :]
     return scaled_dot_product_attention(q, k, v, mask=mask)
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sam2_opt_tpu_torch.models.model import default_device
 from sam2_opt_tpu_torch.models.sam2_base import image_normalize, resize_hw
 from sam2_opt_tpu_torch.ops import common as ops
 from sam2_opt_tpu_torch.ops.connected_components import fill_holes_and_sprinkles
@@ -38,12 +39,13 @@ def postprocess_masks(masks, orig_hw, mask_threshold: float, max_hole_area: floa
 
 class SAM2Transforms:
     def __init__(self, resolution: int, mask_threshold: float, max_hole_area: float = 0.0,
-                 max_sprinkle_area: float = 0.0, device="cpu"):
+                 max_sprinkle_area: float = 0.0, device=None):
+        """Runs on the card unless `device` names another."""
         self.resolution = resolution
         self.mask_threshold = mask_threshold
         self.max_hole_area = max_hole_area
         self.max_sprinkle_area = max_sprinkle_area
-        self.device = torch.device(device)
+        self.device = default_device(device)
 
     def to_tensor(self, image: np.ndarray):
         """uint8 HWC -> float CHW in [0, 1]."""

@@ -116,7 +116,7 @@ def test_transforms_match_jax():
     The port's images are CHW, the JAX package's HWC."""
     rng = np.random.default_rng(7)
     image = (rng.random((100, 150, 3)) * 255).astype(np.uint8)
-    jax_t, port_t = JaxTransforms(128, 0.0), SAM2Transforms(128, 0.0)
+    jax_t, port_t = JaxTransforms(128, 0.0), SAM2Transforms(128, 0.0, device="cpu")
     np.testing.assert_allclose(port_t(image).permute(1, 2, 0).numpy(), np.asarray(jax_t(image)),
                                rtol=1e-5, atol=1e-5)
     coords, box = np.array([[10.0, 20.0], [140.0, 90.0]]), np.array([5.0, 6.0, 120.0, 80.0])
@@ -132,7 +132,7 @@ def test_transforms_match_jax():
                                np.asarray(jax_t.postprocess_masks(masks, (100, 150))),
                                rtol=1e-5, atol=1e-5)
     # hole and sprinkle filling before the resize: exact components
-    jax_t, port_t = JaxTransforms(128, 0.0, 8.0, 8.0), SAM2Transforms(128, 0.0, 8.0, 8.0)
+    jax_t, port_t = JaxTransforms(128, 0.0, 8.0, 8.0), SAM2Transforms(128, 0.0, 8.0, 8.0, device="cpu")
     np.testing.assert_allclose(port_t.postprocess_masks(masks, (100, 150)).numpy(),
                                np.asarray(jax_t.postprocess_masks(masks, (100, 150))),
                                rtol=1e-5, atol=1e-5)

@@ -133,18 +133,18 @@ def test_video_loader_sources(tmp_path):
 
     rng = np.random.default_rng(1)
     video = (rng.random((3, 60, 90, 3)) * 255).astype(np.uint8)
-    frames, h, w = load_video_frames(video, 32)
+    frames, h, w = load_video_frames(video, 32, device="cpu")
     assert (h, w) == (60, 90) and frames.shape == (3, 3, 32, 32) and frames.dtype == torch.uint8
-    same, _, _ = load_video_frames(video.astype(np.float32) / 255.0, 32)
+    same, _, _ = load_video_frames(video.astype(np.float32) / 255.0, 32, device="cpu")
     assert torch.equal(frames, same)
     for i, f in enumerate(video):
         Image.fromarray(f).save(tmp_path / f"frame_{i:03d}.jpg")
     decoded = np.stack([np.asarray(Image.open(tmp_path / f"frame_{i:03d}.jpg")) for i in range(3)])
-    from_dir, h, w = load_video_frames(str(tmp_path), 32)
+    from_dir, h, w = load_video_frames(str(tmp_path), 32, device="cpu")
     assert (h, w) == (60, 90)
-    assert torch.equal(from_dir, load_video_frames(decoded, 32)[0])
+    assert torch.equal(from_dir, load_video_frames(decoded, 32, device="cpu")[0])
     with pytest.raises(NotImplementedError):
-        load_video_frames(str(tmp_path / "clip.mp4"), 32)
+        load_video_frames(str(tmp_path / "clip.mp4"), 32, device="cpu")
 
 
 def test_video_builder_options(monkeypatch):
