@@ -80,8 +80,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    default route; K5-K8 at their main-path shapes beside their bounds,
    plain versions and library yardsticks (`F.scaled_dot_product_attention`;
    for K8 the unfused bf16 Linear -> GELU -> Linear, three calls).
-Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10; each phase
-that sets a switch restores it.
+15. K4 (K2 with the memory K/V projections fused in, the JAX package's
+   `SAM2_TPU_FUSED_KV_PROJ=1` route) against its plain version, bf16 and
+   fp32, on phase 4's cases with the memory 64 wide; a negative control
+   (the plain version without the K bias) that must fail; its seven
+   gradients through the seam against autograd of the plain version at the
+   cross shape; its time beside its bound, its plain version, the unfused
+   route it replaces (two F.linear + K2) and the composite yardstick (two
+   F.linear + rotation + SDPA);
+16. the video slice under the switch: the hiera-L video predictor over 3
+   frames in fp32 and bf16 with exact launches per tracked frame (K1 3, K2
+   4, K4 4), fp32 logits held to the default route, bf16 masks by mIoU;
+   ms per tracked frame and the device split of both routes;
+17. training under the switch: `Trainer.run` at hiera-b+ 1024², two fp32
+   and two bf16 steps with exact launches per step (K1 6, K2 28, K4 28, K3a 59, K3b
+   59), the fp32 first-step loss held to phase 10's default route;
+18. K9 and K10 (the window bench tool's kernels, the window kernel of phase
+   11 behind two more wrappers) against the plain version at the tool's
+   four shapes, bf16, with a negative control; then the tool's port
+   (`python -m sam2_opt_tpu_torch.tools.bench_window_flash`), whose rows
+   give their times beside SDPA and the einsum path.
+Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-18; each
+phase that sets a switch restores it.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -666,6 +686,7 @@ FAMILIES = [
     ("K5-K7 window_attention (csrc)", r"window_attn_"),
     ("K8 fused_mlp (csrc)", r"fused_mlp_kernel"),
     ("K3 flash_attention_bwd (csrc)", r"bwd_dkdv_kernel|bwd_dq_kernel"),
+    ("K4 flash_attention_kv_proj (csrc)", r"flash_kvproj_"),  # its split merge counts as K2's
     ("K2 flash_attention_rope (csrc)", r"flash_rope_"),
     ("K1 flash_attention (csrc)", r"flash_fwd_"),
     ("convolution", r"conv|fprop|dgrad|wgrad|cudnn|implicit_gemm|winograd"),
@@ -745,6 +766,45 @@ def phase_times(predictor, image, flash_attention, flash_attention_ref):
     return times, k1
 
 
+def propagation_times(predictor, video, points, label):
+    """One object tracked over `video` at the predictor's backend: ms per
+    tracked frame (CUDA events, after a warm-up pass that fills every memory
+    slot), the whole pass, its device split and idle share, peak memory;
+    logged under `label`."""
+    T = video.shape[0]
+    state = predictor.init_state(video)
+    predictor.add_new_points_or_box(state, 0, 1, points=points, labels=np.array([1], np.int32))
+    list(predictor.propagate_in_video(state))  # warm-up, every memory slot filled
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = []
+    frames = predictor.propagate_in_video(state)
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        if next(frames, None) is None:
+            break
+        end.record()
+        end.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tracked = frame_ms[1:]  # frame 0 is the conditioning frame
+    wall_ms = cuda_ms(lambda: list(predictor.propagate_in_video(state)), reps=2, warmup=1)
+    busy, fams, top = device_split(lambda: list(predictor.propagate_in_video(state)), reps=1)
+    per = 1.0 / (T - 1)
+    log(f"{label}: propagate_in_video per tracked frame {np.mean(tracked):.3f} ms (frames "
+        f"1-{T - 1}: {[round(x, 3) for x in tracked]}), whole pass {wall_ms:.3f} ms, device "
+        f"busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.1%}, peak device memory "
+        f"{peak:.2f} GiB")
+    log(json.dumps({"tracked_frame_device_split": label.replace("torch.", ""),
+                    "per_tracked_frame": {f: {"ms": v["ms"] * per, "launches": v["launches"] * per}
+                                          for f, v in fams.items()},
+                    "top_kernels_ms_per_pass": top}))
+    return dict(frame_ms=float(np.mean(tracked)), frames_ms=tracked, pass_ms=wall_ms,
+                busy_ms=busy, idle_share=1 - busy / wall_ms, busy_per_frame_ms=busy * per,
+                peak_gib=peak)
+
+
 def phase_video_times(predictor, video, points, flash_attention_rope,
                       flash_attention_rope_ref):
     """Per-frame propagation time, peak memory and the device split of the
@@ -754,43 +814,10 @@ def phase_video_times(predictor, video, points, flash_attention_rope,
     from sam2_opt_tpu_torch.models.memory_attention import _rope_half_tables
     from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
 
-    T = video.shape[0]
     times = {}
     for dtype, backend in ((torch.float32, "eager"), (torch.bfloat16, "cuda")):
         predictor.set_runtime_backend(backend)
-        state = predictor.init_state(video)
-        predictor.add_new_points_or_box(state, 0, 1, points=points,
-                                        labels=np.array([1], np.int32))
-        list(predictor.propagate_in_video(state))  # warm-up, every memory slot filled
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        frame_ms = []
-        frames = predictor.propagate_in_video(state)
-        while True:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            if next(frames, None) is None:
-                break
-            end.record()
-            end.synchronize()
-            frame_ms.append(start.elapsed_time(end))
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        tracked = frame_ms[1:]  # frame 0 is the conditioning frame
-        wall_ms = cuda_ms(lambda: list(predictor.propagate_in_video(state)), reps=2, warmup=1)
-        busy, fams, top = device_split(lambda: list(predictor.propagate_in_video(state)), reps=1)
-        per = 1.0 / (T - 1)
-        log(f"{dtype}: propagate_in_video per tracked frame {np.mean(tracked):.3f} ms (frames "
-            f"1-{T - 1}: {[round(x, 3) for x in tracked]}), whole pass {wall_ms:.3f} ms, device "
-            f"busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.1%}, peak device memory "
-            f"{peak:.2f} GiB")
-        log(json.dumps({"tracked_frame_device_split": str(dtype).replace("torch.", ""),
-                        "per_tracked_frame": {f: {"ms": v["ms"] * per,
-                                                  "launches": v["launches"] * per}
-                                              for f, v in fams.items()},
-                        "top_kernels_ms_per_pass": top}))
-        times[dtype] = dict(frame_ms=float(np.mean(tracked)), frames_ms=tracked,
-                            pass_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
-                            busy_per_frame_ms=busy * per, peak_gib=peak)
+        times[dtype] = propagation_times(predictor, video, points, str(dtype))
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -1113,12 +1140,23 @@ def launches_per_step(T=TRAIN_FRAMES):
     return {"K1": k1, "K2": k2, "K3a": 3 + k2, "K3b": 3 + k2}
 
 
+def train_config(dtype, root):
+    """The trainer settings of phase 10: one 8-frame video of two objects
+    per batch, a point prompt and one correction click, remat "encoder"."""
+    from sam2_opt_tpu_torch.training.trainer import TrainConfig
+
+    return TrainConfig(num_epochs=1, num_frames=TRAIN_FRAMES, max_num_objects=TRAIN_OBJECTS,
+                       prob_to_use_pt_input=1.0, prob_to_use_box_input=0.0, remat="encoder",
+                       compute_dtype=dtype, seed=SEED, checkpoint_dir=f"{root}/ckpt",
+                       log_dir=f"{root}/logs")
+
+
 def phase_trainer(counters):
     """The main path: Trainer.run at hiera-b+ 1024², fp32 then bf16."""
     import tempfile
 
     from sam2_opt_tpu_torch.config import model_config
-    from sam2_opt_tpu_torch.training.trainer import TrainConfig, Trainer
+    from sam2_opt_tpu_torch.training.trainer import Trainer
 
     cfg = model_config("hiera_b+")
     batch = training_video()
@@ -1127,11 +1165,7 @@ def phase_trainer(counters):
     tmp = tempfile.mkdtemp(prefix="sam2_chip_smoke_train_")
     for dtype in ("float32", "bfloat16"):
         t0 = time.perf_counter()
-        tcfg = TrainConfig(num_epochs=1, num_frames=TRAIN_FRAMES, max_num_objects=TRAIN_OBJECTS,
-                           prob_to_use_pt_input=1.0, prob_to_use_box_input=0.0,
-                           remat="encoder", compute_dtype=dtype, seed=SEED,
-                           checkpoint_dir=f"{tmp}/{dtype}/ckpt", log_dir=f"{tmp}/{dtype}/logs")
-        trainer = Trainer(cfg, b_plus("cuda"), tcfg)
+        trainer = Trainer(cfg, b_plus("cuda"), train_config(dtype, f"{tmp}/{dtype}"))
         before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1507,12 +1541,388 @@ def phase_route_kernel_times():
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# slice 5: K4 under SAM2_TPU_FUSED_KV_PROJ=1; K9 and K10 behind the window
+# bench tool's port
+# --------------------------------------------------------------------------- #
+
+K4_SWITCH = {"SAM2_TPU_FUSED_KV_PROJ": "1"}
+K4_DM = 64  # mem_dim: the memory tokens' width before the projections
+# K4 vs plain: K2's tolerances, rederived. Given K, K2's reasoning holds (the
+# rotation is bit-exact on both sides; P and out are rounded as K1 rounds
+# them). K4 adds the projections: kernel and plain version sum the same 64
+# products per element of K and V in other orders, in fp32, and round once
+# to q's dtype. In fp32 that moves K and V by ~1e-7 relative, inside 1e-5.
+# In bf16 a rounding may land one ulp (at most 2^-7 relative) apart where
+# the two fp32 sums straddle a rounding boundary, in ~2^-16 of the elements:
+# a V element one ulp off moves out by p * 2^-7 |v| (p <= ~0.01 here), a K
+# element moves one key's logit by 2^-7 |q_d k_d| / 16 and the row's lse by
+# p times that: far inside atol 1e-3 and the lse's 1e-5.
+K4_TOL = K2_TOL
+K4_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max |g|
+K4_CROSS = (1, 4096, K2_SLOTS * 4096 + 4 * K2_PTRS, K2_D, K4_DM)  # (B, Sq, Skv, D, Dm)
+K4_VIDEO_FRAMES = 3
+# per tracked frame under the switch: the 4 cross-attentions move from K2 to K4
+K4_FRAME_LAUNCHES = (3, 4, 4)  # (K1, K2, K4)
+K4_STEP_LAUNCHES = {"K1": 6, "K2": 28, "K4": 28, "K3a": 59, "K3b": 59}
+K4_TRAIN_STEPS = 2
+
+
+def k4_bound_ms(B, Sq, Skv, D, Dm, dtype, valid_keys=None):
+    """Least time for K4's work on these inputs: per object the attention's
+    4*Sq*valid*D operations, each valid key projected once (2*2*Dm*D) and
+    rotated (3 per K element); q, the memory tokens, weights, biases, tables
+    and mask read once, out and lse written once."""
+    valid = B * Skv if valid_keys is None else valid_keys
+    flops = 4.0 * Sq * valid * D + 4.0 * valid * Dm * D + 3.0 * valid * D
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = (itemsize * (2 * B * Sq * D + 2 * B * Skv * Dm + 2 * D * Dm + Skv * D)
+              + 4 * 2 * D + B * Skv + 4 * B * Sq)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k4_executed_gflop(B, Sq, Skv, D, Dm):
+    """What the kernel executes: the attention plus, per 128-row query tile,
+    the projection of every kv tile it reads."""
+    return (4.0 * B * Sq * Skv * D + B * math.ceil(Sq / 128) * 4.0 * Skv * Dm * D) / 1e9
+
+
+def k4_params(gen, dtype, bias):
+    """wk, bk, wv, bv: weights ~ 1/sqrt(fan-in), biases `bias` x N(0, 1)."""
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+    return [(randn(K2_D, K4_DM) / 8).to(dtype), (bias * randn(K2_D)).to(dtype),
+            (randn(K2_D, K4_DM) / 8).to(dtype), (bias * randn(K2_D)).to(dtype)]
+
+
+def k4_cases(dtype, bias=0.5):
+    """(label, [q, mem_k, mem_v, wk, bk, wv, bv, cos, sin, kv_mask]): phase
+    4's cases with the memory Dm wide. The forward checks take biases of
+    0.5, large enough that leaving bk out is visible; the gradient check
+    takes the JAX kernel test's 0.05 (see phase_k4_grads)."""
+    from sam2_opt_tpu_torch.models.memory_attention import _rope_half_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    cpu_gen = torch.Generator().manual_seed(SEED + 10)
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(dtype)  # noqa: E731
+    D, S = K2_D, 4096
+    c, s = _rope_half_tables(D, 64, 64, 10000.0, K2_SLOTS, 4 * K2_PTRS, torch.device("cuda"), dtype)
+    skv = c.shape[0]
+    yield ("cross, 3/7 slots + 9/16 pointers masked",
+           [randn(1, 1, S, D), randn(1, skv, K4_DM), randn(1, skv, K4_DM), *k4_params(gen, dtype, bias),
+            c, s, memory_mask(1, cpu_gen)])
+    yield ("cross, two objects",
+           [randn(2, 1, S, D), randn(2, skv, K4_DM), randn(2, skv, K4_DM), *k4_params(gen, dtype, bias),
+            c, s, memory_mask(2, cpu_gen)])
+    kv_mask = torch.rand(2, 1500, device="cuda", generator=gen) > 0.3
+    kv_mask[1] = False
+    yield ("ragged, row 1 fully masked",
+           [randn(2, 1, 1000, D), randn(2, 1500, K4_DM), randn(2, 1500, K4_DM),
+            *k4_params(gen, dtype, bias), c[:1500].contiguous(), s[:1500].contiguous(), kv_mask])
+
+
+def phase_k4(kv_proj, kv_proj_ref):
+    """K4 against its plain version on the card; returns the largest error.
+    The negative control holds the kernel to the plain version without bk:
+    the check must fail."""
+    max_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, args in k4_cases(dtype):
+            out, lse = kv_proj(*args)
+            ref, ref_lse = kv_proj_ref(*args)
+            torch.cuda.synchronize()
+            ok, err = k2_within(out, ref, dtype)
+            lse_err = (lse - ref_lse).abs()
+            ok_lse = bool((lse_err <= LSE_TOL[1] + LSE_TOL[0] * ref_lse.abs()).all())
+            max_err = max(max_err, err.max().item())
+            q, mem_k = args[0], args[1]
+            log(f"K4 {dtype} B={q.shape[0]} Sq={q.shape[2]} Skv={mem_k.shape[1]} D={q.shape[3]} "
+                f"Dm={mem_k.shape[2]} {label}: max|out-ref| {err.max().item():.3e} (rtol "
+                f"{K4_TOL[dtype][0]}, atol {K4_TOL[dtype][1]}; mean |ref| "
+                f"{ref.float().abs().mean().item():.3e}), max|lse-ref| {lse_err.max().item():.3e}")
+            check(ok and ok_lse, "K4 disagrees with its plain version")
+            if label.startswith("ragged"):
+                check(not out[1].any() and bool((lse[1] == -1e30).all()),
+                      "K4: fully masked rows must output 0 and lse -1e30")
+            if label.startswith("cross, 3/7"):
+                no_bias = args[:4] + [torch.zeros_like(args[4])] + args[5:]
+                bad_ref, _ = kv_proj_ref(*no_bias)
+                bad, bad_err = k2_within(out, bad_ref, dtype)
+                rtol, atol = K4_TOL[dtype]
+                frac = (bad_err > atol + rtol * bad_ref.float().abs()).float().mean().item()
+                log(f"  negative control (plain version without bk): max|out-ref| "
+                    f"{bad_err.max().item():.3e}, {frac:.1%} of elements outside the tolerance")
+                check(not bad, "K4's check cannot see the K bias")
+            del out, lse, ref, ref_lse, args
+    return max_err
+
+
+def phase_k4_grads(kv_proj, kv_proj_ref):
+    """The seven gradients through K4 (backward: K3 and the projection
+    products) against autograd of the plain version at the cross shape with
+    phase 4's mask: fp32 within 1e-4 of max |g|; bf16 within 2e-2, and dbk
+    in bf16 within 2e-2 of the sum of |its per-key terms| (a nearly
+    cancelling sum, see `flash_attention_kv_proj_dbk_scale`). The biases
+    are the JAX kernel test's 0.05: the flash backward takes delta =
+    rowsum(dO * O) from the bf16 output, and dQ carries that rounding times
+    the component all keys share, which a large bias makes large (at 0.5,
+    dQ differed from the fp32 autograd of the plain version by 4.0% of max
+    |g| on an H100 80GB HBM3 at 700 W)."""
+    from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention_kv_proj_dbk_scale
+
+    names = ("q", "mem_k", "mem_v", "wk", "bk", "wv", "bv")
+    for dtype in (torch.float32, torch.bfloat16):
+        _, args = next(iter(k4_cases(dtype, bias=0.05)))
+        g = torch.randn(args[0].shape, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 11)).to(dtype)
+        grads = []
+        for fn in (kv_proj, kv_proj_ref):
+            leaves = [a.clone().requires_grad_() for a in args[:7]]
+            out, _ = fn(*leaves, *args[7:])
+            grads.append(torch.autograd.grad(out, leaves, g))
+            del out, leaves
+        tol = K4_GRAD_TOL[dtype]
+        worst, bad = {}, []
+        for name, got, want in zip(names, *grads):
+            err = (got.float() - want.float()).abs()
+            scale = want.float().abs().max()
+            if name == "bk" and dtype == torch.bfloat16:
+                terms = flash_attention_kv_proj_dbk_scale(*args[:9], g, args[9])
+                lim = tol * (scale + terms)
+                log(f"  bf16 dbk: max|err| {err.max().item():.3e}, max|g| {scale.item():.3e}, "
+                    f"sum over keys of |terms| up to {terms.max().item():.3e}")
+            else:
+                lim = tol * scale
+            worst[name] = round((err.max() / scale).item(), 6)
+            if bool((err > lim).any()):
+                bad.append(name)
+        log(f"K4 gradients through the seam vs autograd of the plain version ({dtype}, cross "
+            f"shape): |err|/max|g| {worst} (limit {tol})")
+        check(not bad, f"K4's gradients disagree with the plain version: {bad}")
+        del grads, args, g
+        torch.cuda.empty_cache()
+
+
+def phase_k4_times(kv_proj, kv_proj_ref):
+    """K4 at the cross shape, every key valid (the steady state), cold L2,
+    beside its bound, its plain version, the unfused route it replaces (two
+    F.linear + K2) and the composite yardstick (two F.linear + rotation +
+    F.scaled_dot_product_attention, which the port never calls)."""
+    from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention_rope
+    from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    B, Sq, Skv, D, Dm = K4_CROSS
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        _, args = next(iter(k4_cases(dtype)))
+        q, mk, mv, wk, bk, wv, bv, c, s, _ = args
+        mask = torch.ones(B, Skv, dtype=torch.bool, device="cuda")
+        attn_mask = mask[:, None, None, :]
+
+        def unfused():
+            return flash_attention_rope(q, F.linear(mk, wk, bk)[:, None], F.linear(mv, wv, bv)[:, None],
+                                        c, s, mask)
+
+        def library():
+            kr = apply_rotary_split(F.linear(mk, wk, bk).float(), c.float(), s.float()).to(dtype)
+            return F.scaled_dot_product_attention(q, kr[:, None], F.linear(mv, wv, bv)[:, None],
+                                                  attn_mask=attn_mask)
+
+        ms = cuda_ms(lambda: kv_proj(q, mk, mv, wk, bk, wv, bv, c, s, mask), reps=5, flush=flush)
+        plain_ms = cuda_ms(lambda: kv_proj_ref(q, mk, mv, wk, bk, wv, bv, c, s, mask), reps=3,
+                           warmup=1, flush=flush)
+        unfused_ms = cuda_ms(unfused, reps=5, flush=flush)
+        library_ms = cuda_ms(library, reps=5, flush=flush)
+        bound_ms, bound_by = k4_bound_ms(B, Sq, Skv, D, Dm, dtype)
+        executed = k4_executed_gflop(B, Sq, Skv, D, Dm)
+        log(f"K4 {dtype} {K4_CROSS}: {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused route "
+            f"(2 F.linear + K2) {unfused_ms:.4f} ms, 2 F.linear + rotation + "
+            f"F.scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), {bound_ms / ms:.1%} of bound; executes {executed:.1f} GFLOP "
+            f"({executed / ms:.1f} TFLOP/s)")
+        rows[dtype] = dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, executed_gflop=executed)
+        del args, q, mk, mv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_k4_video(counters):
+    """The video slice under the switch: the hiera-L video predictor of
+    phase 6 (rebuilt from the seed), 3 frames of its video in fp32 and bf16,
+    default route and K4 route in turn, no hole filling on either (a logit
+    on the threshold could move a small component): exact launches per
+    frame, fp32 low-res logits within 1e-3 of their scale, bf16 masks by
+    mIoU; then ms per tracked frame and the device split of both routes
+    over the 8 frames. Returns (K4 launches of the checked runs, times)."""
+    from sam2_opt_tpu_torch import build_sam2_video_predictor
+
+    predictor = build_sam2_video_predictor("hiera_l", seed=SEED)
+    with torch.no_grad():
+        predictor.model.module.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += OBJ_BIAS
+    video = synthetic_video(SEED)
+    points = np.array([[VIDEO_SQUARE[0] + 120, VIDEO_SQUARE[1] + 120]], np.float32)
+    kernels = tuple(counters.values())
+    launches, times = 0, {}
+    for dtype, backend in ((torch.float32, "eager"), (torch.bfloat16, "cuda")):
+        predictor.set_runtime_backend(backend)
+        predictor.fill_hole_area = 0
+        default_state, default_masks, _ = track(predictor, video, K4_VIDEO_FRAMES, points)
+        with switches(K4_SWITCH):
+            # the main path: counts to 0 just before, read just after
+            for c in kernels:
+                c.launches = 0
+            state, masks, per_frame = track(predictor, video, K4_VIDEO_FRAMES, points,
+                                            counts=kernels)
+            torch.cuda.synchronize()
+            launches += counters["K4"].launches
+        log(f"K4 route, {K4_VIDEO_FRAMES} frames, {dtype}: per frame (K1, K2, K4) {per_frame}")
+        check(per_frame == [(0, 0, 0)] + [K4_FRAME_LAUNCHES] * (K4_VIDEO_FRAMES - 1),
+              f"each tracked frame under the switch must launch (K1, K2, K4) {K4_FRAME_LAUNCHES}")
+        if dtype == torch.float32:
+            got, want = low_res(state), low_res(default_state)
+            scale = max(1.0, float(want.abs().max()))
+            worst = float((got - want).abs().max()) / scale
+            log(f"  fp32 K4 route vs the default route: max|dlogit|/scale {worst:.3e} (limit "
+                f"{CPU_LOGIT_RTOL}; scale {scale:.3f})")
+            check(worst <= CPU_LOGIT_RTOL, "fp32 video logits under K4 drift from the default route")
+        else:
+            ious = [miou(a[0, 0].cpu().numpy() > 0, b[0, 0].cpu().numpy() > 0)
+                    for a, b in zip(masks, default_masks)]
+            log(f"  bf16 K4 route vs the default route: per-frame mask mIoU "
+                f"{[round(float(x), 4) for x in ious]} (limit > {VIDEO_BF16_MIOU_MIN})")
+            check(min(ious) > VIDEO_BF16_MIOU_MIN, "bf16 video masks under K4 drift from the default")
+        predictor.fill_hole_area = 8
+        times[str(dtype).replace("torch.", "")] = {
+            "default": propagation_times(predictor, video, points, f"{dtype} default route"),
+        }
+        with switches(K4_SWITCH):
+            times[str(dtype).replace("torch.", "")]["K4"] = propagation_times(
+                predictor, video, points, f"{dtype} K4 route")
+    del predictor
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def phase_k4_train(counters, default_fp32_loss):
+    """Training under the switch: Trainer.run at hiera-b+ 1024², two fp32
+    and two bf16 steps on phase 10's batch and weights (the schedule warms
+    up from lr 0, so the first step moves nothing): exact launches per
+    step, the fp32 first-step loss within 1e-4 relative of phase 10's
+    default route, masters that moved. Returns (K4 launches, {dtype:
+    losses, ms per step})."""
+    import tempfile
+
+    from sam2_opt_tpu_torch.config import model_config
+    from sam2_opt_tpu_torch.training.trainer import Trainer
+
+    cfg = model_config("hiera_b+")
+    batch = training_video()
+    tmp = tempfile.mkdtemp(prefix="sam2_chip_smoke_train_k4_")
+    launches, runs = 0, {}
+    with switches(K4_SWITCH):
+        for dtype in ("float32", "bfloat16"):
+            trainer = Trainer(cfg, b_plus("cuda"), train_config(dtype, f"{tmp}/{dtype}"))
+            before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+            torch.cuda.synchronize()
+            # the main path: counts to 0 just before, read just after
+            for c in counters.values():
+                c.launches = 0
+            trainer.run(lambda epoch: iter([batch] * K4_TRAIN_STEPS),
+                        steps_per_epoch=K4_TRAIN_STEPS)
+            torch.cuda.synchronize()
+            got = {k: c.launches for k, c in counters.items()}
+            loss = trainer.step_losses[0]
+            step_ms = [1e3 * s for s in trainer.step_seconds]
+            moved = sum(not torch.equal(p, before[n]) for n, p in trainer.model.named_parameters())
+            log(f"training under the switch, {dtype}: {K4_TRAIN_STEPS} steps, losses "
+                f"{[round(x, 6) for x in trainer.step_losses]}, ms per step "
+                f"{[round(x, 1) for x in step_ms]}; launches {got}; {moved} of {len(before)} "
+                f"parameters moved")
+            expect = {k: K4_TRAIN_STEPS * v for k, v in K4_STEP_LAUNCHES.items()}
+            check(got == expect, f"{dtype} training under the switch launched {got}, expected {expect}")
+            check(all(np.isfinite(trainer.step_losses)) and moved > 0,
+                  "the K4 training steps must move the masters")
+            if dtype == "float32":
+                rel = abs(loss - default_fp32_loss) / abs(default_fp32_loss)
+                log(f"  fp32 first-step loss vs the default route's {default_fp32_loss:.6f}: rel "
+                    f"{rel:.2e} (limit {TRAIN_CPU_LOSS_RTOL})")
+                check(rel <= TRAIN_CPU_LOSS_RTOL, "fp32 training loss under K4 drifts from default")
+            launches += got["K4"]
+            runs[dtype] = dict(losses=trainer.step_losses, step_ms=step_ms, launches=got)
+            del trainer, before
+            torch.cuda.empty_cache()
+    return launches, runs
+
+
+def phase_k9_k10():
+    """K9 and K10 against their plain version at the bench tool's four
+    shapes, bf16, within `window_attention_bf16_bound`; the negative control
+    holds K9 to the plain version at twice the scale (it must fail). Returns
+    ({key: largest error}, {(key, shape): plain ms})."""
+    from sam2_opt_tpu_torch.kernels.window_attention import (
+        window_attention_3d,
+        window_attention_heads,
+        window_attention_nshd_ref,
+    )
+    from sam2_opt_tpu_torch.tools.bench_window_flash import SHAPES
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    max_err, plain = {"K9": 0.0, "K10": 0.0}, {}
+    for label, N, S, H, D in SHAPES:
+        q, k, v = (torch.randn(N, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        ref = window_attention_nshd_ref(q, k, v)
+        errs = []
+        for key, fn in (("K9", window_attention_heads), ("K10", window_attention_3d)):
+            out = fn(q, k, v)
+            torch.cuda.synchronize()
+            ok, err = window_within(t(out), t(ref), t(q), t(k), t(v))
+            max_err[key] = max(max_err[key], err.max().item())
+            errs.append(f"{key} {err.max().item():.3e}")
+            check(ok, f"{key} disagrees with its plain version at {label} {(N, S, H, D)}")
+            if (label, key) == (SHAPES[2][0], "K9"):
+                bad, bad_err = window_within(t(out), t(window_attention_nshd_ref(2 * q, k, v)),
+                                             2 * t(q), t(k), t(v))
+                log(f"  negative control (plain version at twice the scale): max|out-ref| "
+                    f"{bad_err.max().item():.3e}")
+                check(not bad, "the K9 check cannot see the softmax scale")
+        plain[(N, S, H, D)] = graph_ms(lambda: window_attention_nshd_ref(q, k, v), reps=5,
+                                       flush=flush)
+        log(f"K9/K10 bf16 {label} {(N, S, H, D)}: max|out-ref| {', '.join(errs)} (per-element "
+            f"rounding bound); plain {plain[(N, S, H, D)]:.4f} ms")
+    return max_err, plain
+
+
+def phase_bench_tool(counters):
+    """The ported bench tool's entry point on the card (its main path): one
+    JSON row per shape, both kernels within the bound; returns (rows,
+    launches)."""
+    from sam2_opt_tpu_torch.tools import bench_window_flash
+
+    # the main path: counts to 0 just before, read just after
+    for c in counters.values():
+        c.launches = 0
+    rows = bench_window_flash.main(["--reps", "10"])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"bench tool: {len(rows)} rows, launches {launches}")
+    check(len(rows) == len(bench_window_flash.SHAPES)
+          and all(r["kern_h_within_bound"] and r["kern_3d_within_bound"] for r in rows),
+          "the bench tool's kernels disagree with the plain version")
+    check(all(v > 0 for v in launches.values()), "the bench tool must launch K9 and K10")
+    return rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    name = torch.cuda.get_device_name(0)
-    log(f"device: {name}, count {torch.cuda.device_count()}")
+    device_name = torch.cuda.get_device_name(0)
+    log(f"device: {device_name}, count {torch.cuda.device_count()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
     log(smi[0])
@@ -1522,12 +1932,16 @@ def main():
     from sam2_opt_tpu_torch.kernels.window_attention import (
         packed_window_attention,
         window_attention,
+        window_attention_3d,
+        window_attention_heads,
         window_flash_3d,
     )
     from sam2_opt_tpu_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd_dkdv,
         flash_attention_bwd_dq,
+        flash_attention_kv_proj,
+        flash_attention_kv_proj_ref,
         flash_attention_ref,
         flash_attention_rope,
         flash_attention_rope_ref,
@@ -1568,6 +1982,18 @@ def main():
                 "K3a": flash_attention_bwd_dkdv, "K3b": flash_attention_bwd_dq}
     train_runs, train_launches = phase_trainer(counters)
     cli_loss = phase_train_cli()
+
+    # slice 5
+    k4_err = phase_k4(flash_attention_kv_proj, flash_attention_kv_proj_ref)
+    phase_k4_grads(flash_attention_kv_proj, flash_attention_kv_proj_ref)
+    k4 = phase_k4_times(flash_attention_kv_proj, flash_attention_kv_proj_ref)
+    k4_video_launches, k4_video_times = phase_k4_video(
+        {"K1": flash_attention, "K2": flash_attention_rope, "K4": flash_attention_kv_proj})
+    k4_train_launches, k4_train = phase_k4_train(
+        {**counters, "K4": flash_attention_kv_proj}, train_runs["float32"]["losses"][0])
+    window_tool_err, window_tool_plain = phase_k9_k10()
+    tool_rows, tool_launches = phase_bench_tool(
+        {"K9": window_attention_heads, "K10": window_attention_3d})
 
     source = "sam2_opt_tpu_torch/csrc/flash_attention.cu"
     entries = [{
@@ -1649,13 +2075,57 @@ def main():
                        for (k, dt, sh), row in route_kernels.items() if k == key},
             "video_launches": video_route_launches.get(key, 0),
         })
+    # slice 5: K4 at the cross shape; K9 and K10 at the tool's first shape
+    # (each shape launches them equally often), the other shapes beside it
+    entries.append({
+        "name": "flash_attention_kvproj_fwd (K4)",
+        "route": "cuda",
+        "source": "sam2_opt_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "sam2_opt_tpu/kernels/flash_attention.py:154",
+        "launches": k4_video_launches,
+        "max_abs_err": k4_err,
+        **k4[torch.bfloat16],
+        "shape": list(K4_CROSS),
+        "dtype": "bfloat16",
+        "library": "2 F.linear + rotation + F.scaled_dot_product_attention",
+        "fp32": k4[torch.float32],
+        "training_launches": k4_train_launches,
+    })
+    for key, kernel_name, line, field in (("K9", "window_attention_heads (K9)", 55, "kern_h"),
+                                   ("K10", "window_attention_3d (K10)", 83, "kern_3d")):
+        shapes = {}
+        for row in tool_rows:
+            shape = (row["N"], row["S"], row["H"], row["D"])
+            bound_ms, bound_by = window_bound_ms(row["N"], row["H"], row["S"], row["S"], row["D"],
+                                                 torch.bfloat16)
+            shapes["x".join(map(str, shape))] = dict(
+                ms=row[f"{field}_us"] / 1e3, plain_ms=window_tool_plain[shape],
+                library_ms=row["sdpa_us"] / 1e3, einsum_ms=row["einsum_us"] / 1e3,
+                bound_ms=bound_ms, bound_by=bound_by,
+                **({"kernel_alone_ms": row["kern_3d_kernel_us"] / 1e3} if key == "K10" else {}))
+        first_shape = [tool_rows[0][k] for k in ("N", "S", "H", "D")]
+        first = shapes["x".join(map(str, first_shape))]
+        entries.append({
+            "name": kernel_name,
+            "route": "cuda",
+            "source": "sam2_opt_tpu_torch/csrc/window_attention.cu",
+            "replaces": f"tools/bench_window_flash.py:{line}",
+            "launches": tool_launches[key],
+            "max_abs_err": window_tool_err[key],
+            **first,
+            "shape": first_shape,
+            "dtype": "bfloat16",
+            "library": "F.scaled_dot_product_attention on [N, heads, S, D]",
+            "shapes": shapes,
+        })
     log(json.dumps({"slice": {str(dt).replace("torch.", ""): t for dt, t in times.items()},
                     "routes": route_times,
                     "video": {str(dt).replace("torch.", ""): t for dt, t in video_times.items()},
+                    "video_k4_route": k4_video_times, "training_k4_route": k4_train,
                     "training": train_runs, "training_vs_cpu": train_cpu,
                     "training_cli_loss": cli_loss, "card": smi[0]}))
     log(json.dumps({"kernels": entries}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                            "count": torch.cuda.device_count()}}))
     return 0
 

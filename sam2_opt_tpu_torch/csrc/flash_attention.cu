@@ -70,6 +70,39 @@
 //    writes its normalized fp32 output and row LSE to scratch, and
 //    flash_rope_combine_kernel merges them (out = sum_s exp(lse_s - lse)
 //    out_s), a few MB of traffic against ~100 GFLOP.
+//
+// K4 (sam2_flash_attention_kvproj_fwd) replaces the Pallas TPU kernel
+// sam2_opt_tpu/kernels/flash_attention.py::_kernel_rope_kvproj: K2 with the
+// memory cross-attention's K and V projections (mem_dim Dm = 64 -> D = 256)
+// fused in. The kv stream is read Dm wide; each kv tile is projected on the
+// SM,
+//   kp = round(mem_k . Wk^T + bk),  vp = round(mem_v . Wv^T + bv)
+// (fp32 sums, the bias added in fp32, one rounding to q's dtype), kp is
+// rotated as K2 rotates K, and the tile goes through K2's masked flash
+// softmax; the projected K/V never reach device memory. Weights are
+// nn.Linear [D, Dm] in q's dtype, biases fp32 [D]. Bound at the cross shape
+// (B = 1, 4096 queries, 28,736 keys): 4*4096*28736*256 + 2*2*28736*64*256 =
+// 122.4 GFLOP (0.124 ms bf16, 1.83 ms fp32), compute-bound. Each query tile
+// re-projects every kv tile it reads, so the executed work is 120.5 GFLOP of
+// attention plus (Sq / rows per CTA) x 1.88 GFLOP of projections. Design:
+//  - 128 query rows per CTA (8 warps; K2 has 64), so the projections add
+//    half the attention's work (60 GFLOP at 32 query tiles), not all of it;
+//  - bf16: mma.sync as K2. Wk and Wv (2 x 36 KB) stay resident in shared
+//    memory for the CTA's life; the raw 32-key memory tiles stream through a
+//    2-stage cp.async ring. Each warp projects K for its 16 channels d of
+//    the first half and the 16 channels d + D/2 of the second, so one thread
+//    holds both halves of a rotation pair in its accumulators and rotates in
+//    registers; V for its 32 channels. Q [128][264], Wk, Wv, K, V tiles and
+//    the ring: 196 KB, one CTA per SM;
+//  - fp32: K2's FMA scheme at 128 rows x 32 keys per CTA (Q, K, P^T and V
+//    in shared memory, 223 KB); each thread projects 2 channels of K (a
+//    rotation pair) or V for the 32 keys, reading the weight rows through
+//    L1/L2 (they do not fit beside the fp32 Q tile);
+//  - K2's exact skip of kv tiles without a valid key, its -1e30 masking, its
+//    identity rows for the pointer tokens (cos = 1, sin = 0) and its kv split
+//    over blockIdx.z with the LSE combine. Keys past Skv are masked, not
+//    padded: the TPU kernel's lane padding (Dm and D to 128, Skv to the block)
+//    has no counterpart here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,7 +126,13 @@ struct Params {
   int n_split;          // 1: no split (K1 always)
   float* part_o;        // [n_split, B*H, Sq, D]
   float* part_lse;      // [n_split, B*H, Sq]
-  int B, H, Sq, Skv, D;
+  // K4: k / v are the Dm-wide memory tokens, projected in the kernel by
+  // wk / wv [D, Dm] (q's dtype, contiguous) plus bk / bv [D] (fp32)
+  const void* wk;
+  const void* wv;
+  const float* bk;
+  const float* bv;
+  int B, H, Sq, Skv, D, Dm;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -780,6 +819,523 @@ __global__ void __launch_bounds__(TC_WARPS * 32, 2) flash_rope_bf16_kernel(const
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4: K2 with the memory K/V projections fused in (one head, D = 256)
+// ---------------------------------------------------------------------------
+
+constexpr int KP_D = 256;                // the memory-attention width (d_model)
+constexpr int KP_WARPS = 8;
+constexpr int KP_THREADS = KP_WARPS * 32;
+constexpr int KP_BQ = 16 * KP_WARPS;     // query rows per CTA (both routes)
+constexpr int KP_BK = 32;                // keys per kv tile (both routes)
+constexpr int KF_LDQ = KP_BQ + 4;        // fp32: row stride of the d-major Q and P^T tiles
+constexpr int KF_LDK = KP_BK + 4;        // fp32: row stride of the d-major K tile
+
+template <int DM>
+constexpr int smem_bytes_kvproj_bf16() {
+  // Q [128][264] + Wk, Wv [256][DM+8] + K, V [32][264] + raw {mem_k, mem_v}
+  // x 2 stages [32][DM+8], bf16; bk, bv [256] fp32
+  return (KP_BQ * tc_ld(KP_D) + 2 * KP_D * (DM + 8) + 2 * KP_BK * tc_ld(KP_D) +
+          4 * KP_BK * (DM + 8)) * static_cast<int>(sizeof(__nv_bfloat16)) +
+         2 * KP_D * static_cast<int>(sizeof(float));
+}
+
+template <int DM>
+constexpr int smem_bytes_kvproj_f32() {
+  // Qt [256][132] + Kt [256][36] (P^T [32][132] after S) + V [32][256] + raw
+  // {mem_k, mem_v} [32][DM] + bk, bv [256], fp32
+  return (KP_D * KF_LDQ + KP_D * KF_LDK + KP_BK * KP_D + 2 * KP_BK * DM + 2 * KP_D) *
+         static_cast<int>(sizeof(float));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int DM>
+__global__ void __launch_bounds__(KP_THREADS, 1) flash_kvproj_bf16_kernel(const Params p) {
+  constexpr int D = KP_D;
+  constexpr int LDK = tc_ld(D);     // row stride of Q, K and V tiles
+  constexpr int LDM = DM + 8;       // row stride of the weights and raw tiles (odd x 16 bytes)
+  constexpr int KS = D / 16;        // k-steps of Q . K^T
+  constexpr int ND = D / 8;         // 8-column slices of the output
+  constexpr int NT = KP_BK / 8;     // 8-key slices of S
+  constexpr int MKS = DM / 16;      // k-steps of the projections
+  constexpr int HALF = D / 2;
+  constexpr int CHUNKS = D / 8, MCHUNKS = DM / 8;  // 16-byte chunks per row
+  constexpr int RAW = KP_BK * LDM;
+  extern __shared__ __align__(16) __nv_bfloat16 kp_smem[];
+  __nv_bfloat16* Qs = kp_smem;                // [KP_BQ][LDK]
+  __nv_bfloat16* Wks = Qs + KP_BQ * LDK;      // [D][LDM]
+  __nv_bfloat16* Wvs = Wks + D * LDM;         // [D][LDM]
+  __nv_bfloat16* Ks = Wvs + D * LDM;          // [KP_BK][LDK] projected, rotated K
+  __nv_bfloat16* Vs = Ks + KP_BK * LDK;       // [KP_BK][LDK] projected V
+  __nv_bfloat16* Ms = Vs + KP_BK * LDK;       // [2 stages][{k, v}][KP_BK][LDM]
+  float* bks = reinterpret_cast<float*>(Ms + 4 * RAW);  // [D]
+  float* bvs = bks + D;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, lane in the quad
+  const int b = blockIdx.y;               // one head: (b, h) = (b, 0)
+  const int q_tile = blockIdx.x * KP_BQ;
+  const int q0 = q_tile + warp * 16;
+
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb;
+  const __nv_bfloat16* mkg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb;
+  const __nv_bfloat16* mvg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb;
+  const __nv_bfloat16* wkg = static_cast<const __nv_bfloat16*>(p.wk);
+  const __nv_bfloat16* wvg = static_cast<const __nv_bfloat16*>(p.wv);
+  const __nv_bfloat16* cg = static_cast<const __nv_bfloat16*>(p.cos);
+  const __nv_bfloat16* sg = static_cast<const __nv_bfloat16*>(p.sin);
+  const uint8_t* mg = p.mask ? p.mask + b * p.mask_sb : nullptr;
+
+  // the Q tile (rows past Sq zero-filled) and both weight matrices ride in
+  // the first copy group; the biases are plain stores, visible after the
+  // first barrier of the loop
+  for (int idx = threadIdx.x; idx < KP_BQ * CHUNKS; idx += blockDim.x) {
+    const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
+    const bool in = q_tile + r < p.Sq;
+    const long long row = in ? q_tile + r : 0;
+    cp_async_16(Qs + r * LDK + c, qg + row * p.q_ss + c, in);
+  }
+  for (int idx = threadIdx.x; idx < D * MCHUNKS; idx += blockDim.x) {
+    const int r = idx / MCHUNKS, c = (idx % MCHUNKS) * 8;
+    cp_async_16(Wks + r * LDM + c, wkg + r * DM + c, true);
+    cp_async_16(Wvs + r * LDM + c, wvg + r * DM + c, true);
+  }
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    bks[i] = p.bk[i];
+    bvs[i] = p.bv[i];
+  }
+  auto load_raw = [&](int tile, int stage) {
+    const int k0 = tile * KP_BK;
+    for (int idx = threadIdx.x; idx < KP_BK * MCHUNKS; idx += blockDim.x) {
+      const int r = idx / MCHUNKS, c = (idx % MCHUNKS) * 8;
+      const bool in = k0 + r < p.Skv;  // rows past Skv are zero-filled
+      const long long row = in ? k0 + r : 0;
+      cp_async_16(Ms + 2 * stage * RAW + r * LDM + c, mkg + row * p.k_ss + c, in);
+      cp_async_16(Ms + (2 * stage + 1) * RAW + r * LDM + c, mvg + row * p.v_ss + c, in);
+    }
+  };
+  const int n_tiles = (p.Skv + KP_BK - 1) / KP_BK;
+  const int per_split = (n_tiles + p.n_split - 1) / p.n_split;
+  const int t_begin = blockIdx.z * per_split;
+  const int t_end = min(n_tiles, t_begin + per_split);
+  if (t_begin < t_end) load_raw(t_begin, 0);
+  cp_async_commit();
+
+  const float scale_log2 = p.scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  // ldmatrix lane offsets: an A operand (16 rows x 16) and a pair of B
+  // operands (two 8-row slices x 16) from row-major [row][k] tiles
+  const int a_off = (lane & 15) * LDM + 8 * (lane >> 4);
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+  const __nv_bfloat16* qfrag = Qs + (warp * 16 + (lane & 15)) * LDK + 8 * (lane >> 4);
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int stage = (tile - t_begin) & 1;
+    // the other stage was last read by the previous tile's projection,
+    // which every warp finished before that tile's second barrier
+    if (tile + 1 < t_end) load_raw(tile + 1, stage ^ 1);
+    cp_async_commit();  // possibly empty: keeps "all but the newest group" = this tile
+    cp_async_wait_newest_pending();
+    const int k0 = tile * KP_BK;
+    // the barrier after which this tile's copies are visible and every warp
+    // is done reading the previous K and V tiles; a tile with no valid key
+    // is skipped (exact, as in K2)
+    if (!__syncthreads_or(threadIdx.x < KP_BK && key_valid(mg, k0 + threadIdx.x, p.Skv)))
+      continue;
+    const __nv_bfloat16* mk_s = Ms + 2 * stage * RAW;
+    const __nv_bfloat16* mv_s = mk_s + RAW;
+
+    {  // K = rotate(round(mem_k . Wk^T + bk)): this warp's channels
+       // 16w..16w+15 (n-tiles 0, 1) and their rotation partners D/2 + 16w..
+       // (n-tiles 2, 3), all 32 keys (two 16-key m-tiles)
+      float acc[2][4][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < MKS; ++ks) {
+        uint32_t blo[4], bhi[4];
+        ldmatrix_x4(blo, Wks + (16 * warp + b_row) * LDM + 16 * ks + b_col);
+        ldmatrix_x4(bhi, Wks + (HALF + 16 * warp + b_row) * LDM + 16 * ks + b_col);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          uint32_t a[4];
+          ldmatrix_x4(a, mk_s + 16 * mt * LDM + a_off + 16 * ks);
+          mma_bf16(acc[mt][0], a, blo[0], blo[1]);
+          mma_bf16(acc[mt][1], a, blo[2], blo[3]);
+          mma_bf16(acc[mt][2], a, bhi[0], bhi[1]);
+          mma_bf16(acc[mt][3], a, bhi[2], bhi[3]);
+        }
+      }
+      // bias in fp32, one rounding to bf16, then K2's rotation (fp32 from
+      // the bf16 values, one rounding); rows past Skv stay zero
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int key = 16 * mt + g + 8 * hr;
+            const int d = 16 * warp + 8 * j + 2 * t;
+            __nv_bfloat162 lo = __floats2bfloat162_rn(0.f, 0.f), hi = lo;
+            if (k0 + key < p.Skv) {
+              const float k1x = round_bf16(acc[mt][j][2 * hr] + bks[d]);
+              const float k1y = round_bf16(acc[mt][j][2 * hr + 1] + bks[d + 1]);
+              const float k2x = round_bf16(acc[mt][j + 2][2 * hr] + bks[HALF + d]);
+              const float k2y = round_bf16(acc[mt][j + 2][2 * hr + 1] + bks[HALF + d + 1]);
+              const long long trow = static_cast<long long>(k0 + key) * HALF + d;
+              const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cg + trow));
+              const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sg + trow));
+              lo = __floats2bfloat162_rn(rot_lo(k1x, k2x, c.x, s.x), rot_lo(k1y, k2y, c.y, s.y));
+              hi = __floats2bfloat162_rn(rot_hi(k1x, k2x, c.x, s.x), rot_hi(k1y, k2y, c.y, s.y));
+            }
+            *reinterpret_cast<__nv_bfloat162*>(Ks + key * LDK + d) = lo;
+            *reinterpret_cast<__nv_bfloat162*>(Ks + key * LDK + HALF + d) = hi;
+          }
+    }
+    {  // V = round(mem_v . Wv^T + bv): this warp's channels 32w..32w+31
+      float acc[2][4][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < MKS; ++ks) {
+        uint32_t b0[4], b1[4];
+        ldmatrix_x4(b0, Wvs + (32 * warp + b_row) * LDM + 16 * ks + b_col);
+        ldmatrix_x4(b1, Wvs + (32 * warp + 16 + b_row) * LDM + 16 * ks + b_col);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          uint32_t a[4];
+          ldmatrix_x4(a, mv_s + 16 * mt * LDM + a_off + 16 * ks);
+          mma_bf16(acc[mt][0], a, b0[0], b0[1]);
+          mma_bf16(acc[mt][1], a, b0[2], b0[3]);
+          mma_bf16(acc[mt][2], a, b1[0], b1[1]);
+          mma_bf16(acc[mt][3], a, b1[2], b1[3]);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int key = 16 * mt + g + 8 * hr;
+            const int ch = 32 * warp + 8 * j + 2 * t;
+            *reinterpret_cast<__nv_bfloat162*>(Vs + key * LDK + ch) = __floats2bfloat162_rn(
+                acc[mt][j][2 * hr] + bvs[ch], acc[mt][j][2 * hr + 1] + bvs[ch + 1]);
+          }
+    }
+    __syncthreads();  // the K and V tiles are complete
+
+    // S = Q . K^T: [16 rows][32 keys] per warp, fp32 (K2's)
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    const __nv_bfloat16* kfrag = Ks + b_row * LDK + b_col;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4];
+      ldmatrix_x4(qa, qfrag + 16 * ks);
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kfrag + 8 * nt * LDK + 16 * ks);
+        mma_bf16(s[nt], qa, kb[0], kb[1]);
+        mma_bf16(s[nt + 1], qa, kb[2], kb[3]);
+      }
+    }
+
+    // scale, mask, online softmax (K1's)
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool valid = key_valid(mg, k0 + 8 * nt + 2 * t + j, p.Skv);
+        s[nt][j] = valid ? s[nt][j] * scale_log2 : NEG_INF;
+        s[nt][2 + j] = valid ? s[nt][2 + j] * scale_log2 : NEG_INF;
+        mx[0] = fmaxf(mx[0], s[nt][j]);
+        mx[1] = fmaxf(mx[1], s[nt][2 + j]);
+      }
+    float alpha[2], row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[nt][j] = exp2f(s[nt][j] - m[j >> 1]);
+        row_sum[j >> 1] += s[nt][j];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(row_sum[i]);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      o[nd][0] *= alpha[0];
+      o[nd][1] *= alpha[0];
+      o[nd][2] *= alpha[1];
+      o[nd][3] *= alpha[1];
+    }
+
+    // O += P . V, P re-packed to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < KP_BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const __nv_bfloat16* vrow = Vs + (16 * kk + (lane & 15)) * LDK + 8 * (lane >> 4);
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vrow + 8 * nd);
+        mma_bf16(o[nd], pa, vb[0], vb[1]);
+        mma_bf16(o[nd + 1], pa, vb[2], vb[3]);
+      }
+    }
+    // no barrier here: the next tile's first barrier comes before its
+    // projection overwrites K and V
+  }
+  cp_async_wait_all();  // a split with no tile still has its Q and weight copies in flight
+
+  const long long part = static_cast<long long>(blockIdx.z) * p.B + b;
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb;
+  float* po = p.part_o + part * p.Sq * D;  // used when the kv axis is split
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + g + 8 * i;
+    if (row >= p.Sq) continue;
+    const bool seen_valid = m[i] > NEG_INF * 0.5f;
+    const float inv_l = seen_valid ? 1.f / l[i] : 0.f;
+    const float lse = seen_valid ? (m[i] + log2f(l[i])) * LN2 : NEG_INF;
+    if (p.n_split > 1) {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+        *reinterpret_cast<float2*>(po + row * D + 8 * nd + 2 * t) =
+            make_float2(o[nd][2 * i] * inv_l, o[nd][2 * i + 1] * inv_l);
+      if (t == 0) p.part_lse[part * p.Sq + row] = lse;
+    } else {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+        *reinterpret_cast<__nv_bfloat162*>(og + row * p.o_ss + 8 * nd + 2 * t) =
+            __floats2bfloat162_rn(o[nd][2 * i] * inv_l, o[nd][2 * i + 1] * inv_l);
+      if (t == 0) p.lse[static_cast<long long>(b) * p.Sq + row] = lse;
+    }
+  }
+}
+
+// fp32: K2's FMA scheme at 128 query rows x 32 keys. Thread (ty, tx) owns
+// query rows 4ty..4ty+3, keys 4tx..4tx+3 of S and output columns tx + 8c.
+template <int DM>
+__global__ void __launch_bounds__(KP_THREADS, 1) flash_kvproj_f32_kernel(const Params p) {
+  constexpr int D = KP_D, HALF = D / 2;
+  constexpr int NC = D / 8;  // output columns per thread
+  extern __shared__ __align__(16) float kf_smem[];
+  float* Qt = kf_smem;               // [D][KF_LDQ]  Q tile, d-major
+  float* Kt = Qt + D * KF_LDQ;       // [D][KF_LDK]  K tile, d-major
+  float* Pt = Kt;                    // [KP_BK][KF_LDQ]  P^T, reuses the K tile
+  float* Vs = Kt + D * KF_LDK;       // [KP_BK][D]  V tile, row-major
+  float* Mk = Vs + KP_BK * D;        // [KP_BK][DM] raw memory tokens
+  float* Mv = Mk + KP_BK * DM;
+  float* bks = Mv + KP_BK * DM;      // [D]
+  float* bvs = bks + D;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 7, ty = tid >> 3;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * KP_BQ;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb;
+  const float* mkg = static_cast<const float*>(p.k) + b * p.k_sb;
+  const float* mvg = static_cast<const float*>(p.v) + b * p.v_sb;
+  const float* cg = static_cast<const float*>(p.cos);
+  const float* sg = static_cast<const float*>(p.sin);
+  const uint8_t* mg = p.mask ? p.mask + b * p.mask_sb : nullptr;
+
+  for (int idx = tid; idx < KP_BQ * D; idx += KP_THREADS) {
+    const int r = idx / D, d = idx % D;
+    Qt[d * KF_LDQ + r] = q0 + r < p.Sq ? qg[(q0 + r) * p.q_ss + d] : 0.f;
+  }
+  for (int i = tid; i < D; i += KP_THREADS) {
+    bks[i] = p.bk[i];
+    bvs[i] = p.bv[i];
+  }
+  // projection roles: warps 0-3 project K, warps 4-7 V; thread c of each
+  // half owns channels c and c + D/2 (for K, a rotation pair)
+  const bool proj_k = tid < HALF;
+  const int pc = tid & (HALF - 1);
+  const float* w_lo = static_cast<const float*>(proj_k ? p.wk : p.wv) + pc * DM;
+  const float* w_hi = w_lo + HALF * DM;
+  const float* bias = proj_k ? bks : bvs;
+  const float* raw = proj_k ? Mk : Mv;
+
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int n_tiles = (p.Skv + KP_BK - 1) / KP_BK;
+  const int per_split = (n_tiles + p.n_split - 1) / p.n_split;
+  const int t_end = min(n_tiles, (static_cast<int>(blockIdx.z) + 1) * per_split);
+  for (int tile = blockIdx.z * per_split; tile < t_end; ++tile) {
+    const int k0 = tile * KP_BK;
+    // the raw tiles (rows past Skv zero); the previous tile's projection
+    // finished reading them before its second barrier
+    for (int idx = tid; idx < KP_BK * DM / 4; idx += KP_THREADS) {
+      const int r = idx / (DM / 4), c = (idx % (DM / 4)) * 4;
+      const bool in = k0 + r < p.Skv;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(Mk + r * DM + c) =
+          in ? *reinterpret_cast<const float4*>(mkg + (k0 + r) * p.k_ss + c) : zero;
+      *reinterpret_cast<float4*>(Mv + r * DM + c) =
+          in ? *reinterpret_cast<const float4*>(mvg + (k0 + r) * p.v_ss + c) : zero;
+    }
+    // the barrier after which the raw tiles are visible and the previous
+    // tile's P^T and V reads are done; a tile with no valid key is skipped
+    if (!__syncthreads_or(tid < KP_BK && key_valid(mg, k0 + tid, p.Skv))) continue;
+
+    // projections, 16 keys at a time: fp32 sums in order of the input
+    // channel, the bias added in fp32; K rotated as K2 rotates it
+#pragma unroll 1
+    for (int kh = 0; kh < KP_BK; kh += 16) {
+      float a_lo[16], a_hi[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) a_lo[r] = a_hi[r] = 0.f;
+#pragma unroll 2
+      for (int j = 0; j < DM; j += 4) {
+        const float4 wl = __ldg(reinterpret_cast<const float4*>(w_lo + j));
+        const float4 wh = __ldg(reinterpret_cast<const float4*>(w_hi + j));
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const float4 x = *reinterpret_cast<const float4*>(raw + (kh + r) * DM + j);
+          a_lo[r] = fmaf(x.w, wl.w, fmaf(x.z, wl.z, fmaf(x.y, wl.y, fmaf(x.x, wl.x, a_lo[r]))));
+          a_hi[r] = fmaf(x.w, wh.w, fmaf(x.z, wh.z, fmaf(x.y, wh.y, fmaf(x.x, wh.x, a_hi[r]))));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int key = kh + r;
+        const float k1 = a_lo[r] + bias[pc], k2 = a_hi[r] + bias[pc + HALF];
+        if (proj_k) {
+          float lo = 0.f, hi = 0.f;
+          if (k0 + key < p.Skv) {
+            const long long trow = static_cast<long long>(k0 + key) * HALF + pc;
+            const float c = cg[trow], s = sg[trow];
+            lo = rot_lo(k1, k2, c, s);
+            hi = rot_hi(k1, k2, c, s);
+          }
+          Kt[pc * KF_LDK + key] = lo;
+          Kt[(pc + HALF) * KF_LDK + key] = hi;
+        } else {
+          Vs[key * D + pc] = k1;
+          Vs[key * D + pc + HALF] = k2;
+        }
+      }
+    }
+    __syncthreads();  // the K and V tiles are complete
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * KF_LDQ + ty * 4]);
+      const float4 kb = *reinterpret_cast<const float4*>(&Kt[d * KF_LDK + tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+    }
+
+    bool valid[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) valid[j] = key_valid(mg, k0 + tx * 4 + j, p.Skv);
+    __syncthreads();  // every thread is done reading Kt before P^T overwrites it
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = valid[j] ? s[i][j] * p.scale : NEG_INF;
+      float m_cur = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      // the 8 lanes sharing a query row are one aligned group of the warp
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, off));
+      const float m_new = fmaxf(m[i], m_cur);
+      const float alpha = expf(m[i] - m_new);
+      float row_sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        row_sum += s[i][j];
+      }
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
+      l[i] = l[i] * alpha + row_sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(&Pt[(tx * 4 + j) * KF_LDQ + ty * 4]) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < KP_BK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&Pt[kk * KF_LDQ + ty * 4]);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float vv = Vs[kk * D + tx + 8 * c];
+        acc[0][c] = fmaf(a.x, vv, acc[0][c]);
+        acc[1][c] = fmaf(a.y, vv, acc[1][c]);
+        acc[2][c] = fmaf(a.z, vv, acc[2][c]);
+        acc[3][c] = fmaf(a.w, vv, acc[3][c]);
+      }
+    }
+  }
+
+  float* og = static_cast<float*>(p.o) + b * p.o_sb;
+  long long o_ss = p.o_ss;
+  float* lse_out = p.lse + static_cast<long long>(b) * p.Sq;
+  if (p.n_split > 1) {  // this split's partial result
+    const long long part = static_cast<long long>(blockIdx.z) * p.B + b;
+    og = p.part_o + part * p.Sq * D;
+    o_ss = D;
+    lse_out = p.part_lse + part * p.Sq;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= p.Sq) continue;
+    const bool seen_valid = m[i] > NEG_INF * 0.5f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) og[row * o_ss + tx + 8 * c] = seen_valid ? acc[i][c] / l[i] : 0.f;
+    if (tx == 0) lse_out[row] = seen_valid ? m[i] + logf(l[i]) : NEG_INF;
+  }
+}
+
 __device__ __forceinline__ void store_out(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* dst, float x) {
   *dst = __float2bfloat16_rn(x);
@@ -844,12 +1400,8 @@ cudaError_t dispatch(bool bf16, const Params& p, cudaStream_t stream) {
   }
 }
 
-template <int DP>
-cudaError_t launch_rope_dp(bool bf16, const Params& p, cudaStream_t stream) {
-  cudaError_t err =
-      bf16 ? launch(flash_rope_bf16_kernel<DP>, smem_bytes_rope_bf16<DP>(), TC_BQ,
-                    TC_WARPS * 32, p, stream)
-           : launch(flash_rope_f32_kernel<DP>, smem_bytes_f32<DP>(), BQ, THREADS, p, stream);
+// After a kv-split launch (K2, K4): the combine kernel on the same stream.
+cudaError_t launch_combine(cudaError_t err, bool bf16, const Params& p, cudaStream_t stream) {
   if (err != cudaSuccess || p.n_split == 1) return err;
   const dim3 grid(p.Sq, p.B * p.H);
   if (bf16)
@@ -857,6 +1409,25 @@ cudaError_t launch_rope_dp(bool bf16, const Params& p, cudaStream_t stream) {
   else
     flash_rope_combine_kernel<float><<<grid, 128, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_rope_dp(bool bf16, const Params& p, cudaStream_t stream) {
+  return launch_combine(
+      bf16 ? launch(flash_rope_bf16_kernel<DP>, smem_bytes_rope_bf16<DP>(), TC_BQ,
+                    TC_WARPS * 32, p, stream)
+           : launch(flash_rope_f32_kernel<DP>, smem_bytes_f32<DP>(), BQ, THREADS, p, stream),
+      bf16, p, stream);
+}
+
+template <int DM>
+cudaError_t launch_kvproj_dm(bool bf16, const Params& p, cudaStream_t stream) {
+  return launch_combine(
+      bf16 ? launch(flash_kvproj_bf16_kernel<DM>, smem_bytes_kvproj_bf16<DM>(), KP_BQ,
+                    KP_THREADS, p, stream)
+           : launch(flash_kvproj_f32_kernel<DM>, smem_bytes_kvproj_f32<DM>(), KP_BQ,
+                    KP_THREADS, p, stream),
+      bf16, p, stream);
 }
 
 // Resident CTAs per SM of a kernel at its shared memory (1 if unknown).
@@ -877,11 +1448,39 @@ int rope_ctas_per_sm(bool bf16) {
               : ctas_per_sm(flash_rope_f32_kernel<DP>, smem_bytes_f32<DP>(), THREADS);
 }
 
+template <int DM>
+int kvproj_ctas_per_sm(bool bf16) {
+  return bf16 ? ctas_per_sm(flash_kvproj_bf16_kernel<DM>, smem_bytes_kvproj_bf16<DM>(), KP_THREADS)
+              : ctas_per_sm(flash_kvproj_f32_kernel<DM>, smem_bytes_kvproj_f32<DM>(), KP_THREADS);
+}
+
+// The most kv splits that keep the grid in one wave of resident CTAs
+// (`per_sm` of them on each SM), at least 8 kv tiles each.
+int kv_splits(int per_sm, int rows, int tile, int B, int H, int Sq, int Skv) {
+  int dev = 0, n_sm = 1;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 1;
+  const long long ctas = static_cast<long long>((Sq + rows - 1) / rows) * B * H;
+  const long long n_tiles = (Skv + tile - 1) / tile;
+  long long n = static_cast<long long>(per_sm) * n_sm / ctas;
+  if (n > n_tiles / 8) n = n_tiles / 8;
+  return static_cast<int>(n < 1 ? 1 : n);
+}
+
 cudaError_t dispatch_rope(bool bf16, const Params& p, cudaStream_t stream) {
   switch (p.D) {
     case 64: return launch_rope_dp<64>(bf16, p, stream);
     case 128: return launch_rope_dp<128>(bf16, p, stream);
     case 256: return launch_rope_dp<256>(bf16, p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_kvproj(bool bf16, const Params& p, cudaStream_t stream) {
+  switch (p.Dm) {
+    case 32: return launch_kvproj_dm<32>(bf16, p, stream);
+    case 64: return launch_kvproj_dm<64>(bf16, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -911,6 +1510,9 @@ int run(bool rope, const void* q, const void* k, const void* v, const void* mask
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.mask_sb = mask_sb;
   p.scale = scale;
+  p.wk = p.wv = nullptr;
+  p.bk = p.bv = nullptr;
+  p.Dm = 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(rope ? dispatch_rope(dtype == 1, p, st) : dispatch(dtype == 1, p, st));
 }
@@ -967,14 +1569,59 @@ extern "C" int sam2_flash_attention_rope_splits(int dtype, int B, int H, int Sq,
     case 256: per_sm = rope_ctas_per_sm<256>(bf16); break;
     default: return -1;
   }
-  int dev = 0, n_sm = 1;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 1;
-  const int rows = bf16 ? TC_BQ : BQ, tile = bf16 ? RP_BK : BK;
-  const long long ctas = static_cast<long long>((Sq + rows - 1) / rows) * B * H;
-  const long long n_tiles = (Skv + tile - 1) / tile;
-  long long n = static_cast<long long>(per_sm) * n_sm / ctas;
-  if (n > n_tiles / 8) n = n_tiles / 8;
-  return static_cast<int>(n < 1 ? 1 : n);
+  return kv_splits(per_sm, bf16 ? TC_BQ : BQ, bf16 ? RP_BK : BK, B, H, Sq, Skv);
+}
+
+// K4: K2 with the K/V projections fused in; one head, D = 256, Dm in
+// {32, 64}. q [B, 1, Sq, D] (rotated) with batch / row strides; mem_k, mem_v
+// [B, Skv, Dm] with batch / row strides (unit stride along Dm; bf16 rows
+// 16-byte aligned, fp32 rows 16-byte aligned); wk, wv [D, Dm] contiguous in
+// q's dtype; bk, bv [D] fp32; cos/sin [Skv, D/2] in q's dtype, contiguous;
+// out [B, Sq, D] with batch / row strides, lse [B, Sq]. The kv split and its
+// scratch are as K2's (part_o [n_split, B, Sq, D], part_lse [n_split, B, Sq]).
+extern "C" int sam2_flash_attention_kvproj_fwd(
+    const void* q, const void* mem_k, const void* mem_v, const void* wk, const void* bk,
+    const void* wv, const void* bv, const void* mask, const void* cos, const void* sin,
+    void* part_o, void* part_lse, void* o, void* lse, int dtype, int B, int Sq, int Skv, int D,
+    int Dm, int n_split,
+    long long q_sb, long long q_ss, long long mk_sb, long long mk_ss,
+    long long mv_sb, long long mv_ss, long long o_sb, long long o_ss,
+    long long mask_sb, float scale, void* stream) {
+  if (B <= 0 || B > 65535 || Sq <= 0 || Skv <= 0 || D != KP_D || (Dm != 32 && Dm != 64) ||
+      (dtype != 0 && dtype != 1) || n_split < 1 || n_split > 65535 ||
+      (n_split > 1 && (part_o == nullptr || part_lse == nullptr)) || wk == nullptr ||
+      wv == nullptr || bk == nullptr || bv == nullptr || cos == nullptr || sin == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.q = q; p.k = mem_k; p.v = mem_v;
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.cos = cos; p.sin = sin;
+  p.o = o; p.lse = static_cast<float*>(lse);
+  p.n_split = n_split;
+  p.part_o = static_cast<float*>(part_o); p.part_lse = static_cast<float*>(part_lse);
+  p.wk = wk; p.wv = wv;
+  p.bk = static_cast<const float*>(bk); p.bv = static_cast<const float*>(bv);
+  p.B = B; p.H = 1; p.Sq = Sq; p.Skv = Skv; p.D = D; p.Dm = Dm;
+  p.q_sb = q_sb; p.q_sh = 0; p.q_ss = q_ss;
+  p.k_sb = mk_sb; p.k_sh = 0; p.k_ss = mk_ss;
+  p.v_sb = mv_sb; p.v_sh = 0; p.v_ss = mv_ss;
+  p.o_sb = o_sb; p.o_sh = 0; p.o_ss = o_ss;
+  p.mask_sb = mask_sb;
+  p.scale = scale;
+  return static_cast<int>(dispatch_kvproj(dtype == 1, p, static_cast<cudaStream_t>(stream)));
+}
+
+// K4's kv split for these shapes on the current device (K2's rule); -1 for
+// an unsupported D or Dm.
+extern "C" int sam2_flash_attention_kvproj_splits(int dtype, int B, int Sq, int Skv, int D,
+                                                  int Dm) {
+  const bool bf16 = dtype == 1;
+  if (D != KP_D) return -1;
+  int per_sm;
+  switch (Dm) {
+    case 32: per_sm = kvproj_ctas_per_sm<32>(bf16); break;
+    case 64: per_sm = kvproj_ctas_per_sm<64>(bf16); break;
+    default: return -1;
+  }
+  return kv_splits(per_sm, KP_BQ, KP_BK, B, 1, Sq, Skv);
 }

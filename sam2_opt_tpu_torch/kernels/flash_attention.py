@@ -7,17 +7,19 @@ autograd Functions that join them.
   rotated inside the kernel (split-layout axial RoPE);
 - K3, `flash_attention_bwd` (K3a `flash_attention_bwd_dkdv`, K3b
   `flash_attention_bwd_dq`): the port of `::_bwd_dkdv_kernel` and
-  `::_bwd_dq_kernel`, the backward of both.
+  `::_bwd_dq_kernel`, the backward of K1, K2 and K4;
+- K4, `flash_attention_kv_proj`: the port of `::_kernel_rope_kvproj`, K2 with
+  the memory cross-attention's K/V projections fused in.
 
-`flash_attention` and `flash_attention_rope` are differentiable: each runs
-through a `torch.autograd.Function` (the counterparts of the JAX custom-VJP
-seams `_attn_core` and `_attn_core_rope`) that saves q, k, v, out and lse and
-whose backward is K3. On a CUDA tensor each wrapper launches its
+`flash_attention`, `flash_attention_rope` and `flash_attention_kv_proj` are
+differentiable: each runs through a `torch.autograd.Function` (the
+counterparts of the JAX custom-VJP seams `_attn_core`, `_attn_core_rope` and
+`_attn_core_rope_kvproj`) whose backward is K3. On a CUDA tensor each wrapper launches its
 hand-written kernel in `csrc/flash_attention.cu` or
 `csrc/flash_attention_bwd.cu` or raises; on a CPU tensor it runs its plain
 version (`flash_attention_ref`, `flash_attention_rope_ref`,
-`flash_attention_bwd_ref`), the unfused form of the same math. There is no
-fallback from one to the other.
+`flash_attention_kv_proj_ref`, `flash_attention_bwd_ref`), the unfused form
+of the same math. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import math
 from functools import lru_cache
 
 import torch
+import torch.nn.functional as F
 
 from sam2_opt_tpu_torch.kernels import _build
 from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
@@ -270,6 +273,208 @@ class _FlashAttentionRope(torch.autograd.Function):
         dq, dkr, dv = flash_attention_bwd(q, kr, v, out, lse, dout, kv_mask)
         dk = apply_rotary_split(dkr, c32, -s32)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+# --------------------------------------------------------------------------- #
+# K4: K2 with the memory K/V projections fused in
+# --------------------------------------------------------------------------- #
+
+
+def _project(x, w, b, dtype):
+    """x . w^T + b with fp32 sums and the bias added in fp32, rounded once to
+    `dtype` (the JAX kernel's `dot(..., preferred_element_type=f32) + b`,
+    :173-177): [B, S, Dm] -> [B, S, D]."""
+    return F.linear(x.float(), w.float(), b.float()).to(dtype)
+
+
+def flash_attention_kv_proj_ref(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask=None):
+    """Plain K4: K = mem_k . wk^T + bk and V = mem_v . wv^T + bv projected
+    in fp32 and rounded once to q's dtype, then `flash_attention_rope_ref`
+    (K rotated in fp32 from that rounding, rounded once).
+
+    q [B, 1, Sq, D] rotated; mem_k/mem_v [B, Skv, Dm]; wk/wv [D, Dm]
+    (`nn.Linear` layout; wk and bk with `split_perm` already applied), bk/bv
+    [D]; cos_k/sin_k [Skv, D/2]; kv_mask [B, Skv] bool or None. Returns
+    (out [B, 1, Sq, D], lse [B, 1, Sq] fp32)."""
+    kp = _project(mem_k, wk, bk, q.dtype)[:, None]
+    vp = _project(mem_v, wv, bv, q.dtype)[:, None]
+    return flash_attention_rope_ref(q, kp, vp, cos_k, sin_k, kv_mask)
+
+
+def _kv_proj_check(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be [B, 1, Sq, D] (one head), got {tuple(q.shape)}")
+    B, _, Sq, D = q.shape
+    if mem_k.dim() != 3 or mem_k.shape[0] != B or mem_v.shape != mem_k.shape:
+        raise ValueError(f"mem_k/mem_v must be [{B}, Skv, Dm], got {tuple(mem_k.shape)}, "
+                         f"{tuple(mem_v.shape)}")
+    Skv, Dm = mem_k.shape[1:]
+    if Sq == 0 or Skv == 0 or D % 2:
+        raise ValueError("empty query or key sequence, or an odd head dim")
+    for name, t, shape in (("wk", wk, (D, Dm)), ("wv", wv, (D, Dm)), ("bk", bk, (D,)),
+                           ("bv", bv, (D,)), ("cos_k", cos_k, (Skv, D // 2)),
+                           ("sin_k", sin_k, (Skv, D // 2))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on q's device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (mem_k, mem_v, wk, wv, cos_k, sin_k)):
+        raise ValueError("q, mem_k, mem_v, wk, wv and the tables must share one dtype, "
+                         "float32 or bfloat16")
+    if not (bk.is_floating_point() and bv.is_floating_point()):
+        raise ValueError("the biases must be floating point")
+    if mem_k.device != q.device or mem_v.device != q.device:
+        raise ValueError("mem_k and mem_v must be on q's device")
+    if kv_mask is not None and (kv_mask.dtype != torch.bool or tuple(kv_mask.shape) != (B, Skv)
+                                or kv_mask.device != q.device):
+        raise ValueError(f"kv_mask must be bool [{B}, {Skv}] on q's device")
+
+
+def flash_attention_kv_proj(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask=None):
+    """K4: memory cross-attention with the K/V projections fused into the
+    flash kernel. Arguments as `flash_attention_kv_proj_ref`; returns (out
+    [B, 1, Sq, D], lse [B, 1, Sq] fp32). out is differentiable in q, mem_k,
+    mem_v and the four projection parameters (backward: K3 on the recomputed
+    projections, the projection products in torch), lse and the tables are
+    not.
+
+    CUDA tensors launch the kernel (fp32 or bf16, D = 256, Dm in {32, 64};
+    the biases are passed to it in fp32), which reads the memory Dm wide and
+    projects, rotates and attends each kv tile on the SM; it splits the kv
+    axis over the grid as K2 does. CPU tensors run the plain version."""
+    _kv_proj_check(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
+    return _FlashAttentionKVProj.apply(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
+
+
+@lru_cache(maxsize=64)
+def _kv_proj_splits(device_index: int, dtype: int, B: int, Sq: int, Skv: int, D: int,
+                    Dm: int) -> int:
+    """K4's kv split for a shape on a device (K2's rule); asked once per shape."""
+    fn = _build.load("flash_attention").sam2_flash_attention_kvproj_splits
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device_index):
+        n_split = fn(dtype, B, Sq, Skv, D, Dm)
+    if n_split < 1:
+        raise ValueError(f"flash_attention_kv_proj: no kv split for D = {D}, Dm = {Dm}")
+    return n_split
+
+
+def _aligned_rows(t):
+    """t with unit stride along its last axis and 16-byte aligned rows (the
+    kernel reads rows in 16-byte chunks); a contiguous copy otherwise."""
+    per_chunk = 16 // t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            st % per_chunk == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _kv_proj_forward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
+    if q.device.type == "cpu":
+        return flash_attention_kv_proj_ref(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, _, Sq, D = q.shape
+    Skv, Dm = mem_k.shape[1:]
+    if D != 256 or Dm not in (32, 64):
+        raise ValueError(f"flash_attention_kv_proj: D = {D}, Dm = {Dm} unsupported on the card "
+                         "(D = 256, Dm 32 or 64)")
+    if B > 65535:
+        raise ValueError(f"B = {B} exceeds the grid limit 65535")
+    q, mem_k, mem_v = _aligned_rows(q), _aligned_rows(mem_k), _aligned_rows(mem_v)
+    wk, wv = _aligned_rows(wk.contiguous()), _aligned_rows(wv.contiguous())
+    cos_k, sin_k = cos_k.contiguous(), sin_k.contiguous()
+    bk32, bv32 = bk.float().contiguous(), bv.float().contiguous()
+    if kv_mask is not None and kv_mask.stride(-1) != 1:
+        kv_mask = kv_mask.contiguous()
+    dtype = _DTYPES[q.dtype]
+    n_split = _kv_proj_splits(q.device.index, dtype, B, Sq, Skv, D, Dm)
+    part_o = part_lse = None
+    if n_split > 1:
+        part_o = torch.empty((n_split, B, Sq, D), dtype=torch.float32, device=q.device)
+        part_lse = torch.empty((n_split, B, Sq), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, 1, Sq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, 1, Sq), dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_attention").sam2_flash_attention_kvproj_fwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 14 + [i] * 7 + [ll] * 9 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(ptr(t) for t in (q, mem_k, mem_v, wk, bk32, wv, bv32, kv_mask, cos_k, sin_k,
+                                    part_o, part_lse, out, lse)),
+                 dtype, B, Sq, Skv, D, Dm, n_split,
+                 q.stride(0), q.stride(2), mem_k.stride(0), mem_k.stride(1),
+                 mem_v.stride(0), mem_v.stride(1), out.stride(0), out.stride(2),
+                 0 if kv_mask is None else kv_mask.stride(0), 1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_kv_proj kernel launch failed: cudaError {err}")
+    flash_attention_kv_proj.launches += 1
+    return out, lse
+
+
+flash_attention_kv_proj.launches = 0
+
+
+def flash_attention_kv_proj_dbk_scale(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, dout,
+                                      kv_mask=None):
+    """Sum over keys of |per-key fp32 cotangent| whose signed sum is dbk, [D]:
+    what the error of a bf16 dbk scales with. Softmax is shift-invariant, so
+    a bias added to every key moves the output only through the rotation's
+    position dependence, and dbk is a sum of 10^4 terms that nearly cancel;
+    an error of relative size u in every term moves the sum by up to u times
+    this, however small the sum itself."""
+    c32, s32 = cos_k.float(), sin_k.float()
+    qf = q.float()
+    kr = apply_rotary_split(_project(mem_k, wk, bk, torch.float32), c32, s32)[:, None]
+    vp = _project(mem_v, wv, bv, torch.float32)[:, None]
+    out, lse = flash_attention_ref(qf, kr, vp, kv_mask)
+    _, dkr, _ = flash_attention_bwd_ref(qf, kr, vp, out, lse, dout.float(), kv_mask)
+    return apply_rotary_split(dkr[:, 0], c32, -s32).abs().sum((0, 1))
+
+
+class _FlashAttentionKVProj(torch.autograd.Function):
+    """K4 forward, K3 backward: the JAX `_attn_rope_kvproj_bwd` (:647-685).
+    The projections are recomputed at the kernel's precision, K3 runs on
+    (q, rotated K, V), dK is rotated back by -theta in fp32, and the
+    cotangents of the projections, rounded to the input dtype, go through
+    the four weight and input products in torch (XLA computes them in the
+    JAX package, outside any Pallas kernel); the bias gradients are sums of
+    the fp32 cotangents."""
+
+    @staticmethod
+    def forward(ctx, q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
+        out, lse = _kv_proj_forward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
+        ctx.save_for_backward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, out, lse, kv_mask)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, out, lse, kv_mask = ctx.saved_tensors
+        dt = q.dtype
+        c32, s32 = cos_k.float(), sin_k.float()
+        kp = _project(mem_k, wk, bk, dt)
+        kr = apply_rotary_split(kp.float(), c32, s32).to(dt)[:, None]
+        vp = _project(mem_v, wv, bv, dt)[:, None]
+        dq, dkr, dvp = flash_attention_bwd(q, kr, vp, out, lse, dout, kv_mask)
+        dmk, dwk, dbk = _projection_grads(mem_k, wk, bk, apply_rotary_split(dkr[:, 0], c32, -s32))
+        dmv, dwv, dbv = _projection_grads(mem_v, wv, bv, dvp[:, 0])
+        return dq.to(dt), dmk, dmv, dwk, dbk, dwv, dbv, None, None, None
+
+
+def _projection_grads(x, w, b, g):
+    """(dx, dw, db) of x . w^T + b for its fp32 cotangent g [B, S, D]: g
+    rounded to the input dtype for the two products (fp32 sums), db summed
+    from g in fp32 (the JAX `_attn_rope_kvproj_bwd`, :666-673)."""
+    g_l = g.to(x.dtype).float()
+    dx = torch.matmul(g_l, w.float())
+    dw = torch.matmul(g_l.flatten(0, 1).t(), x.float().flatten(0, 1))
+    return dx.to(x.dtype), dw.to(w.dtype), g.sum((0, 1)).to(b.dtype)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,4 +1,4 @@
-"""Per-window softmax attention: the CUDA kernel's three wrappers, their
+"""Per-window softmax attention: the CUDA kernel's five wrappers, their
 plain version and the autograd Function of the two differentiable ones.
 
 The JAX package has three Pallas kernels for Hiera's windowed attention
@@ -12,6 +12,16 @@ all three, the layout passed as strides:
 - K7, `packed_window_attention`: q `[N, Sq, heads, d]`, k/v `[N, Skv, heads,
   d]`, from the packed window route. On the TPU it packed windows
   block-diagonally to shape the MXU's products; its function is K6's.
+
+The JAX package's window bench tool (`tools/bench_window_flash.py`) has two
+more Pallas kernels of K6's function, and the same kernel serves them too
+(the design of K5-K7, three wrappers over one kernel, now five), run by
+the tool's port `sam2_opt_tpu_torch.tools.bench_window_flash`:
+- K9, `window_attention_heads` (`_kern_h`): `[N, S, heads, d]`, heads a
+  stride of the launch;
+- K10, `window_attention_3d` (`_kern_3d`): the same after contiguous copies
+  to `[N * heads, S, d]` and back, as the tool's transposes do.
+Neither has a gradient (the tool defines no VJP).
 
 Numerics (the Pallas kernels' `_kernel`, :25-40): logits q.k in fp32 times
 1/sqrt(D), minus the row max, exponentiated, divided by the row sum; p
@@ -217,3 +227,53 @@ def window_attention(q, k, v):
 
 
 window_attention.launches = 0
+
+
+def _no_grad_launch(q, k, v, what):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(f"{what} has no backward, as the JAX tool's kernel has none")
+
+
+def window_attention_heads(q, k, v):
+    """K9 (the bench tool's `_kern_h`): q/k/v [N, S, heads, d], one window
+    length for q and kv, unit stride along d -> out [N, S, heads, d],
+    contiguous. The TPU kernel looped over heads inside a block of windows;
+    here the heads are a stride of the same launch. Not differentiable: on a
+    CUDA tensor under autograd it raises."""
+    _check_nshd(q, k, v, "window_attention_heads", same_len=True)
+    if q.device.type == "cpu":
+        return window_attention_nshd_ref(q, k, v)
+    _no_grad_launch(q, k, v, "window_attention_heads (K9)")
+    return _nshd_forward(q, k, v, window_attention_heads, "window_attention_heads")
+
+
+window_attention_heads.launches = 0
+
+
+def window_attention_3d(q, k, v):
+    """K10 (the bench tool's `_kern_3d`): q/k/v [N, S, heads, d] -> out
+    [N, S, heads, d]. As the tool's XLA transposes do (:96, :105), q, k and v
+    are copied to contiguous [N * heads, S, d] first, the kernel runs on that
+    layout, and its output is copied back to [N, S, heads, d]. Not
+    differentiable: on a CUDA tensor under autograd it raises."""
+    _check_nshd(q, k, v, "window_attention_3d", same_len=True)
+    N, S, H, D = q.shape
+    if q.device.type == "cpu":
+        return window_attention_nshd_ref(q, k, v)
+    _no_grad_launch(q, k, v, "window_attention_3d (K10)")
+    flat = [t.transpose(1, 2).reshape(N * H, S, D) for t in (q, k, v)]
+    out = torch.empty_like(flat[0])
+    launch_3d(*flat, out)
+    window_attention_3d.launches += 1
+    return out.view(N, H, S, D).transpose(1, 2).contiguous()
+
+
+window_attention_3d.launches = 0
+
+
+def launch_3d(q, k, v, out):
+    """K10's kernel alone on [N * heads, S, d] tensors (16-byte aligned
+    rows), into `out`; counts nothing (the bench tool times it)."""
+    M, S, D = q.shape
+    sd = lambda t: (t.stride(0), 0, t.stride(1))  # noqa: E731  (window, head, row)
+    _launch(q, k, v, out, ((M, 1, S, S, D), sd(q), sd(k), sd(v), sd(out)), "window_attention_3d")

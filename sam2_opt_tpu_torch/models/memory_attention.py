@@ -20,11 +20,15 @@ device and dtype. On a CUDA
 tensor with q * kv >= 1024² and q of one frame's tokens, attention goes to
 K2 (`flash_attention_rope`), which rotates K inside the kernel; otherwise it
 runs K2's plain version, as the JAX package takes its unfused path on the
-CPU.
+CPU. The JAX package's switches are read at every call:
+`SAM2_TPU_FUSED_KV_PROJ=1` sends single-head cross-attention to K4
+(`flash_attention_kv_proj`, or its plain version off the card), which also
+projects the memory K/V; `SAM2_TPU_FUSED_ROPE=0` turns off K2 and K4.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 from typing import Optional
 
@@ -34,6 +38,10 @@ from torch import nn
 
 from sam2_opt_tpu_torch.config import MemoryAttentionConfig, SAM2Config
 from sam2_opt_tpu_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_kv_proj,
+    flash_attention_kv_proj_ref,
+    flash_attention_ref,
     flash_attention_rope,
     flash_attention_rope_ref,
 )
@@ -60,9 +68,22 @@ def _rope_half_tables(dim: int, end_x: int, end_y: int, theta: float, reps: int,
         return c.to(device, dtype), s.to(device, dtype)
 
 
+def _rope_fusion_on() -> bool:
+    """`SAM2_TPU_FUSED_ROPE` (default on, read at every call, as the JAX
+    gate at memory_attention.py:71): "0" turns off K2 and K4 together."""
+    return os.environ.get("SAM2_TPU_FUSED_ROPE", "1") != "0"
+
+
+def _kv_proj_fusion_on() -> bool:
+    """`SAM2_TPU_FUSED_KV_PROJ=1` (default off, read at every call, as the
+    JAX gate at memory_attention.py:76-88): single-head cross-attention
+    projects the memory K/V inside K4."""
+    return os.environ.get("SAM2_TPU_FUSED_KV_PROJ", "0") == "1"
+
+
 def _use_fused_rope(q, kv_len: int, frame_tokens: int) -> bool:
-    """K2 where K1 would run anyway (q * kv >= 1024², on the card) and q is
-    one frame's tokens (`_use_fused_rope`, memory_attention.py:62-73)."""
+    """The kernels where K1 would run anyway (q * kv >= 1024², on the card)
+    and q is one frame's tokens (`_use_fused_rope`, memory_attention.py:62-73)."""
     q_len = q.shape[-2]
     return q.is_cuda and q_len * kv_len >= 1024 * 1024 and q_len == frame_tokens
 
@@ -97,22 +118,42 @@ class RoPEAttention(ops.Attention):
 
 
 def _rope_attention(attn: RoPEAttention, cfg: MemoryAttentionConfig, q_in, k_in, v_in,
-                    kv_mask, reps: int, n_extra: int):
+                    kv_mask, reps: int, n_extra: int, cross: bool = False):
     """q from one frame's tokens, k/v from `reps` frames plus `n_extra`
-    unrotated tokens; q rotated here, K in K2 (or its plain version)."""
+    unrotated tokens; q rotated here. On the card, where the kernels take
+    the shape (`_use_fused_rope`), K is rotated in K2, or for single-head
+    cross-attention under `SAM2_TPU_FUSED_KV_PROJ=1` projected and rotated
+    in K4; elsewhere their plain versions run. `SAM2_TPU_FUSED_ROPE=0`
+    rotates K here instead and runs K1 where the card's K1 takes the head
+    dim (up to 128), its plain version otherwise (the JAX unfused branch,
+    memory_attention.py:206-224)."""
     ex, ey = cfg.rope_feat_sizes
     wq, bq, wk, bk = attn.split_qk()
     q = ops.separate_heads(F.linear(q_in, wq, bq), attn.num_heads)
-    k = ops.separate_heads(F.linear(k_in, wk, bk), attn.num_heads)
-    v = ops.separate_heads(attn.v_proj(v_in), attn.num_heads)
     head_dim = q.shape[-1]
     cq, sq = _rope_half_tables(head_dim, ex, ey, cfg.rope_theta, 1, 0, q.device, q.dtype)
     ck, sk = _rope_half_tables(head_dim, ex, ey, cfg.rope_theta, reps, n_extra, q.device, q.dtype)
     # q rotated as the kernel rotates K: in fp32, rounded once
     q = posenc.apply_rotary_split(q.float(), cq.float(), sq.float()).to(q.dtype)
-    fused = _use_fused_rope(q, k.shape[-2], ex * ey)
-    attend = flash_attention_rope if fused else flash_attention_rope_ref
-    out, _ = attend(q, k, v, ck, sk, kv_mask)
+    on_card = _use_fused_rope(q, k_in.shape[1], ex * ey)
+    rope = _rope_fusion_on()
+    # (when int8 projections are ported, quantized k/v projections cannot
+    # stream raw weights into K4 and take the branch below, as in the JAX
+    # package, memory_attention.py:184-186)
+    if cross and rope and attn.num_heads == 1 and _kv_proj_fusion_on():
+        attend = flash_attention_kv_proj if on_card else flash_attention_kv_proj_ref
+        out, _ = attend(q, k_in, v_in, wk, bk, attn.v_proj.weight, attn.v_proj.bias, ck, sk,
+                        kv_mask)
+        return attn.out_proj(ops.recombine_heads(out))
+    k = ops.separate_heads(F.linear(k_in, wk, bk), attn.num_heads)
+    v = ops.separate_heads(attn.v_proj(v_in), attn.num_heads)
+    if rope:
+        attend = flash_attention_rope if on_card else flash_attention_rope_ref
+        out, _ = attend(q, k, v, ck, sk, kv_mask)
+    else:
+        k = posenc.apply_rotary_split(k.float(), ck.float(), sk.float()).to(k.dtype)
+        attend = flash_attention if on_card and head_dim <= 128 else flash_attention_ref
+        out, _ = attend(q, k, v, kv_mask)
     return attn.out_proj(ops.recombine_heads(out))
 
 
@@ -143,7 +184,8 @@ class MemoryAttentionLayer(nn.Module):
         tgt2 = self.norm2(tgt)
         q = tgt2 + query_pos if cfg.pos_enc_at_cross_attn_queries else tgt2
         tgt = tgt + _rope_attention(self.cross_attn_image, cfg, q, mem_k, mem_v, kv_mask,
-                                    num_frame_tokens // seq, mem_k.shape[1] - num_frame_tokens)
+                                    num_frame_tokens // seq, mem_k.shape[1] - num_frame_tokens,
+                                    cross=True)
         tgt2 = self.norm3(tgt)
         act = F.relu if cfg.activation == "relu" else ops.gelu
         return tgt + self.linear2(act(self.linear1(tgt2)))

@@ -88,7 +88,12 @@ def run_both(tiny128_cfg, tiny128_params, **kwargs):
     (loss, aux), grads = fn(params)
     ref = (float(loss), {k: float(v) for k, v in aux.items()},
            state_dict_from_params(jax.tree_util.tree_map(np.asarray, grads)))
+    return ref, run_port(tiny128_params, **kwargs)
 
+
+def run_port(tiny128_params, **kwargs):
+    """The port's (loss, aux, grads) of the rollout."""
+    frames, masks = video()
     module = port_module(tiny128_params)
     cfg = model_config("hiera_t", image_size=S)
     loss, aux = sam2_train.video_train_loss(module, cfg, torch.from_numpy(frames),
@@ -96,7 +101,7 @@ def run_both(tiny128_cfg, tiny128_params, **kwargs):
                                             use_remat=False, **kwargs)
     loss.backward()
     grads = {n: p.grad for n, p in module.named_parameters()}
-    return ref, (loss.item(), {k: v.item() for k, v in aux.items()}, grads)
+    return loss.item(), {k: v.item() for k, v in aux.items()}, grads
 
 
 def assert_loss_and_aux(ref, got):
@@ -144,6 +149,29 @@ def test_mask_input_rollout_grads_match_jax(mask_input):
     for layer in (0, 3):
         for attn in ("self_attn", "cross_attn_image"):
             assert got[2][f"memory_attention.layers.{layer}.{attn}.q_proj.weight"].abs().max() > 0
+
+
+def test_mask_input_rollout_fused_kv_proj_matches_jax(mask_input, tiny128_params, monkeypatch):
+    """The port's rollout under `SAM2_TPU_FUSED_KV_PROJ=1`, where memory
+    attention's cross-attention runs K4's plain version (on the card, K4 and
+    its backward), against the same JAX result (the JAX package takes its
+    unfused path on the CPU either way): loss and gradients at the
+    tolerances above; the cross-attention's k/v projections, now inside K4,
+    get a nonzero gradient."""
+    import sam2_opt_tpu_torch.models.memory_attention as ma
+
+    calls = []
+    kv_ref = ma.flash_attention_kv_proj_ref
+    monkeypatch.setattr(ma, "flash_attention_kv_proj_ref", lambda *a: calls.append(1) or kv_ref(*a))
+    monkeypatch.setenv("SAM2_TPU_FUSED_KV_PROJ", "1")
+    ref, _ = mask_input
+    got = run_port(tiny128_params, use_mask_input=True, num_correction_clicks=0)
+    assert len(calls) == 4 * (T - 1)  # 4 layers per tracked frame
+    assert_loss_and_aux(ref, got)
+    assert_grads(ref, got)
+    for layer in (0, 3):
+        for proj in ("k_proj", "v_proj"):
+            assert got[2][f"memory_attention.layers.{layer}.cross_attn_image.{proj}.weight"].abs().max() > 0
 
 
 def test_losses_match_jax():

@@ -11,7 +11,8 @@ The script: a click on frame 0 for object 1 and a negative one added to it
 (`clear_old_points=False`, fed the first click's logits), `add_new_mask` on
 frame 2 for object 2, forward propagation (frames 1 and 3-5 track both
 objects as one batch), a correction click on the tracked frame 4, reverse
-propagation from frame 5, `remove_object(2)`. Every returned
+propagation from frame 5, `remove_object(2)`; once as is and once under
+`SAM2_TPU_FUSED_KV_PROJ=1` (K4's route), against one JAX run. Every returned
 video-res logit map and every stored low-res logit map is held at atol 1e-4
 (measured: below 1e-6; the module tests hold single modules at 1e-4). The
 bf16 gate mirrors tests/test_accuracy_gate.py: per-frame mask mIoU > 0.97.
@@ -29,7 +30,11 @@ from sam2_opt_tpu.predictors.video import SAM2VideoPredictor as JaxVideoPredicto
 from sam2_opt_tpu_torch import build_sam2_video_predictor
 from sam2_opt_tpu_torch.io.video import load_video_frames
 from sam2_opt_tpu_torch.io.weights import state_dict_from_params
-from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_rope
+from sam2_opt_tpu_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_kv_proj,
+    flash_attention_rope,
+)
 from sam2_opt_tpu_torch.models.model import build_sam2
 from sam2_opt_tpu_torch.predictors.video import SAM2VideoPredictor
 
@@ -88,17 +93,27 @@ def _run(predictor, video):
     return [np.asarray(x) for x in outs], [np.asarray(x) for x in lows], state
 
 
-def test_full_loop_matches_jax(tiny128_cfg, weights):
-    video = _video()
-    jax_outs, jax_lows, _ = _run(JaxVideoPredictor(JaxSAM2Model(weights, tiny128_cfg)), video)
+@pytest.fixture(scope="module")
+def jax_outputs(tiny128_cfg, weights):
+    """The JAX predictor's outputs of the script, run once for the module
+    (on the CPU it takes its unfused memory attention whatever the
+    switches say)."""
+    outs, lows, _ = _run(JaxVideoPredictor(JaxSAM2Model(weights, tiny128_cfg)), _video())
+    return outs, lows
+
+
+def _port_matches_jax(tiny128_cfg, weights, jax_outputs):
+    jax_outs, jax_lows = jax_outputs
     predictor = SAM2VideoPredictor(build_sam2(cfg=tiny128_cfg,
                                               state_dict=state_dict_from_params(weights),
                                               device="cpu"))
     assert predictor.fill_hole_area == 8
-    k1, k2 = flash_attention.launches, flash_attention_rope.launches
-    outs, lows, state = _run(predictor, video)
+    counts = (flash_attention.launches, flash_attention_rope.launches,
+              flash_attention_kv_proj.launches)
+    outs, lows, state = _run(predictor, _video())
     # CPU tensors run the plain versions: no kernel launches
-    assert (flash_attention.launches, flash_attention_rope.launches) == (k1, k2)
+    assert (flash_attention.launches, flash_attention_rope.launches,
+            flash_attention_kv_proj.launches) == counts
     assert len(outs) == len(jax_outs) == 4 + T + T + 1 and len(lows) == len(jax_lows) == 2 * T
     for a, b in zip(outs + lows, jax_outs + jax_lows):
         assert a.shape == b.shape
@@ -107,6 +122,27 @@ def test_full_loop_matches_jax(tiny128_cfg, weights):
     tracked = np.stack(lows)
     assert np.abs(tracked).max() < 100 and np.ptp(tracked) > 0.05
     assert state["obj_ids"] == [1] and len(state["output_dict_per_obj"]) == 1
+
+
+def test_full_loop_matches_jax(tiny128_cfg, weights, jax_outputs):
+    _port_matches_jax(tiny128_cfg, weights, jax_outputs)
+
+
+def test_full_loop_matches_jax_fused_kv_proj(tiny128_cfg, weights, jax_outputs, monkeypatch):
+    """Under `SAM2_TPU_FUSED_KV_PROJ=1` memory attention's cross-attention
+    takes K4's plain version (a spy sees it, and K2's plain version serve
+    only self-attention), and the loop still matches the same JAX outputs."""
+    import sam2_opt_tpu_torch.models.memory_attention as ma
+
+    calls = {"kv_proj": 0, "rope": 0}
+    kv_ref, rope_ref = ma.flash_attention_kv_proj_ref, ma.flash_attention_rope_ref
+    monkeypatch.setattr(ma, "flash_attention_kv_proj_ref",
+                        lambda *a: calls.__setitem__("kv_proj", calls["kv_proj"] + 1) or kv_ref(*a))
+    monkeypatch.setattr(ma, "flash_attention_rope_ref",
+                        lambda *a: calls.__setitem__("rope", calls["rope"] + 1) or rope_ref(*a))
+    monkeypatch.setenv("SAM2_TPU_FUSED_KV_PROJ", "1")
+    _port_matches_jax(tiny128_cfg, weights, jax_outputs)
+    assert calls["kv_proj"] > 0 and calls["kv_proj"] == calls["rope"]
 
 
 def test_bf16_video_mask_miou(tiny128_cfg, weights):

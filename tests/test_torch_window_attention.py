@@ -1,4 +1,5 @@
-"""K5, K6 and K7, the per-window attention kernels, in the PyTorch port.
+"""K5, K6 and K7, the per-window attention kernels, in the PyTorch port,
+and K9 and K10, the window bench tool's kernels (the same CUDA kernel).
 
 The plain versions the wrappers run on CPU tensors are held against the JAX
 package's Pallas kernels: K5 (`window_attention`) and K6
@@ -20,7 +21,9 @@ import torch
 from sam2_opt_tpu_torch.kernels.window_attention import (
     packed_window_attention,
     window_attention,
+    window_attention_3d,
     window_attention_bf16_bound,
+    window_attention_heads,
     window_attention_nshd_ref,
     window_attention_ref,
     window_flash_3d,
@@ -237,6 +240,60 @@ def test_cuda_k5_layouts_and_autograd(dtype):
     assert window_attention(q, k, v).transpose(1, 2).is_contiguous()
     with pytest.raises(RuntimeError, match="no backward"):
         window_attention(*(x.detach().requires_grad_() for x in flat))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["k9", "k10"])
+def test_k9_k10_run_plain_version_on_cpu(which, dtype):
+    """K9 (`window_attention_heads`) and K10 (`window_attention_3d`), the
+    bench tool's kernels, run the plain version on CPU tensors (their
+    function is K6's: `_attn_batched` of the tool equals the window kernels'
+    `_kernel`), launch nothing, and refuse unequal q and kv lengths."""
+    fn = window_attention_heads if which == "k9" else window_attention_3d
+    q, k, v = (_torch(x, dtype) for x in _arrays([(4, 64, 2, 72)] * 3, seed=20))
+    before = fn.launches
+    assert torch.equal(fn(q, k, v), window_attention_nshd_ref(q, k, v))
+    assert fn.launches == before
+    with pytest.raises(ValueError):
+        fn(q, k[:, :16], v[:, :16])
+
+
+def test_bench_tool_runs_on_cpu():
+    """The ported bench tool's entry point with `--device cpu`: one row per
+    hiera-L window shape, both kernels within the bf16 bound of the plain
+    version (here: the plain version itself) and close to the einsum path,
+    no times (a CPU run measures no device)."""
+    from sam2_opt_tpu_torch.tools import bench_window_flash as bw
+
+    rows = bw.main(["--device", "cpu"])
+    assert [(r["N"], r["S"], r["H"], r["D"]) for r in rows] == [s[1:] for s in bw.SHAPES]
+    for r in rows:
+        assert r["kern_h_within_bound"] and r["kern_3d_within_bound"]
+        assert r["kern_h_err_vs_einsum"] < 0.05 and r["kern_3d_err_vs_einsum"] < 0.05
+        assert r["kern_h_us"] is None and r["sdpa_us"] is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,S,H,D", [(1024, 64, 2, 72), (1024, 16, 4, 72), (16, 256, 8, 72),
+                                     (16, 64, 16, 72)])
+def test_cuda_k9_k10_match_ref(N, S, H, D):
+    """K9 and K10 at the bench tool's four shapes, bf16, within
+    `window_attention_bf16_bound`, one launch each, contiguous output; under
+    autograd both raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (torch.from_numpy(x).cuda().to(torch.bfloat16)
+               for x in _arrays([(N, S, H, D)] * 3, seed=21))
+    ref = window_attention_nshd_ref(q, k, v)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    for fn in (window_attention_heads, window_attention_3d):
+        before = fn.launches
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1 and out.is_contiguous()
+        _assert_kernel_close(t(out), t(ref), t(q), t(k), t(v), "bfloat16")
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(q.detach().requires_grad_(), k, v)
 
 
 @pytest.mark.gpu
