@@ -85,13 +85,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    fp32, on phase 4's cases with the memory 64 wide; a negative control
    (the plain version without the K bias) that must fail; its seven
    gradients through the seam against autograd of the plain version at the
-   cross shape; its time beside its bound, its plain version, the unfused
-   route it replaces (two F.linear + K2) and the composite yardstick (two
-   F.linear + rotation + SDPA);
-16. the video slice under the switch: the hiera-L video predictor over 3
-   frames in fp32 and bf16 with exact launches per tracked frame (K1 3, K2
-   4, K4 4), fp32 logits held to the default route, bf16 masks by mIoU;
-   ms per tracked frame and the device split of both routes;
+   cross shape, biases 0.05 and 0.5, beside the same check of the unfused
+   route it replaces (two F.linear + K2 forward + K3 backward) as a
+   witness; its time beside its bound, its plain version, that unfused
+   route and the composite yardstick (two F.linear + rotation + SDPA);
+   then K1 at D = 256 (memory attention under `SAM2_TPU_FUSED_ROPE=0`)
+   against its plain version on phase 4's cases with a negative control
+   (the mask dropped), and its times at the cross and self shapes;
+16. the video slice under memory attention's switches: the hiera-L video
+   predictor over 3 frames in fp32 and bf16 with exact launches per
+   tracked frame (K1, K2, K4): (3, 4, 4) under `SAM2_TPU_FUSED_KV_PROJ=1`,
+   (11, 0, 0) under `SAM2_TPU_FUSED_ROPE=0`; fp32 logits held to the
+   default route, bf16 masks by mIoU; ms per tracked frame and the device
+   split of all three routes;
 17. training under the switch: `Trainer.run` at hiera-b+ 1024², two fp32
    and two bf16 steps with exact launches per step (K1 6, K2 28, K4 28, K3a 59, K3b
    59), the fp32 first-step loss held to phase 10's default route;
@@ -810,7 +816,7 @@ def phase_video_times(predictor, video, points, flash_attention_rope,
     """Per-frame propagation time, peak memory and the device split of the
     tracked frames, fp32 and bf16; K2 beside its plain version, the library
     yardstick and its bound at the self and cross shapes."""
-    from sam2_opt_tpu_torch.kernels.flash_attention import _rope_splits
+    from sam2_opt_tpu_torch.kernels.flash_attention import _kv_splits
     from sam2_opt_tpu_torch.models.memory_attention import _rope_half_tables
     from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
 
@@ -842,7 +848,8 @@ def phase_video_times(predictor, video, points, flash_attention_rope,
                                warmup=1, flush=flush)
             library_ms = cuda_ms(library, reps=5, flush=flush)
             bound_ms, bound_by = k2_bound_ms(B, Sq, Skv, D, dtype)
-            n_split = _rope_splits(0, int(dtype == torch.bfloat16), B, 1, Sq, Skv, D)
+            n_split = _kv_splits("sam2_flash_attention_rope_splits", 0,
+                                 int(dtype == torch.bfloat16), B, 1, Sq, Skv, D)
             ctas = -(-Sq // 64) * B * n_split
             log(f"K2 {dtype} {label} {(B, Sq, Skv, D)}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"rotation + F.scaled_dot_product_attention {library_ms:.4f} ms, bound "
@@ -1566,6 +1573,11 @@ K4_VIDEO_FRAMES = 3
 K4_FRAME_LAUNCHES = (3, 4, 4)  # (K1, K2, K4)
 K4_STEP_LAUNCHES = {"K1": 6, "K2": 28, "K4": 28, "K3a": 59, "K3b": 59}
 K4_TRAIN_STEPS = 2
+# SAM2_TPU_FUSED_ROPE=0 turns off K2 and K4: memory attention rotates K in
+# torch and runs K1 at D = 256 on K2's shapes, so per tracked frame (K1, K2,
+# K4) the trunk's 3 global blocks plus 4 self- and 4 cross-attentions on K1
+ROPE_OFF_SWITCH = {"SAM2_TPU_FUSED_ROPE": "0"}
+ROPE_OFF_FRAME_LAUNCHES = (11, 0, 0)
 
 
 def k4_bound_ms(B, Sq, Skv, D, Dm, dtype, valid_keys=None):
@@ -1599,7 +1611,7 @@ def k4_cases(dtype, bias=0.5):
     """(label, [q, mem_k, mem_v, wk, bk, wv, bv, cos, sin, kv_mask]): phase
     4's cases with the memory Dm wide. The forward checks take biases of
     0.5, large enough that leaving bk out is visible; the gradient check
-    takes the JAX kernel test's 0.05 (see phase_k4_grads)."""
+    takes these and the JAX kernel test's 0.05 (see phase_k4_grads)."""
     from sam2_opt_tpu_torch.models.memory_attention import _rope_half_tables
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -1660,47 +1672,52 @@ def phase_k4(kv_proj, kv_proj_ref):
 def phase_k4_grads(kv_proj, kv_proj_ref):
     """The seven gradients through K4 (backward: K3 and the projection
     products) against autograd of the plain version at the cross shape with
-    phase 4's mask: fp32 within 1e-4 of max |g|; bf16 within 2e-2, and dbk
-    in bf16 within 2e-2 of the sum of |its per-key terms| (a nearly
-    cancelling sum, see `flash_attention_kv_proj_dbk_scale`). The biases
-    are the JAX kernel test's 0.05: the flash backward takes delta =
-    rowsum(dO * O) from the bf16 output, and dQ carries that rounding times
-    the component all keys share, which a large bias makes large (at 0.5,
-    dQ differed from the fp32 autograd of the plain version by 4.0% of max
-    |g| on an H100 80GB HBM3 at 700 W)."""
-    from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention_kv_proj_dbk_scale
+    phase 4's mask, at the JAX kernel test's biases (0.05) and at phase 15's
+    (0.5). A witness goes through the same check on the same inputs: the
+    unfused route K4 replaces (two F.linear, K2 forward, K3 backward). fp32:
+    K4 within 1e-4 of max |g|. bf16: within 2e-2, or, for a gradient where
+    the witness itself misses 2e-2, within twice the witness's error. The
+    flash backward takes delta = rowsum(dO * O) from the bf16 output, and dQ
+    and dbk carry that rounding times the component every key shares, which
+    a large bias makes large, on either route. Returns {case: {route:
+    {gradient: max |err| / max |g|}}}."""
+    from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention_rope
+
+    def unfused(q, mk, mv, wk, bk, wv, bv, c, s, mask):
+        return flash_attention_rope(q, F.linear(mk, wk, bk)[:, None],
+                                    F.linear(mv, wv, bv)[:, None], c, s, mask)
 
     names = ("q", "mem_k", "mem_v", "wk", "bk", "wv", "bv")
+    readings = {}
     for dtype in (torch.float32, torch.bfloat16):
-        _, args = next(iter(k4_cases(dtype, bias=0.05)))
-        g = torch.randn(args[0].shape, device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(SEED + 11)).to(dtype)
-        grads = []
-        for fn in (kv_proj, kv_proj_ref):
-            leaves = [a.clone().requires_grad_() for a in args[:7]]
-            out, _ = fn(*leaves, *args[7:])
-            grads.append(torch.autograd.grad(out, leaves, g))
-            del out, leaves
-        tol = K4_GRAD_TOL[dtype]
-        worst, bad = {}, []
-        for name, got, want in zip(names, *grads):
-            err = (got.float() - want.float()).abs()
-            scale = want.float().abs().max()
-            if name == "bk" and dtype == torch.bfloat16:
-                terms = flash_attention_kv_proj_dbk_scale(*args[:9], g, args[9])
-                lim = tol * (scale + terms)
-                log(f"  bf16 dbk: max|err| {err.max().item():.3e}, max|g| {scale.item():.3e}, "
-                    f"sum over keys of |terms| up to {terms.max().item():.3e}")
-            else:
-                lim = tol * scale
-            worst[name] = round((err.max() / scale).item(), 6)
-            if bool((err > lim).any()):
-                bad.append(name)
-        log(f"K4 gradients through the seam vs autograd of the plain version ({dtype}, cross "
-            f"shape): |err|/max|g| {worst} (limit {tol})")
-        check(not bad, f"K4's gradients disagree with the plain version: {bad}")
-        del grads, args, g
-        torch.cuda.empty_cache()
+        for bias in (0.05, 0.5):
+            _, args = next(iter(k4_cases(dtype, bias=bias)))
+            g = torch.randn(args[0].shape, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(SEED + 11)).to(dtype)
+            grads = {}
+            for route, fn in (("K4", kv_proj), ("unfused", unfused), ("plain", kv_proj_ref)):
+                leaves = [a.clone().requires_grad_() for a in args[:7]]
+                out, _ = fn(*leaves, *args[7:])
+                grads[route] = torch.autograd.grad(out, leaves, g)
+                del out, leaves
+            errs = {route: {name: ((got.float() - want.float()).abs().max()
+                                   / want.float().abs().max()).item()
+                            for name, got, want in zip(names, grads[route], grads["plain"])}
+                    for route in ("K4", "unfused")}
+            tol = K4_GRAD_TOL[dtype]
+            limit = {n: tol if dtype == torch.float32 else max(tol, 2 * errs["unfused"][n])
+                     for n in names}
+            bad = [n for n in names if errs["K4"][n] > limit[n]]
+            case = f"{str(dtype).replace('torch.', '')} bias {bias}"
+            log(f"K4 gradients vs autograd of the plain version ({case}, cross shape), max|err| / "
+                f"max|g|: K4 {({n: round(e, 6) for n, e in errs['K4'].items()})}; witness "
+                f"(2 F.linear + K2 + K3) {({n: round(e, 6) for n, e in errs['unfused'].items()})}; "
+                f"limits {({n: round(x, 6) for n, x in limit.items()})}")
+            check(not bad, f"K4's gradients disagree with the plain version ({case}): {bad}")
+            readings[case] = errs
+            del grads, args, g
+            torch.cuda.empty_cache()
+    return readings
 
 
 def phase_k4_times(kv_proj, kv_proj_ref):
@@ -1748,14 +1765,79 @@ def phase_k4_times(kv_proj, kv_proj_ref):
     return rows
 
 
-def phase_k4_video(counters):
-    """The video slice under the switch: the hiera-L video predictor of
-    phase 6 (rebuilt from the seed), 3 frames of its video in fp32 and bf16,
-    default route and K4 route in turn, no hole filling on either (a logit
-    on the threshold could move a small component): exact launches per
-    frame, fp32 low-res logits within 1e-3 of their scale, bf16 masks by
-    mIoU; then ms per tracked frame and the device split of both routes
-    over the 8 frames. Returns (K4 launches of the checked runs, times)."""
+def phase_k1_wide(flash_attention, flash_attention_ref):
+    """K1 at D = 256, memory attention's attention under
+    `SAM2_TPU_FUSED_ROPE=0`, against its plain version on phase 4's cases
+    (K arrives rotated on that route, so the tables play no part), bf16 and
+    fp32, with K2's tolerances (the same kernel without the rotation); the
+    negative control holds the cross case to the plain version without its
+    mask (it must fail). Then its times at the cross and self shapes, every
+    key valid, cold L2, beside its bound, its plain version and
+    F.scaled_dot_product_attention. Returns (largest error, {(shape label,
+    dtype): times})."""
+    max_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, q, k, v, _, _, kv_mask in k2_cases(dtype):
+            out, lse = flash_attention(q, k, v, kv_mask)
+            ref, ref_lse = flash_attention_ref(q, k, v, kv_mask)
+            torch.cuda.synchronize()
+            ok, err = k2_within(out, ref, dtype)
+            lse_err = (lse - ref_lse).abs()
+            ok_lse = bool((lse_err <= LSE_TOL[1] + LSE_TOL[0] * ref_lse.abs()).all())
+            max_err = max(max_err, err.max().item())
+            log(f"K1 D=256 {dtype} B={q.shape[0]} Sq={q.shape[2]} Skv={k.shape[2]} {label}: "
+                f"max|out-ref| {err.max().item():.3e} (rtol {K2_TOL[dtype][0]}, atol "
+                f"{K2_TOL[dtype][1]}; mean |ref| {ref.float().abs().mean().item():.3e}), "
+                f"max|lse-ref| {lse_err.max().item():.3e}")
+            check(ok and ok_lse, "K1 at D = 256 disagrees with its plain version")
+            if label.startswith("ragged"):
+                check(not out[1].any() and bool((lse[1] == -1e30).all()),
+                      "K1 at D = 256: fully masked rows must output 0 and lse -1e30")
+            if label.startswith("cross, 3/7"):
+                unmasked, _ = flash_attention_ref(q, k, v, None)
+                bad, bad_err = k2_within(out, unmasked, dtype)
+                log(f"  negative control (plain version without the mask): max|out-ref| "
+                    f"{bad_err.max().item():.3e}")
+                check(not bad, "the K1 D = 256 check cannot see the mask")
+            del out, lse, ref, ref_lse
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    times = {}
+    for label, (B, Sq, Skv, D) in (("cross", K2_CROSS), ("self", K2_SELF)):
+        base = [torch.randn(B, 1, n, D, device="cuda", generator=gen) for n in (Sq, Skv, Skv)]
+        mask = torch.ones(B, Skv, dtype=torch.bool, device="cuda") if label == "cross" else None
+        attn_mask = None if mask is None else mask[:, None, None, :]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype) for t in base)
+            ms = cuda_ms(lambda: flash_attention(q, k, v, mask), reps=5, flush=flush)
+            plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, mask), reps=3, warmup=1,
+                               flush=flush)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask),
+                                 reps=5, flush=flush)
+            bound_ms, bound_by = k1_bound_ms(B, 1, Sq, Skv, D, dtype)
+            log(f"K1 D=256 {dtype} {label} {(B, Sq, Skv, D)}: {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, F.scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {bound_ms / ms:.1%} of bound")
+            times[(label, dtype)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by)
+        del base, q, k, v
+    torch.cuda.empty_cache()
+    return max_err, times
+
+
+def phase_route_video(counters):
+    """The video slice under memory attention's switches: the hiera-L video
+    predictor of phase 6 (rebuilt from the seed), 3 frames of its video in
+    fp32 and bf16, the default route, then K4's (`SAM2_TPU_FUSED_KV_PROJ=1`)
+    and the unfused one (`SAM2_TPU_FUSED_ROPE=0`: K rotated in torch, K1 at
+    D = 256), no hole filling on any (a logit on the threshold could move a
+    small component): exact launches per frame, fp32 low-res logits within
+    1e-3 of their scale of the default route's, bf16 masks by mIoU; then ms
+    per tracked frame and the device split of every route over the 8
+    frames. Returns ({route: {kernel: launches of the checked runs}}, times);
+    "K1 D=256" counts the K1 launches of the tracked frames past the trunk's
+    3 per frame."""
     from sam2_opt_tpu_torch import build_sam2_video_predictor
 
     predictor = build_sam2_video_predictor("hiera_l", seed=SEED)
@@ -1764,42 +1846,52 @@ def phase_k4_video(counters):
     video = synthetic_video(SEED)
     points = np.array([[VIDEO_SQUARE[0] + 120, VIDEO_SQUARE[1] + 120]], np.float32)
     kernels = tuple(counters.values())
-    launches, times = 0, {}
+    routes = {"K4": (K4_SWITCH, K4_FRAME_LAUNCHES),
+              "rope off": (ROPE_OFF_SWITCH, ROPE_OFF_FRAME_LAUNCHES)}
+    launches = {route: {**dict.fromkeys(counters, 0), "K1 D=256": 0} for route in routes}
+    times = {}
     for dtype, backend in ((torch.float32, "eager"), (torch.bfloat16, "cuda")):
         predictor.set_runtime_backend(backend)
         predictor.fill_hole_area = 0
         default_state, default_masks, _ = track(predictor, video, K4_VIDEO_FRAMES, points)
-        with switches(K4_SWITCH):
-            # the main path: counts to 0 just before, read just after
-            for c in kernels:
-                c.launches = 0
-            state, masks, per_frame = track(predictor, video, K4_VIDEO_FRAMES, points,
-                                            counts=kernels)
-            torch.cuda.synchronize()
-            launches += counters["K4"].launches
-        log(f"K4 route, {K4_VIDEO_FRAMES} frames, {dtype}: per frame (K1, K2, K4) {per_frame}")
-        check(per_frame == [(0, 0, 0)] + [K4_FRAME_LAUNCHES] * (K4_VIDEO_FRAMES - 1),
-              f"each tracked frame under the switch must launch (K1, K2, K4) {K4_FRAME_LAUNCHES}")
-        if dtype == torch.float32:
-            got, want = low_res(state), low_res(default_state)
-            scale = max(1.0, float(want.abs().max()))
-            worst = float((got - want).abs().max()) / scale
-            log(f"  fp32 K4 route vs the default route: max|dlogit|/scale {worst:.3e} (limit "
-                f"{CPU_LOGIT_RTOL}; scale {scale:.3f})")
-            check(worst <= CPU_LOGIT_RTOL, "fp32 video logits under K4 drift from the default route")
-        else:
-            ious = [miou(a[0, 0].cpu().numpy() > 0, b[0, 0].cpu().numpy() > 0)
-                    for a, b in zip(masks, default_masks)]
-            log(f"  bf16 K4 route vs the default route: per-frame mask mIoU "
-                f"{[round(float(x), 4) for x in ious]} (limit > {VIDEO_BF16_MIOU_MIN})")
-            check(min(ious) > VIDEO_BF16_MIOU_MIN, "bf16 video masks under K4 drift from the default")
+        for route, (env, expect) in routes.items():
+            with switches(env):
+                # the main path: counts to 0 just before, read just after
+                for c in kernels:
+                    c.launches = 0
+                state, masks, per_frame = track(predictor, video, K4_VIDEO_FRAMES, points,
+                                                counts=kernels)
+                torch.cuda.synchronize()
+                for key, c in counters.items():
+                    launches[route][key] += c.launches
+            launches[route]["K1 D=256"] += sum(f[0] - 3 for f in per_frame[1:])
+            log(f"{route} route, {K4_VIDEO_FRAMES} frames, {dtype}: per frame (K1, K2, K4) "
+                f"{per_frame}")
+            check(per_frame == [(0, 0, 0)] + [expect] * (K4_VIDEO_FRAMES - 1),
+                  f"each tracked frame on the {route} route must launch (K1, K2, K4) {expect}")
+            if dtype == torch.float32:
+                got, want = low_res(state), low_res(default_state)
+                scale = max(1.0, float(want.abs().max()))
+                worst = float((got - want).abs().max()) / scale
+                log(f"  fp32 {route} route vs the default route: max|dlogit|/scale {worst:.3e} "
+                    f"(limit {CPU_LOGIT_RTOL}; scale {scale:.3f})")
+                check(worst <= CPU_LOGIT_RTOL,
+                      f"fp32 video logits on the {route} route drift from the default route")
+            else:
+                ious = [miou(a[0, 0].cpu().numpy() > 0, b[0, 0].cpu().numpy() > 0)
+                        for a, b in zip(masks, default_masks)]
+                log(f"  bf16 {route} route vs the default route: per-frame mask mIoU "
+                    f"{[round(float(x), 4) for x in ious]} (limit > {VIDEO_BF16_MIOU_MIN})")
+                check(min(ious) > VIDEO_BF16_MIOU_MIN,
+                      f"bf16 video masks on the {route} route drift from the default")
         predictor.fill_hole_area = 8
-        times[str(dtype).replace("torch.", "")] = {
-            "default": propagation_times(predictor, video, points, f"{dtype} default route"),
-        }
-        with switches(K4_SWITCH):
-            times[str(dtype).replace("torch.", "")]["K4"] = propagation_times(
-                predictor, video, points, f"{dtype} K4 route")
+        key = str(dtype).replace("torch.", "")
+        times[key] = {"default": propagation_times(predictor, video, points,
+                                                   f"{dtype} default route")}
+        for route, (env, _) in routes.items():
+            with switches(env):
+                times[key][route] = propagation_times(predictor, video, points,
+                                                      f"{dtype} {route} route")
     del predictor
     torch.cuda.empty_cache()
     return launches, times
@@ -1985,9 +2077,10 @@ def main():
 
     # slice 5
     k4_err = phase_k4(flash_attention_kv_proj, flash_attention_kv_proj_ref)
-    phase_k4_grads(flash_attention_kv_proj, flash_attention_kv_proj_ref)
+    k4_grads = phase_k4_grads(flash_attention_kv_proj, flash_attention_kv_proj_ref)
     k4 = phase_k4_times(flash_attention_kv_proj, flash_attention_kv_proj_ref)
-    k4_video_launches, k4_video_times = phase_k4_video(
+    k1_wide_err, k1_wide = phase_k1_wide(flash_attention, flash_attention_ref)
+    route_video_launches, route_video_times = phase_route_video(
         {"K1": flash_attention, "K2": flash_attention_rope, "K4": flash_attention_kv_proj})
     k4_train_launches, k4_train = phase_k4_train(
         {**counters, "K4": flash_attention_kv_proj}, train_runs["float32"]["losses"][0])
@@ -2077,12 +2170,12 @@ def main():
         })
     # slice 5: K4 at the cross shape; K9 and K10 at the tool's first shape
     # (each shape launches them equally often), the other shapes beside it
-    entries.append({
+    entries.extend([{
         "name": "flash_attention_kvproj_fwd (K4)",
         "route": "cuda",
         "source": "sam2_opt_tpu_torch/csrc/flash_attention.cu",
         "replaces": "sam2_opt_tpu/kernels/flash_attention.py:154",
-        "launches": k4_video_launches,
+        "launches": route_video_launches["K4"]["K4"],
         "max_abs_err": k4_err,
         **k4[torch.bfloat16],
         "shape": list(K4_CROSS),
@@ -2090,7 +2183,21 @@ def main():
         "library": "2 F.linear + rotation + F.scaled_dot_product_attention",
         "fp32": k4[torch.float32],
         "training_launches": k4_train_launches,
-    })
+    }, {
+        "name": "flash_attention_fwd at D = 256 (K1, SAM2_TPU_FUSED_ROPE=0)",
+        "route": "cuda",
+        "source": "sam2_opt_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "sam2_opt_tpu/kernels/flash_attention.py:97",
+        "launches": route_video_launches["rope off"]["K1 D=256"],
+        "max_abs_err": k1_wide_err,
+        **k1_wide[("cross", torch.bfloat16)],
+        "shape": list(K2_CROSS),
+        "dtype": "bfloat16",
+        "library": "F.scaled_dot_product_attention",
+        "fp32": k1_wide[("cross", torch.float32)],
+        "self": {"shape": list(K2_SELF), "bfloat16": k1_wide[("self", torch.bfloat16)],
+                 "fp32": k1_wide[("self", torch.float32)]},
+    }])
     for key, kernel_name, line, field in (("K9", "window_attention_heads (K9)", 55, "kern_h"),
                                    ("K10", "window_attention_3d (K10)", 83, "kern_3d")):
         shapes = {}
@@ -2121,7 +2228,8 @@ def main():
     log(json.dumps({"slice": {str(dt).replace("torch.", ""): t for dt, t in times.items()},
                     "routes": route_times,
                     "video": {str(dt).replace("torch.", ""): t for dt, t in video_times.items()},
-                    "video_k4_route": k4_video_times, "training_k4_route": k4_train,
+                    "video_memory_routes": route_video_times, "training_k4_route": k4_train,
+                    "k4_gradient_errors": k4_grads,
                     "training": train_runs, "training_vs_cpu": train_cpu,
                     "training_cli_loss": cli_loss, "card": smi[0]}))
     log(json.dumps({"kernels": entries}))

@@ -68,8 +68,13 @@
 //    ranges as keep the grid in one wave of resident CTAs (the occupancy
 //    API says how many fit, sam2_flash_attention_rope_splits): each split
 //    writes its normalized fp32 output and row LSE to scratch, and
-//    flash_rope_combine_kernel merges them (out = sum_s exp(lse_s - lse)
+//    flash_combine_kernel merges them (out = sum_s exp(lse_s - lse)
 //    out_s), a few MB of traffic against ~100 GFLOP.
+// K1 at D = 256 (memory attention with the rotation fusion turned off,
+// SAM2_TPU_FUSED_ROPE=0: K rotated beforehand, the same shapes as K2's) runs
+// K2's kernels without the rotation (flash_wide_bf16_kernel<256, false>,
+// flash_fwd_f32_kernel<256>), with K2's kv split, combine and exact skip of
+// kv tiles without a valid key.
 //
 // K4 (sam2_flash_attention_kvproj_fwd) replaces the Pallas TPU kernel
 // sam2_opt_tpu/kernels/flash_attention.py::_kernel_rope_kvproj: K2 with the
@@ -605,8 +610,8 @@ __global__ void __launch_bounds__(TC_WARPS * 32, DP <= 80 ? 4 : 1)
 }
 
 // ---------------------------------------------------------------------------
-// K2 bf16: K1's tensor-core scheme at head dims up to 256, K rotated in
-// shared memory
+// K2 bf16 (ROPE = true) and K1 bf16 at D = 256 (ROPE = false): K1's
+// tensor-core scheme at head dims up to 256, K2 rotating K in shared memory
 // ---------------------------------------------------------------------------
 //
 // At D = 256 a warp's [16][256] fp32 accumulator alone takes 128 registers
@@ -629,8 +634,8 @@ __device__ __forceinline__ float rot_hi(float x1, float x2, float c, float s) {
   return __fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c));
 }
 
-template <int DP>
-__global__ void __launch_bounds__(TC_WARPS * 32, 2) flash_rope_bf16_kernel(const Params p) {
+template <int DP, bool ROPE>
+__global__ void __launch_bounds__(TC_WARPS * 32, 2) flash_wide_bf16_kernel(const Params p) {
   constexpr int LDK = tc_ld(DP);
   constexpr int KS = DP / 16;      // k-steps of Q . K^T
   constexpr int ND = DP / 8;       // 8-column slices of the output
@@ -702,21 +707,23 @@ __global__ void __launch_bounds__(TC_WARPS * 32, 2) flash_rope_bf16_kernel(const
     __nv_bfloat16* ks_tile = Ks + stage * TILE;
     const __nv_bfloat16* vs_tile = Vs + stage * TILE;
 
-    // rotate the K tile in place, two channel pairs per step, in fp32 from
-    // the bf16 inputs and rounded once to bf16
-    for (int idx = threadIdx.x; idx < RP_BK * (HALF / 2); idx += blockDim.x) {
-      const int r = idx / (HALF / 2), d = (idx % (HALF / 2)) * 2;
-      if (k0 + r >= p.Skv) continue;  // zero-filled rows stay zero
-      const long long trow = static_cast<long long>(k0 + r) * HALF + d;
-      __nv_bfloat162* lo = reinterpret_cast<__nv_bfloat162*>(ks_tile + r * LDK + d);
-      __nv_bfloat162* hi = reinterpret_cast<__nv_bfloat162*>(ks_tile + r * LDK + HALF + d);
-      const float2 x1 = __bfloat1622float2(*lo), x2 = __bfloat1622float2(*hi);
-      const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cg + trow));
-      const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sg + trow));
-      *lo = __floats2bfloat162_rn(rot_lo(x1.x, x2.x, c.x, s.x), rot_lo(x1.y, x2.y, c.y, s.y));
-      *hi = __floats2bfloat162_rn(rot_hi(x1.x, x2.x, c.x, s.x), rot_hi(x1.y, x2.y, c.y, s.y));
+    if constexpr (ROPE) {
+      // rotate the K tile in place, two channel pairs per step, in fp32 from
+      // the bf16 inputs and rounded once to bf16
+      for (int idx = threadIdx.x; idx < RP_BK * (HALF / 2); idx += blockDim.x) {
+        const int r = idx / (HALF / 2), d = (idx % (HALF / 2)) * 2;
+        if (k0 + r >= p.Skv) continue;  // zero-filled rows stay zero
+        const long long trow = static_cast<long long>(k0 + r) * HALF + d;
+        __nv_bfloat162* lo = reinterpret_cast<__nv_bfloat162*>(ks_tile + r * LDK + d);
+        __nv_bfloat162* hi = reinterpret_cast<__nv_bfloat162*>(ks_tile + r * LDK + HALF + d);
+        const float2 x1 = __bfloat1622float2(*lo), x2 = __bfloat1622float2(*hi);
+        const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cg + trow));
+        const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sg + trow));
+        *lo = __floats2bfloat162_rn(rot_lo(x1.x, x2.x, c.x, s.x), rot_lo(x1.y, x2.y, c.y, s.y));
+        *hi = __floats2bfloat162_rn(rot_hi(x1.x, x2.x, c.x, s.x), rot_hi(x1.y, x2.y, c.y, s.y));
+      }
+      __syncthreads();
     }
-    __syncthreads();
 
     // S = Q . K^T: [16 rows][32 keys] per warp, fp32
     float s[NT][4];
@@ -1341,12 +1348,12 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* dst, float x) {
   *dst = __float2bfloat16_rn(x);
 }
 
-// Merges K2's kv splits: out = sum_s exp(lse_s - lse) * out_s with
-// lse = log sum_s exp(lse_s); a split that saw no valid key has lse_s =
-// -1e30 and weight 0; a row with none at all gets 0 and -1e30. One CTA per
-// (query row, b*h), one thread per output column.
+// Merges the kv splits of K2, K4 and K1 at D = 256: out = sum_s
+// exp(lse_s - lse) * out_s with lse = log sum_s exp(lse_s); a split that saw
+// no valid key has lse_s = -1e30 and weight 0; a row with none at all gets 0
+// and -1e30. One CTA per (query row, b*h), one thread per output column.
 template <typename T>
-__global__ void __launch_bounds__(128) flash_rope_combine_kernel(const Params p) {
+__global__ void __launch_bounds__(128) flash_combine_kernel(const Params p) {
   const int row = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
   const long long split_stride = static_cast<long long>(p.B) * p.H * p.Sq;
@@ -1386,7 +1393,29 @@ cudaError_t launch_dp(bool bf16, const Params& p, cudaStream_t stream) {
   return launch(flash_fwd_f32_kernel<DP>, smem_bytes_f32<DP>(), BQ, THREADS, p, stream);
 }
 
+// After a kv-split launch (K1 at D = 256, K2, K4): the combine kernel on the
+// same stream.
+cudaError_t launch_combine(cudaError_t err, bool bf16, const Params& p, cudaStream_t stream) {
+  if (err != cudaSuccess || p.n_split == 1) return err;
+  const dim3 grid(p.Sq, p.B * p.H);
+  if (bf16)
+    flash_combine_kernel<__nv_bfloat16><<<grid, 128, 0, stream>>>(p);
+  else
+    flash_combine_kernel<float><<<grid, 128, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// K1 at D = 256: K2's kernels without the rotation, kv split as K2's.
+cudaError_t launch_k1_wide(bool bf16, const Params& p, cudaStream_t stream) {
+  return launch_combine(
+      bf16 ? launch(flash_wide_bf16_kernel<256, false>, smem_bytes_rope_bf16<256>(), TC_BQ,
+                    TC_WARPS * 32, p, stream)
+           : launch(flash_fwd_f32_kernel<256>, smem_bytes_f32<256>(), BQ, THREADS, p, stream),
+      bf16, p, stream);
+}
+
 cudaError_t dispatch(bool bf16, const Params& p, cudaStream_t stream) {
+  if (p.D == 256) return launch_k1_wide(bf16, p, stream);
   switch ((p.D + 15) / 16) {
     case 1: return launch_dp<16>(bf16, p, stream);
     case 2: return launch_dp<32>(bf16, p, stream);
@@ -1400,21 +1429,10 @@ cudaError_t dispatch(bool bf16, const Params& p, cudaStream_t stream) {
   }
 }
 
-// After a kv-split launch (K2, K4): the combine kernel on the same stream.
-cudaError_t launch_combine(cudaError_t err, bool bf16, const Params& p, cudaStream_t stream) {
-  if (err != cudaSuccess || p.n_split == 1) return err;
-  const dim3 grid(p.Sq, p.B * p.H);
-  if (bf16)
-    flash_rope_combine_kernel<__nv_bfloat16><<<grid, 128, 0, stream>>>(p);
-  else
-    flash_rope_combine_kernel<float><<<grid, 128, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int DP>
 cudaError_t launch_rope_dp(bool bf16, const Params& p, cudaStream_t stream) {
   return launch_combine(
-      bf16 ? launch(flash_rope_bf16_kernel<DP>, smem_bytes_rope_bf16<DP>(), TC_BQ,
+      bf16 ? launch(flash_wide_bf16_kernel<DP, true>, smem_bytes_rope_bf16<DP>(), TC_BQ,
                     TC_WARPS * 32, p, stream)
            : launch(flash_rope_f32_kernel<DP>, smem_bytes_f32<DP>(), BQ, THREADS, p, stream),
       bf16, p, stream);
@@ -1443,9 +1461,15 @@ int ctas_per_sm(Kernel kernel, int smem, int threads) {
 
 template <int DP>
 int rope_ctas_per_sm(bool bf16) {
-  return bf16 ? ctas_per_sm(flash_rope_bf16_kernel<DP>, smem_bytes_rope_bf16<DP>(),
+  return bf16 ? ctas_per_sm(flash_wide_bf16_kernel<DP, true>, smem_bytes_rope_bf16<DP>(),
                             TC_WARPS * 32)
               : ctas_per_sm(flash_rope_f32_kernel<DP>, smem_bytes_f32<DP>(), THREADS);
+}
+
+int k1_wide_ctas_per_sm(bool bf16) {
+  return bf16 ? ctas_per_sm(flash_wide_bf16_kernel<256, false>, smem_bytes_rope_bf16<256>(),
+                            TC_WARPS * 32)
+              : ctas_per_sm(flash_fwd_f32_kernel<256>, smem_bytes_f32<256>(), THREADS);
 }
 
 template <int DM>
@@ -1494,7 +1518,7 @@ int run(bool rope, const void* q, const void* k, const void* v, const void* mask
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D % 8 != 0 ||
       static_cast<long long>(B) * H > 65535 || (dtype != 0 && dtype != 1) || n_split < 1 ||
       n_split > 65535 || (n_split > 1 && (part_o == nullptr || part_lse == nullptr)) ||
-      (rope ? (cos == nullptr || sin == nullptr) : (D > 128 || n_split != 1)))
+      (rope ? (cos == nullptr || sin == nullptr) : (D != 256 && (D > 128 || n_split != 1))))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q; p.k = k; p.v = v;
@@ -1522,18 +1546,29 @@ int run(bool rope, const void* q, const void* k, const void* v, const void* mask
 // Both entry points return the cudaError_t of the launch (0 = cudaSuccess).
 // dtype: 0 fp32, 1 bf16.
 
-// K1: D a multiple of 8 up to 128.
+// K1: D a multiple of 8 up to 128 (n_split 1), or D = 256, where the kv
+// axis may be split as K2's (part_o / part_lse as below).
 extern "C" int sam2_flash_attention_fwd(
-    const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
-    int dtype, int B, int H, int Sq, int Skv, int D,
+    const void* q, const void* k, const void* v, const void* mask, void* part_o,
+    void* part_lse, void* o, void* lse, int dtype, int B, int H, int Sq, int Skv, int D,
+    int n_split,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     long long mask_sb, float scale, void* stream) {
-  return run(false, q, k, v, mask, nullptr, nullptr, nullptr, nullptr, o, lse, dtype, B, H, Sq,
-             Skv, D, 1, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-             mask_sb, scale, stream);
+  return run(false, q, k, v, mask, nullptr, nullptr, part_o, part_lse, o, lse, dtype, B, H, Sq,
+             Skv, D, n_split, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
+             o_ss, mask_sb, scale, stream);
+}
+
+// K1's kv split for these shapes on the current device: 1 up to D = 128,
+// K2's rule at D = 256; -1 for an unsupported D.
+extern "C" int sam2_flash_attention_splits(int dtype, int B, int H, int Sq, int Skv, int D) {
+  const bool bf16 = dtype == 1;
+  if (D != 256) return D > 0 && D <= 128 && D % 8 == 0 ? 1 : -1;
+  return kv_splits(k1_wide_ctas_per_sm(bf16), bf16 ? TC_BQ : BQ, bf16 ? RP_BK : BK, B, H, Sq,
+                   Skv);
 }
 
 // K2: K1 with K rotated in the kernel; D in {64, 128, 256}; cos/sin [Skv, D/2]

@@ -85,7 +85,7 @@ def _check(q, k, v, kv_mask):
             raise ValueError("kv_mask must be on q's device")
 
 
-def _library(symbol="sam2_flash_attention_fwd", n_ptrs=0, n_ints=0):
+def _library(symbol, n_ptrs, n_ints):
     """The C entry point: q, k, v, mask, `n_ptrs` more pointers, out, lse,
     dtype, B, H, Sq, Skv, D, `n_ints` more ints, 13 strides, scale, stream."""
     fn = getattr(_build.load("flash_attention"), symbol)
@@ -98,18 +98,31 @@ def _library(symbol="sam2_flash_attention_fwd", n_ptrs=0, n_ints=0):
 
 
 @lru_cache(maxsize=64)
-def _rope_splits(device_index: int, dtype: int, B: int, H: int, Sq: int, Skv: int, D: int) -> int:
-    """K2's kv split for a shape on a device, as the kernel's library chooses
-    it (from its CTAs' occupancy); asked once per shape."""
-    fn = _build.load("flash_attention").sam2_flash_attention_rope_splits
+def _kv_splits(symbol: str, device_index: int, dtype: int, B: int, H: int, Sq: int, Skv: int,
+               D: int) -> int:
+    """The kv split of K1 (`sam2_flash_attention_splits`) or K2
+    (`sam2_flash_attention_rope_splits`) for a shape on a device, as the
+    kernel's library chooses it (from its CTAs' occupancy); asked once per
+    shape."""
+    fn = getattr(_build.load("flash_attention"), symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 6
         fn.restype = ctypes.c_int
     with torch.cuda.device(device_index):
         n_split = fn(dtype, B, H, Sq, Skv, D)
     if n_split < 1:
-        raise ValueError(f"flash_attention_rope: no kv split for D = {D}")
+        raise ValueError(f"{symbol}: no kv split for D = {D}")
     return n_split
+
+
+def _split_scratch(q, n_split):
+    """fp32 part_o [n_split, B*H, Sq, D] and part_lse [n_split, B*H, Sq] for a
+    split kv axis; (None, None) without a split."""
+    if n_split == 1:
+        return None, None
+    B, H, Sq, D = q.shape
+    return (torch.empty((n_split, B * H, Sq, D), dtype=torch.float32, device=q.device),
+            torch.empty((n_split, B * H, Sq), dtype=torch.float32, device=q.device))
 
 
 def _check_cuda(q, k, v, kv_mask, head_dims, what):
@@ -158,9 +171,11 @@ def flash_attention(q, k, v, kv_mask=None):
     and v (backward: K3), lse is not.
 
     CUDA tensors launch the kernel (fp32 or bf16, D a multiple of 8 up to
-    128; bf16 rows 16-byte aligned); `out` is a [B,H,Sq,D] view of a
+    128, or 256; bf16 rows 16-byte aligned); `out` is a [B,H,Sq,D] view of a
     [B,Sq,H,D] buffer, so the caller's merge of heads back into channels
-    costs no copy.
+    costs no copy. At D = 256 (memory attention with the rotation fusion
+    off) the kernel is K2's without the rotation, and splits the kv axis as
+    K2 does.
     """
     _check(q, k, v, kv_mask)
     return _FlashAttention.apply(q, k, v, kv_mask)
@@ -171,8 +186,12 @@ def _flash_forward(q, k, v, kv_mask):
         return flash_attention_ref(q, k, v, kv_mask)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_cuda(q, k, v, kv_mask, range(8, 129, 8), "flash_attention")
-    out, lse = _launch(_library(), q, k, v, kv_mask, (), (), "flash_attention")
+    _check_cuda(q, k, v, kv_mask, (*range(8, 129, 8), 256), "flash_attention")
+    B, H, Sq, D = q.shape
+    n_split = _kv_splits("sam2_flash_attention_splits", q.device.index, _DTYPES[q.dtype], B, H,
+                         Sq, k.shape[2], D)
+    out, lse = _launch(_library("sam2_flash_attention_fwd", 2, 1), q, k, v, kv_mask,
+                       _split_scratch(q, n_split), (n_split,), "flash_attention")
     flash_attention.launches += 1
     return out, lse
 
@@ -237,14 +256,11 @@ def _flash_rope_forward(q, k, v, cos_k, sin_k, kv_mask):
     if not (cos_k.is_contiguous() and sin_k.is_contiguous()):
         raise ValueError("cos_k and sin_k must be contiguous")
     B, H, Sq, D = q.shape
-    Skv = k.shape[2]
-    n_split = _rope_splits(q.device.index, _DTYPES[q.dtype], B, H, Sq, Skv, D)
-    part_o = part_lse = None
-    if n_split > 1:
-        part_o = torch.empty((n_split, B * H, Sq, D), dtype=torch.float32, device=q.device)
-        part_lse = torch.empty((n_split, B * H, Sq), dtype=torch.float32, device=q.device)
+    n_split = _kv_splits("sam2_flash_attention_rope_splits", q.device.index, _DTYPES[q.dtype], B,
+                         H, Sq, k.shape[2], D)
     out, lse = _launch(_library("sam2_flash_attention_rope_fwd", 4, 1), q, k, v, kv_mask,
-                       (cos_k, sin_k, part_o, part_lse), (n_split,), "flash_attention_rope")
+                       (cos_k, sin_k, *_split_scratch(q, n_split)), (n_split,),
+                       "flash_attention_rope")
     flash_attention_rope.launches += 1
     return out, lse
 
@@ -391,11 +407,8 @@ def _kv_proj_forward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
         kv_mask = kv_mask.contiguous()
     dtype = _DTYPES[q.dtype]
     n_split = _kv_proj_splits(q.device.index, dtype, B, Sq, Skv, D, Dm)
-    part_o = part_lse = None
-    if n_split > 1:
-        part_o = torch.empty((n_split, B, Sq, D), dtype=torch.float32, device=q.device)
-        part_lse = torch.empty((n_split, B, Sq), dtype=torch.float32, device=q.device)
-    out = torch.empty((B, 1, Sq, D), dtype=q.dtype, device=q.device)
+    part_o, part_lse = _split_scratch(q, n_split)
+    out =torch.empty((B, 1, Sq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, 1, Sq), dtype=torch.float32, device=q.device)
     fn = _build.load("flash_attention").sam2_flash_attention_kvproj_fwd
     if fn.argtypes is None:
@@ -418,23 +431,6 @@ def _kv_proj_forward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
 
 
 flash_attention_kv_proj.launches = 0
-
-
-def flash_attention_kv_proj_dbk_scale(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, dout,
-                                      kv_mask=None):
-    """Sum over keys of |per-key fp32 cotangent| whose signed sum is dbk, [D]:
-    what the error of a bf16 dbk scales with. Softmax is shift-invariant, so
-    a bias added to every key moves the output only through the rotation's
-    position dependence, and dbk is a sum of 10^4 terms that nearly cancel;
-    an error of relative size u in every term moves the sum by up to u times
-    this, however small the sum itself."""
-    c32, s32 = cos_k.float(), sin_k.float()
-    qf = q.float()
-    kr = apply_rotary_split(_project(mem_k, wk, bk, torch.float32), c32, s32)[:, None]
-    vp = _project(mem_v, wv, bv, torch.float32)[:, None]
-    out, lse = flash_attention_ref(qf, kr, vp, kv_mask)
-    _, dkr, _ = flash_attention_bwd_ref(qf, kr, vp, out, lse, dout.float(), kv_mask)
-    return apply_rotary_split(dkr[:, 0], c32, -s32).abs().sum((0, 1))
 
 
 class _FlashAttentionKVProj(torch.autograd.Function):

@@ -23,7 +23,8 @@ runs K2's plain version, as the JAX package takes its unfused path on the
 CPU. The JAX package's switches are read at every call:
 `SAM2_TPU_FUSED_KV_PROJ=1` sends single-head cross-attention to K4
 (`flash_attention_kv_proj`, or its plain version off the card), which also
-projects the memory K/V; `SAM2_TPU_FUSED_ROPE=0` turns off K2 and K4.
+projects the memory K/V; `SAM2_TPU_FUSED_ROPE=0` turns off K2 and K4, and
+K1 attends on K rotated in torch.
 """
 
 from __future__ import annotations
@@ -124,8 +125,8 @@ def _rope_attention(attn: RoPEAttention, cfg: MemoryAttentionConfig, q_in, k_in,
     the shape (`_use_fused_rope`), K is rotated in K2, or for single-head
     cross-attention under `SAM2_TPU_FUSED_KV_PROJ=1` projected and rotated
     in K4; elsewhere their plain versions run. `SAM2_TPU_FUSED_ROPE=0`
-    rotates K here instead and runs K1 where the card's K1 takes the head
-    dim (up to 128), its plain version otherwise (the JAX unfused branch,
+    rotates K here instead and runs K1 (at D = 256 on the card) where K2
+    would run, its plain version elsewhere (the JAX unfused branch,
     memory_attention.py:206-224)."""
     ex, ey = cfg.rope_feat_sizes
     wq, bq, wk, bk = attn.split_qk()
@@ -152,7 +153,7 @@ def _rope_attention(attn: RoPEAttention, cfg: MemoryAttentionConfig, q_in, k_in,
         out, _ = attend(q, k, v, ck, sk, kv_mask)
     else:
         k = posenc.apply_rotary_split(k.float(), ck.float(), sk.float()).to(k.dtype)
-        attend = flash_attention if on_card and head_dim <= 128 else flash_attention_ref
+        attend = flash_attention if on_card else flash_attention_ref
         out, _ = attend(q, k, v, kv_mask)
     return attn.out_proj(ops.recombine_heads(out))
 

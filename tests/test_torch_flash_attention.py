@@ -106,13 +106,17 @@ BF16_TOL = dict(rtol=1e-2, atol=1e-3)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Sq,Skv,D,mask", CASES + [(1, 8, 1000, 1500, 96, "random+empty row"),
                                                        (1, 3, 130, 70, 8, None),
-                                                       (1, 1, 65, 4100, 128, "random")])
+                                                       (1, 1, 65, 4100, 128, "random"),
+                                                       (2, 1, 1000, 1500, 256, "random+empty row"),
+                                                       (1, 1, 4096, 7 * 4096 + 64, 256, "random")])
 def test_cuda_kernel_matches_ref(B, H, Sq, Skv, D, mask, dtype):
     """fp32: the kernel runs true fp32 FMAs, rtol 1e-5 + atol 1e-5. bf16:
     inputs rounded to bf16 for both, P rounded to bf16 against the running
     (kernel) or final (plain) row max, the output rounded to bf16: one ulp is
     at most 2^-7 of |out|, so rtol 1e-2 + atol 1e-3 (sound runs at the
-    hiera-L shape differ by at most 9.8e-4, where |out| is typically 0.02)."""
+    hiera-L shape differ by at most 9.8e-4, where |out| is typically 0.02).
+    D = 256 is memory attention under SAM2_TPU_FUSED_ROPE=0, up to its
+    cross shape (K2's kernel without the rotation, the kv axis split)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     q, k, v, kv_mask = _inputs(B, H, Sq, Skv, D, mask)

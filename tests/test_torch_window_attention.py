@@ -258,6 +258,48 @@ def test_k9_k10_run_plain_version_on_cpu(which, dtype):
         fn(q, k[:, :16], v[:, :16])
 
 
+def _jax_tool_kernels():
+    """`kern_h` and `kern_3d` of the JAX tool `tools/bench_window_flash.py`,
+    its own code, with `pl.pallas_call` in interpret mode. Importing the
+    tool runs its whole benchmark, so its kernel functions are taken from its
+    source and run alone."""
+    import ast
+    import functools
+    import math
+    import pathlib
+    import types
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "bench_window_flash.py"
+    tree = ast.parse(path.read_text())
+    keep = {"_attn_batched", "_kern_h", "kern_h", "_kern_3d", "kern_3d"}
+    tree.body = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name in keep]
+    interpret = types.SimpleNamespace(BlockSpec=pl.BlockSpec,
+                                      pallas_call=functools.partial(pl.pallas_call, interpret=True))
+    ns = {"jax": jax, "jnp": jnp, "pl": interpret, "functools": functools, "math": math}
+    exec(compile(tree, str(path), "exec"), ns)
+    return ns["kern_h"], ns["kern_3d"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["k9", "k10"])
+def test_k9_k10_match_jax_tool_kernels(which, dtype):
+    """K9 and K10 on CPU tensors (their plain version) against the JAX
+    tool's Pallas kernels `kern_h` and `kern_3d` in interpret mode, on the
+    same inputs (two window blocks per grid step): fp32 within 2e-5, bf16
+    within one ulp of |out| plus 2^-9 (p . |v|) (`_assert_matches`)."""
+    kern_h, kern_3d = _jax_tool_kernels()
+    jfn, fn = (kern_h, window_attention_heads) if which == "k9" else (kern_3d, window_attention_3d)
+    q, k, v = _arrays([(4, 16, 2, 24)] * 3, seed=22)
+    want = jfn(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype), 2)
+    tq, tk, tv = _torch(q, dtype), _torch(k, dtype), _torch(v, dtype)
+    pv = _pv_abs(*(x.transpose(1, 2) for x in (tq, tk, tv))).transpose(1, 2)
+    _assert_matches(fn(tq, tk, tv), want, dtype, pv)
+
+
 def test_bench_tool_runs_on_cpu():
     """The ported bench tool's entry point with `--device cpu`: one row per
     hiera-L window shape, both kernels within the bf16 bound of the plain
