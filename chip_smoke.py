@@ -106,8 +106,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    four shapes, bf16, with a negative control; then the tool's port
    (`python -m sam2_opt_tpu_torch.tools.bench_window_flash`), whose rows
    give their times beside SDPA and the einsum path.
-Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-18; each
-phase that sets a switch restores it.
+19. the attention switches the port reads as the JAX package does: under
+   `SAM2_TPU_FLASH=0` an fp32 `set_image` + `predict`, 3 tracked frames
+   of the hiera-L video predictor and one more under
+   `SAM2_TPU_FUSED_KV_PROJ=1` launch no K1, K2 or K4 (the default route
+   launches all three), logits within 1e-3 of their scale of the default
+   route's; under `SAM2_TPU_KERNEL_FAST_EXP=1` a bf16 route to K1
+   (`ops.flash_or_sdpa`) or K2 (memory attention) raises.
+Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-19; each
+phase that sets a switch restores it. Since slice 6, K8 (phases 12-14) is a
+warp-specialised wgmma/TMA kernel; phase 14 also gives the bound of the
+work it executes (its column split recomputes GEMM1 at hiera-L stages 3-4).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -1272,6 +1281,17 @@ def window_bound_ms(N, H, Sq, Skv, D, dtype):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def k8_executed_flops(N, C, H, C_out):
+    """Operations K8 executes for x [N, C], w1 [H, C], w2 [C_out, H]: it
+    pads C to a multiple of 16 and tiles the output columns by 144 (C_out
+    <= 144) or 288, running GEMM1 once per column tile. A mirror of the
+    tiling in `csrc/fused_mlp.cu`, for the log line only: beside the
+    function's 2 N H (C + C_out), 1.5x at hiera-L stage 3, 2.5x at stage 4."""
+    nt = 144 if C_out <= 144 else 288
+    tiles = -(-C_out // nt)
+    return 2.0 * N * H * tiles * (-(-C // 16) * 16 + nt)
+
+
 def mlp_bound_ms(N, C, H, C_out):
     """Least time for K8 (bf16): 2*N*C*H + 2*N*H*C_out operations; x, the
     weights and biases read once, out written once."""
@@ -1539,9 +1559,12 @@ def phase_route_kernel_times():
         library_ms = graph_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1), approximate="tanh"),
                                               w2, b2), flush=flush)
         bound_ms, bound_by = mlp_bound_ms(N, C, 4 * C, C)
+        executed_ms = 1e3 * k8_executed_flops(N, C, 4 * C, C) / PEAK_FLOPS[torch.bfloat16]
         log(f"K8 bf16 N={N} C={C}: {ms:.4f} ms ({bound_ms / ms:.1%} of bound), plain "
             f"{plain_ms:.4f} ms, unfused bf16 Linear -> GELU -> Linear (3 calls) "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{library_ms:.4f} ms (K8 takes {ms / library_ms:.2f}x its time), bound {bound_ms:.4f} ms "
+            f"({bound_by}); the work the kernel executes (its column split) bounds it at "
+            f"{executed_ms:.4f} ms")
         rows[("K8", torch.bfloat16, (N, C))] = dict(ms=ms, plain_ms=plain_ms,
                                                    library_ms=library_ms, bound_ms=bound_ms,
                                                    bound_by=bound_by)
@@ -1759,7 +1782,7 @@ def phase_k4_times(kv_proj, kv_proj_ref):
             f"({bound_by}), {bound_ms / ms:.1%} of bound; executes {executed:.1f} GFLOP "
             f"({executed / ms:.1f} TFLOP/s)")
         rows[dtype] = dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by, executed_gflop=executed)
+                           bound_ms=bound_ms, bound_by=bound_by)
         del args, q, mk, mv
         torch.cuda.empty_cache()
     return rows
@@ -2009,6 +2032,101 @@ def phase_bench_tool(counters):
     return rows, launches
 
 
+# --------------------------------------------------------------------------- #
+# slice 6: the four attention switches the port reads as the JAX package does
+# --------------------------------------------------------------------------- #
+
+SWITCH_FRAMES = 3
+FLASH_OFF_SWITCH = {"SAM2_TPU_FLASH": "0"}
+
+
+def phase_switches(counters):
+    """The switches of `ops.use_flash_attention` and of the fast-exp refusal
+    on the card: under `SAM2_TPU_FLASH=0`, an fp32 `set_image` + `predict`,
+    3 tracked frames of the hiera-L video predictor (rebuilt from the seed)
+    and one more tracked frame under `SAM2_TPU_FUSED_KV_PROJ=1` launch no
+    K1, K2 or K4, where the default route launches each, and their low-res
+    logits stay within 1e-3 of their scale of the default route's (plain
+    attention against the kernels: both fp32, sums in other orders); under
+    `SAM2_TPU_KERNEL_FAST_EXP=1` a bf16 route to K1 (`ops.flash_or_sdpa` at
+    hiera-L's global shape) or to K2 (memory self-attention at its real
+    shape) raises before any launch. Returns the default route's launches
+    of the checked runs."""
+    from sam2_opt_tpu_torch import SAM2ImagePredictor, build_sam2_video_predictor
+    from sam2_opt_tpu_torch.config import MemoryAttentionConfig
+    from sam2_opt_tpu_torch.models.memory_attention import RoPEAttention, _rope_attention
+    from sam2_opt_tpu_torch.ops import common as ops
+
+    predictor = build_sam2_video_predictor("hiera_l", seed=SEED)
+    with torch.no_grad():
+        predictor.model.module.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += OBJ_BIAS
+    predictor.set_runtime_backend("eager")
+    predictor.fill_hole_area = 0
+    image_predictor = SAM2ImagePredictor(predictor.model)
+    image = structured_image(SEED)
+    video = synthetic_video(SEED)
+    points = np.array([[VIDEO_SQUARE[0] + 120, VIDEO_SQUARE[1] + 120]], np.float32)
+    runs, launches = {}, {}
+    for route, env in (("default", {}), ("flash off", FLASH_OFF_SWITCH)):
+        with switches(env):
+            # the main path: counts to 0 just before, read just after
+            for c in counters.values():
+                c.launches = 0
+            image_predictor.set_image(image)
+            _, _, low = image_predictor.predict(**PROMPTS["point"], multimask_output=True)
+            state, _, _ = track(predictor, video, SWITCH_FRAMES, points)
+            with switches({"SAM2_TPU_FUSED_KV_PROJ": "1"}):
+                # frame 0 is the prompted frame; frame 1 runs memory attention
+                kv_state, _, _ = track(predictor, video, 2, points)
+            torch.cuda.synchronize()
+            launches[route] = {key: c.launches for key, c in counters.items()}
+        runs[route] = (torch.from_numpy(low), low_res(state), low_res(kv_state))
+        log(f"{route} route (fp32 set_image + predict, {SWITCH_FRAMES} tracked frames, "
+            f"1 more under SAM2_TPU_FUSED_KV_PROJ=1): launches {launches[route]}")
+    check(all(launches["default"][key] > 0 for key in ("K1", "K2", "K4")),
+          f"the default route must launch K1, K2 and K4, launched {launches['default']}")
+    check(not any(launches["flash off"].values()),
+          f"SAM2_TPU_FLASH=0 launched {launches['flash off']}")
+    for i, what in enumerate(("image low-res logits", "video low-res logits",
+                              "video low-res logits under SAM2_TPU_FUSED_KV_PROJ=1")):
+        got, want = runs["flash off"][i], runs["default"][i]
+        scale = max(1.0, float(want.abs().max()))
+        worst = float((got - want).abs().max()) / scale
+        log(f"  SAM2_TPU_FLASH=0 vs the default route, {what}: max|dlogit|/scale {worst:.3e} "
+            f"(limit {CPU_LOGIT_RTOL}; scale {scale:.3f})")
+        check(worst <= CPU_LOGIT_RTOL, f"SAM2_TPU_FLASH=0 {what} drift from the default route")
+    del predictor, image_predictor, state, kv_state, runs
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+    B, H, S, D = MAIN_SHAPE
+    q, k, v = (randn(B, H, S, D).bfloat16() for _ in range(3))
+    cfg = MemoryAttentionConfig()
+    attn = RoPEAttention(cfg.d_model, cfg.num_heads).to("cuda", torch.bfloat16)
+    x = randn(1, K2_SELF[1], cfg.d_model).bfloat16()
+    routes = (("K1", lambda: ops.flash_or_sdpa(q, k, v)),
+              ("K2", lambda: _rope_attention(attn, cfg, x, x, x, None, 1, 0)))
+    for key, fn in routes:
+        with torch.no_grad():
+            counters[key].launches = 0
+            fn()  # the default route launches the kernel
+            torch.cuda.synchronize()
+            check(counters[key].launches > 0, f"the bf16 route to {key} must launch it")
+            counters[key].launches = 0
+            with switches({"SAM2_TPU_KERNEL_FAST_EXP": "1"}):
+                try:
+                    fn()
+                except NotImplementedError as e:
+                    log(f"the bf16 route to {key} under SAM2_TPU_KERNEL_FAST_EXP=1 raises: {e}")
+                else:
+                    raise RuntimeError(f"the bf16 route to {key} must refuse "
+                                       "SAM2_TPU_KERNEL_FAST_EXP=1")
+            check(counters[key].launches == 0,
+                  f"the refused route launched {key} {counters[key].launches} times")
+    return launches["default"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2087,6 +2205,10 @@ def main():
     window_tool_err, window_tool_plain = phase_k9_k10()
     tool_rows, tool_launches = phase_bench_tool(
         {"K9": window_attention_heads, "K10": window_attention_3d})
+
+    # slice 6
+    switch_launches = phase_switches(
+        {"K1": flash_attention, "K2": flash_attention_rope, "K4": flash_attention_kv_proj})
 
     source = "sam2_opt_tpu_torch/csrc/flash_attention.cu"
     entries = [{
@@ -2231,7 +2353,8 @@ def main():
                     "video_memory_routes": route_video_times, "training_k4_route": k4_train,
                     "k4_gradient_errors": k4_grads,
                     "training": train_runs, "training_vs_cpu": train_cpu,
-                    "training_cli_loss": cli_loss, "card": smi[0]}))
+                    "training_cli_loss": cli_loss, "switches_default_launches": switch_launches,
+                    "card": smi[0]}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                            "count": torch.cuda.device_count()}}))

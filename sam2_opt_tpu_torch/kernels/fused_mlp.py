@@ -2,10 +2,11 @@
 version and the autograd Function that joins them.
 
 The port of `sam2_opt_tpu/kernels/fused_mlp.py` (`_kernel`, :40): y =
-gelu_tanh(x . w1 + b1) . w2 + b2 with the hidden activation kept on the SM
-(`csrc/fused_mlp.cu`), routed from the Hiera block MLPs under
-`SAM2_TPU_FUSED_MLP=1` in bf16. The weights keep `nn.Linear`'s [out, in]
-layout: w1 [H, C], w2 [C_out, H] (the JAX package's are [in, out]).
+gelu_tanh(x . w1 + b1) . w2 + b2 with the hidden activation kept in
+registers (`csrc/fused_mlp.cu`: warp-specialised wgmma fed by TMA), routed
+from the Hiera block MLPs under `SAM2_TPU_FUSED_MLP=1` in bf16. The weights
+keep `nn.Linear`'s [out, in] layout: w1 [H, C], w2 [C_out, H] (the JAX
+package's are [in, out]).
 
 On a CUDA tensor `fused_mlp` launches the kernel (bf16 only; fp32 raises) or
 raises; on a CPU tensor it runs `fused_mlp_ref`. It is differentiable
@@ -22,7 +23,7 @@ import torch
 
 from sam2_opt_tpu_torch.kernels import _build
 
-MAX_OUT = 1152  # the widest output the kernel keeps in registers (hiera-L stage 4)
+MAX_OUT = 1152  # the widest output the kernel takes (hiera-L stage 4: four 288-column tiles)
 
 
 def _gelu_tanh(x):

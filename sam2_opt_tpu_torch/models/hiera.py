@@ -9,7 +9,9 @@ The JAX package's opt-in trunk routes are here, under the same environment
 switches, defaults and precedence, read at every call (PyTorch runs
 eagerly): the bf16 window routes to the packed (K7) and per-window (K6)
 kernels, the window kernel in `ops.flash_or_sdpa` (K5), and the fused block
-MLP (K8). Its XLA layout routes (token-flat window runs, global blocks in
+MLP (K8). The window routes and K5 also need `SAM2_TPU_FLASH`
+(`ops.use_flash_attention`: on for CUDA tensors by default), as in JAX.
+Its XLA layout routes (token-flat window runs, global blocks in
 window order, the space-to-depth patch embed) run no kernel and equal the
 plain form, so they are not ported.
 """
@@ -72,7 +74,8 @@ def _split_window_attention(q, k, v):
     """The split route (`hiera.py:154-213`) on [N, S, heads, d] views of the
     block's one qkv projection: the per-window kernel (K6) from
     `SAM2_TPU_FLASH_WINDOW_MIN` tokens up, else plain attention with bf16
-    logits. Returns [N, S, heads, d]."""
+    logits (fp32 under `SAM2_TPU_FAST_SOFTMAX=0`, `hiera.py:205`). Returns
+    [N, S, heads, d]."""
     if q.shape[1] >= _flash_window_min_tokens():
         return window_flash_3d(q, k, v)
     return ops.scaled_dot_product_attention(
@@ -95,9 +98,10 @@ class MultiScaleAttention(nn.Module):
         S = H * W
         qkv = self.qkv(x.reshape(B, S, -1)).reshape(B, S, 3, self.num_heads, -1)
         q, k, v = qkv.unbind(2)
-        # the bf16 window routes, in the JAX package's order (hiera.py:221-231):
-        # packed (K7), then split (K6 or plain bf16 attention)
-        if self.q_stride is None and x.dtype == torch.bfloat16:
+        # the bf16 window routes under SAM2_TPU_FLASH, in the JAX package's
+        # order (hiera.py:221-231): packed (K7), then split (K6 or plain
+        # attention)
+        if self.q_stride is None and x.dtype == torch.bfloat16 and ops.use_flash_attention(x):
             if S <= _packed_window_max_tokens():
                 return self.proj(packed_window_attention(q, k, v).reshape(B, H, W, -1))
             if _split_window_min_tokens() <= S <= 1024:
@@ -106,9 +110,9 @@ class MultiScaleAttention(nn.Module):
             q = ops.max_pool2d(q.reshape(B, H, W, -1), self.q_stride, self.q_stride)
             H, W = q.shape[1], q.shape[2]
             q = q.reshape(B, H * W, self.num_heads, -1)
-        # the global blocks (4096 tokens at 1024²) route to the flash kernel
-        # on CUDA; windowed blocks to K5 under SAM2_TPU_WINDOW_KERNEL=1, else
-        # plain matmul + softmax
+        # under SAM2_TPU_FLASH the global blocks (4096 tokens at 1024²) route
+        # to the flash kernel, windowed blocks to K5 under
+        # SAM2_TPU_WINDOW_KERNEL=1; else plain matmul + softmax
         out = ops.flash_or_sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         return self.proj(out.transpose(1, 2).reshape(B, H, W, -1))
 

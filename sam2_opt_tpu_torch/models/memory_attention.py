@@ -16,15 +16,17 @@ so the rotation works on two contiguous halves: under autograd the
 permutation is taken inside the graph on every call (the JAX `_perm_proj`),
 so gradients reach the q/k projections; without grad the permuted weights
 are cached per parameter storage. The tables are built once per shape,
-device and dtype. On a CUDA
-tensor with q * kv >= 1024² and q of one frame's tokens, attention goes to
-K2 (`flash_attention_rope`), which rotates K inside the kernel; otherwise it
-runs K2's plain version, as the JAX package takes its unfused path on the
-CPU. The JAX package's switches are read at every call:
+device and dtype. The JAX package's switches are read at every call.
+Under `SAM2_TPU_FLASH` (`ops.use_flash_attention`: on for CUDA tensors by
+default) attention takes the kernel routes: on a CUDA tensor with q * kv >=
+1024² and q of one frame's tokens, K2 (`flash_attention_rope`), which
+rotates K inside the kernel, elsewhere K2's plain version;
 `SAM2_TPU_FUSED_KV_PROJ=1` sends single-head cross-attention to K4
 (`flash_attention_kv_proj`, or its plain version off the card), which also
 projects the memory K/V; `SAM2_TPU_FUSED_ROPE=0` turns off K2 and K4, and
-K1 attends on K rotated in torch.
+K1 attends on K rotated in torch. With `SAM2_TPU_FLASH` off (the default on
+the CPU, as the JAX package's unfused path there), K is rotated in torch
+and plain attention runs (`ops.scaled_dot_product_attention`).
 """
 
 from __future__ import annotations
@@ -83,8 +85,9 @@ def _kv_proj_fusion_on() -> bool:
 
 
 def _use_fused_rope(q, kv_len: int, frame_tokens: int) -> bool:
-    """The kernels where K1 would run anyway (q * kv >= 1024², on the card)
-    and q is one frame's tokens (`_use_fused_rope`, memory_attention.py:62-73)."""
+    """The kernels, not their plain versions, on a route that takes them:
+    where K1 would run anyway (q * kv >= 1024², on the card) and q is one
+    frame's tokens (`_use_fused_rope`, memory_attention.py:62-73)."""
     q_len = q.shape[-2]
     return q.is_cuda and q_len * kv_len >= 1024 * 1024 and q_len == frame_tokens
 
@@ -121,13 +124,14 @@ class RoPEAttention(ops.Attention):
 def _rope_attention(attn: RoPEAttention, cfg: MemoryAttentionConfig, q_in, k_in, v_in,
                     kv_mask, reps: int, n_extra: int, cross: bool = False):
     """q from one frame's tokens, k/v from `reps` frames plus `n_extra`
-    unrotated tokens; q rotated here. On the card, where the kernels take
-    the shape (`_use_fused_rope`), K is rotated in K2, or for single-head
-    cross-attention under `SAM2_TPU_FUSED_KV_PROJ=1` projected and rotated
-    in K4; elsewhere their plain versions run. `SAM2_TPU_FUSED_ROPE=0`
-    rotates K here instead and runs K1 (at D = 256 on the card) where K2
-    would run, its plain version elsewhere (the JAX unfused branch,
-    memory_attention.py:206-224)."""
+    unrotated tokens; q rotated here. Under `SAM2_TPU_FLASH`, on the card
+    where the kernels take the shape (`_use_fused_rope`), K is rotated in
+    K2, or for single-head cross-attention under `SAM2_TPU_FUSED_KV_PROJ=1`
+    projected and rotated in K4; elsewhere their plain versions run.
+    `SAM2_TPU_FUSED_ROPE=0` rotates K here instead and runs K1 (at D = 256
+    on the card) where K2 would run, its plain version elsewhere (the JAX
+    unfused branch, memory_attention.py:206-224). With `SAM2_TPU_FLASH` off,
+    K is rotated here and plain attention runs, as JAX's XLA path does."""
     ex, ey = cfg.rope_feat_sizes
     wq, bq, wk, bk = attn.split_qk()
     q = ops.separate_heads(F.linear(q_in, wq, bq), attn.num_heads)
@@ -137,7 +141,8 @@ def _rope_attention(attn: RoPEAttention, cfg: MemoryAttentionConfig, q_in, k_in,
     # q rotated as the kernel rotates K: in fp32, rounded once
     q = posenc.apply_rotary_split(q.float(), cq.float(), sq.float()).to(q.dtype)
     on_card = _use_fused_rope(q, k_in.shape[1], ex * ey)
-    rope = _rope_fusion_on()
+    flash = ops.use_flash_attention(q)
+    rope = flash and _rope_fusion_on()
     # (when int8 projections are ported, quantized k/v projections cannot
     # stream raw weights into K4 and take the branch below, as in the JAX
     # package, memory_attention.py:184-186)
@@ -146,15 +151,21 @@ def _rope_attention(attn: RoPEAttention, cfg: MemoryAttentionConfig, q_in, k_in,
         out, _ = attend(q, k_in, v_in, wk, bk, attn.v_proj.weight, attn.v_proj.bias, ck, sk,
                         kv_mask)
         return attn.out_proj(ops.recombine_heads(out))
+    if flash:
+        ops.check_fast_exp(q.dtype)  # K2 and K1 below; K4 above does not read it
     k = ops.separate_heads(F.linear(k_in, wk, bk), attn.num_heads)
     v = ops.separate_heads(attn.v_proj(v_in), attn.num_heads)
     if rope:
         attend = flash_attention_rope if on_card else flash_attention_rope_ref
         out, _ = attend(q, k, v, ck, sk, kv_mask)
-    else:
-        k = posenc.apply_rotary_split(k.float(), ck.float(), sk.float()).to(k.dtype)
+        return attn.out_proj(ops.recombine_heads(out))
+    k = posenc.apply_rotary_split(k.float(), ck.float(), sk.float()).to(k.dtype)
+    if flash:
         attend = flash_attention if on_card else flash_attention_ref
         out, _ = attend(q, k, v, kv_mask)
+    else:
+        mask = None if kv_mask is None else kv_mask[:, None, None, :]
+        out = ops.scaled_dot_product_attention(q, k, v, mask=mask)
     return attn.out_proj(ops.recombine_heads(out))
 
 

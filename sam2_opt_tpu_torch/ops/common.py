@@ -112,16 +112,54 @@ def scaled_dot_product_attention(q, k, v, mask=None):
 
     `mask` (optional) is a bool tensor broadcastable to [..., q_len, kv_len],
     True = attend. fp32 inputs keep fp32 logits; bf16 inputs keep bf16 logits
-    (the JAX package's default fast-softmax path). Fully masked rows give 0.
+    (the JAX package's default fast-softmax path), or fp32 logits under
+    `SAM2_TPU_FAST_SOFTMAX=0` (`ops/common.py:267-302` there). Fully masked
+    rows give 0.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if q.dtype == torch.bfloat16 and not use_fast_softmax():
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    else:
+        logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     if mask is not None:
         probs = torch.nan_to_num(probs, nan=0.0)
     return torch.matmul(probs.to(v.dtype), v)
+
+
+def use_flash_attention(x) -> bool:
+    """The flash and window kernel routes, `SAM2_TPU_FLASH` as in the JAX
+    package (`ops/common.py:217-229`), read at every call: "0" off, "1" on
+    for every tensor (a CPU tensor then runs the kernel's plain version),
+    anything else ("auto", the default) on for CUDA tensors, the counterpart
+    of JAX's accelerator backend."""
+    v = os.environ.get("SAM2_TPU_FLASH", "auto")
+    if v == "0":
+        return False
+    return v == "1" or x.is_cuda
+
+
+def use_fast_softmax() -> bool:
+    """bf16 attention logits for bf16 inputs, `SAM2_TPU_FAST_SOFTMAX`
+    (default on; "0" keeps fp32 logits), as the JAX package's
+    `ops/common.py:259-269`; read at every call."""
+    return os.environ.get("SAM2_TPU_FAST_SOFTMAX", "1") != "0"
+
+
+def check_fast_exp(dtype):
+    """Refuse `SAM2_TPU_KERNEL_FAST_EXP=1` on a bf16 route to K1 or K2,
+    where the JAX package would switch its flash kernels to bf16
+    probabilities (`kernels/flash_attention.py:779-792` there; its K4 does
+    not read the switch). That reference's forward and backward disagree
+    under the switch, so the port does not copy it. Called by the routes
+    (`flash_or_sdpa`, memory attention), not by the kernel wrappers."""
+    if dtype == torch.bfloat16 and os.environ.get("SAM2_TPU_KERNEL_FAST_EXP", "0") == "1":
+        raise NotImplementedError(
+            "SAM2_TPU_KERNEL_FAST_EXP=1 (bf16 probabilities in the flash kernels) is not "
+            "ported: the JAX reference's forward and backward disagree under it; see "
+            "ROADMAP.md Queue C")
 
 
 def use_window_kernel() -> bool:
@@ -132,17 +170,20 @@ def use_window_kernel() -> bool:
 
 
 def flash_or_sdpa(q, k, v, kv_mask=None, min_seq: int = 1024):
-    """Dispatch on [B, heads, seq, head_dim]: the hand-written flash kernel
-    (K1, differentiable: its backward is K3) for CUDA tensors with q_len *
-    kv_len >= min_seq²; else, under `use_window_kernel()`, the window kernel
-    (K5) for unmasked attention with q_len == kv_len <= 1024 (its plain
-    version on CPU tensors); else plain attention. kv_mask: [B, Skv] bool or
-    None."""
-    if q.is_cuda and q.shape[-2] * k.shape[-2] >= min_seq * min_seq:
+    """Dispatch on [B, heads, seq, head_dim], as the JAX package's
+    `flash_or_sdpa` (`ops/common.py:241-263`): under `use_flash_attention`,
+    the hand-written flash kernel (K1, differentiable: its backward is K3)
+    for q_len * kv_len >= min_seq²; else, under `use_window_kernel()` and
+    `use_flash_attention` both, the window kernel (K5) for unmasked attention
+    with q_len == kv_len <= 1024; else plain attention. CPU tensors run the
+    kernels' plain versions. kv_mask: [B, Skv] bool or None."""
+    flash = use_flash_attention(q)
+    if flash and q.shape[-2] * k.shape[-2] >= min_seq * min_seq:
         from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention
 
+        check_fast_exp(q.dtype)
         return flash_attention(q, k, v, kv_mask=kv_mask)[0]
-    if (kv_mask is None and use_window_kernel()
+    if (kv_mask is None and use_window_kernel() and flash
             and q.shape[-2] == k.shape[-2] <= 1024):
         from sam2_opt_tpu_torch.kernels.window_attention import window_attention
 

@@ -135,16 +135,79 @@ def test_cuda_kernel_matches_ref(n, c):
     assert bool((err <= fused_mlp_bf16_bound(x, w1, b1, w2, ref)).all()), err.max().item()
 
 
+def _within_bound(out, args):
+    ref = fused_mlp_ref(*args, fast_act=True)
+    err = (out.float() - ref.float()).abs()
+    return bool((err <= fused_mlp_bf16_bound(*args[:4], ref)).all()), err.max().item()
+
+
+# the kernel's edges: a ragged N around its 128-token tile (1, 127, 129,
+# 1000), C = 112 and 144 (TMA's zero fill pads them to whole 64-column
+# boxes), the widest output (1152: four 288-column tiles) at a narrow input,
+# and shapes whose few tiles split the hidden dim over a cluster of CTAs
+EDGE_SHAPES = [  # N, C, C_out (hidden 4C)
+    (1, 144, 144), (127, 144, 144), (129, 112, 112), (1000, 112, 112), (129, 144, 1152),
+    (1000, 288, 1152), (256, 576, 576),
+]
+
+
 @pytest.mark.gpu
-def test_cuda_gradients_and_refusals():
+@pytest.mark.parametrize("n,c,c_out", EDGE_SHAPES)
+def test_cuda_kernel_edges(n, c, c_out):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = [t.cuda() for t in _port(*_params(n, c, 4 * c, c_out, seed=11), torch.bfloat16)]
+    out = fused_mlp(*args, fast_act=True)
+    torch.cuda.synchronize()
+    assert out.shape == (n, c_out)
+    ok, worst = _within_bound(out, args)
+    assert ok, worst
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad", [16, 4])
+def test_cuda_strided_x(pad):
+    """x as a column slice of a wider buffer: a row stride of C + 16 is read
+    in place, C + 4 (not 16-byte aligned) through a contiguous copy; both
+    within the bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, w1, b1, w2, b2 = (t.cuda() for t in _port(*_params(300, 144, 576, seed=12), torch.bfloat16))
+    wide = torch.zeros(300, 144 + pad, dtype=torch.bfloat16, device="cuda")
+    wide[:, :144] = x
+    view = wide[:, :144]
+    assert view.stride(0) == 144 + pad
+    out = fused_mlp(view, w1, b1, w2, b2, fast_act=True)
+    torch.cuda.synchronize()
+    ok, worst = _within_bound(out, [x, w1, b1, w2, b2])
+    assert ok, worst
+
+
+@pytest.mark.gpu
+def test_cuda_refuses_wider_output():
+    """C_out = 1160 is past the kernel's 1152: the wrapper raises on the
+    card, with no fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = [t.cuda() for t in _port(*_params(64, 64, 256, 1160, seed=13), torch.bfloat16)]
+    before = fused_mlp.launches
+    with pytest.raises(ValueError, match="1152"):
+        fused_mlp(*args, fast_act=True)
+    assert fused_mlp.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c", [(200, 64), (256, 576)])
+def test_cuda_gradients_and_refusals(n, c):
     """Autograd through the kernel equals autograd through the plain version
-    (the same backward; bf16, 2e-2 of max |g|); fp32 and fast_act=False raise
+    (the same backward; bf16, 2e-2 of max |g|), also where the kernel splits
+    the hidden dim over a cluster (256 x 576); fp32 and fast_act=False raise
     on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    args = [t.cuda() for t in _port(*_params(200, 64, 256, seed=10), torch.bfloat16)]
+    args = [t.cuda() for t in _port(*_params(n, c, 4 * c, seed=10), torch.bfloat16)]
     a = [t.clone().requires_grad_() for t in args]
-    g = torch.randn(200, 64, device="cuda", dtype=torch.bfloat16)
+    g = torch.randn(n, c, device="cuda", dtype=torch.bfloat16)
     got = torch.autograd.grad(fused_mlp(*a, fast_act=True), a, g)
     b = [t.clone().requires_grad_() for t in args]
     want = torch.autograd.grad(fused_mlp_ref(*b, fast_act=True), b, g)

@@ -6,10 +6,10 @@ Two settings of the JAX package's switches, in fp32 and bf16:
 - W1: `SAM2_TPU_WINDOW_KERNEL=1`, `SAM2_TPU_FLASH_WINDOW_MIN=64`,
   `SAM2_TPU_FUSED_MLP=1` (K6 on the split route, K5 in `flash_or_sdpa`, K8);
 - W2: `SAM2_TPU_PACKED_WINDOW=256`, `SAM2_TPU_FUSED_MLP=1` (K7, K8).
-The JAX side runs with `SAM2_TPU_FLASH=1` (the port routes by device and
-counts that gate as on), its K5 in interpret mode as
-`tests/test_flash_attention.py:147-151` runs it, and is traced anew for
-each setting (JAX reads the switches at trace time). Each wrapper's calls
+Both sides run with `SAM2_TPU_FLASH=1` (the gate of the window routes and
+K5, off on the CPU by default in both packages), JAX's K5 in interpret
+mode as `tests/test_flash_attention.py:147-151` runs it; JAX is traced anew
+for each setting (JAX reads the switches at trace time). Each wrapper's calls
 are counted on both sides and must equal what the block plan gives.
 Tolerances: fp32 1e-4 of the output's scale (the frameworks sum in other
 orders); bf16 3e-2 of max |out| (bf16 roundings at other places, and the

@@ -151,19 +151,45 @@ def test_mask_input_rollout_grads_match_jax(mask_input):
             assert got[2][f"memory_attention.layers.{layer}.{attn}.q_proj.weight"].abs().max() > 0
 
 
+def test_mask_input_rollout_flash_routes_matches_jax(mask_input, tiny128_params, monkeypatch):
+    """The port's rollout under `SAM2_TPU_FLASH=1`, the card's default
+    memory attention routes on CPU tensors: self- and cross-attention (over
+    memory frames and object pointers) run K2's plain version, a spy sees
+    both in every layer of every tracked frame, and loss and gradients
+    match the same JAX result at the tolerances above."""
+    import sam2_opt_tpu_torch.models.memory_attention as ma
+
+    calls = {"self": 0, "cross": 0}
+    rope_ref = ma.flash_attention_rope_ref
+
+    def spy(q, k, *a):
+        calls["cross" if k.shape[-2] > q.shape[-2] else "self"] += 1
+        return rope_ref(q, k, *a)
+
+    monkeypatch.setattr(ma, "flash_attention_rope_ref", spy)
+    monkeypatch.setenv("SAM2_TPU_FLASH", "1")
+    ref, _ = mask_input
+    got = run_port(tiny128_params, use_mask_input=True, num_correction_clicks=0)
+    assert calls == {"self": 4 * (T - 1), "cross": 4 * (T - 1)}, calls  # 4 layers a frame
+    assert_loss_and_aux(ref, got)
+    assert_grads(ref, got)
+
+
 def test_mask_input_rollout_fused_kv_proj_matches_jax(mask_input, tiny128_params, monkeypatch):
     """The port's rollout under `SAM2_TPU_FUSED_KV_PROJ=1`, where memory
     attention's cross-attention runs K4's plain version (on the card, K4 and
     its backward), against the same JAX result (the JAX package takes its
     unfused path on the CPU either way): loss and gradients at the
     tolerances above; the cross-attention's k/v projections, now inside K4,
-    get a nonzero gradient."""
+    get a nonzero gradient. The port's side sets `SAM2_TPU_FLASH=1`, which
+    puts the kernel routes (their plain versions) on CPU tensors."""
     import sam2_opt_tpu_torch.models.memory_attention as ma
 
     calls = []
     kv_ref = ma.flash_attention_kv_proj_ref
     monkeypatch.setattr(ma, "flash_attention_kv_proj_ref", lambda *a: calls.append(1) or kv_ref(*a))
     monkeypatch.setenv("SAM2_TPU_FUSED_KV_PROJ", "1")
+    monkeypatch.setenv("SAM2_TPU_FLASH", "1")
     ref, _ = mask_input
     got = run_port(tiny128_params, use_mask_input=True, num_correction_clicks=0)
     assert len(calls) == 4 * (T - 1)  # 4 layers per tracked frame

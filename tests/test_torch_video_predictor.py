@@ -128,10 +128,33 @@ def test_full_loop_matches_jax(tiny128_cfg, weights, jax_outputs):
     _port_matches_jax(tiny128_cfg, weights, jax_outputs)
 
 
+def test_full_loop_matches_jax_flash_routes(tiny128_cfg, weights, jax_outputs, monkeypatch):
+    """Under `SAM2_TPU_FLASH=1` the port takes the card's default memory
+    attention routes on CPU tensors: self- and cross-attention (the latter
+    over memory frames and object pointers, more keys than queries) run
+    K2's plain version (a spy sees both), and the loop still matches the
+    same JAX outputs."""
+    import sam2_opt_tpu_torch.models.memory_attention as ma
+
+    calls = {"self": 0, "cross": 0}
+    rope_ref = ma.flash_attention_rope_ref
+
+    def spy(q, k, *a):
+        calls["cross" if k.shape[-2] > q.shape[-2] else "self"] += 1
+        return rope_ref(q, k, *a)
+
+    monkeypatch.setattr(ma, "flash_attention_rope_ref", spy)
+    monkeypatch.setenv("SAM2_TPU_FLASH", "1")
+    _port_matches_jax(tiny128_cfg, weights, jax_outputs)
+    assert calls["cross"] > 0 and calls["cross"] == calls["self"], calls
+
+
 def test_full_loop_matches_jax_fused_kv_proj(tiny128_cfg, weights, jax_outputs, monkeypatch):
     """Under `SAM2_TPU_FUSED_KV_PROJ=1` memory attention's cross-attention
     takes K4's plain version (a spy sees it, and K2's plain version serve
-    only self-attention), and the loop still matches the same JAX outputs."""
+    only self-attention), and the loop still matches the same JAX outputs.
+    The port's side sets `SAM2_TPU_FLASH=1`, which puts the kernel routes
+    (their plain versions) on CPU tensors."""
     import sam2_opt_tpu_torch.models.memory_attention as ma
 
     calls = {"kv_proj": 0, "rope": 0}
@@ -141,6 +164,7 @@ def test_full_loop_matches_jax_fused_kv_proj(tiny128_cfg, weights, jax_outputs, 
     monkeypatch.setattr(ma, "flash_attention_rope_ref",
                         lambda *a: calls.__setitem__("rope", calls["rope"] + 1) or rope_ref(*a))
     monkeypatch.setenv("SAM2_TPU_FUSED_KV_PROJ", "1")
+    monkeypatch.setenv("SAM2_TPU_FLASH", "1")
     _port_matches_jax(tiny128_cfg, weights, jax_outputs)
     assert calls["kv_proj"] > 0 and calls["kv_proj"] == calls["rope"]
 

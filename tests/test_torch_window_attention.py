@@ -158,7 +158,8 @@ def test_wrappers_run_plain_version_on_cpu_and_validate():
 def test_flash_or_sdpa_routes_window_kernel(monkeypatch):
     """`SAM2_TPU_WINDOW_KERNEL=1` routes unmasked equal-length attention of
     up to 1024 tokens to K5 (here its plain version), as the JAX package's
-    `flash_or_sdpa` does; a kv mask or unequal lengths stay plain."""
+    `flash_or_sdpa` does; a kv mask or unequal lengths stay plain. Both
+    packages also require `SAM2_TPU_FLASH` on, which the CPU needs set."""
     import sam2_opt_tpu_torch.kernels.window_attention as wa
     from sam2_opt_tpu_torch.ops import common as ops
 
@@ -166,6 +167,7 @@ def test_flash_or_sdpa_routes_window_kernel(monkeypatch):
     monkeypatch.setattr(wa, "window_attention",
                         lambda *a: calls.append(1) or wa.window_attention_ref(*a))
     q, k, v = (torch.from_numpy(x) for x in _arrays([(2, 2, 64, 32)] * 3, seed=16))
+    monkeypatch.setenv("SAM2_TPU_FLASH", "1")
     base = ops.flash_or_sdpa(q, k, v)
     monkeypatch.setenv("SAM2_TPU_WINDOW_KERNEL", "1")
     out = ops.flash_or_sdpa(q, k, v)
