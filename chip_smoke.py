@@ -43,19 +43,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    8-frame batch, memory-attention cross and self attention), bf16 and
    fp32, with masked slots and an all-masked batch row, the global-block
    case also as strided views of one [8, 4096, 3, 8, 56] projection; a
-   negative control (lse shifted by +1) that must fail; times beside the
-   bound, the plain version and the SDPA backward;
+   second launch bitwise equal to the first (no atomics); a negative
+   control (lse shifted by +1) that must fail; times beside the bound, the
+   plain version and the SDPA backward, with each kernel's tile, CTA count
+   and split as its library reports them (`bwd_tiling`), in the log only;
 9. training, fp32 on the card against the CPU with the same weights:
    hiera-b+ at 1024², 2 frames, one object, mask prompt, through
-   `video_train_loss` and backward: the loss and every gradient agree, and
+   `video_train_loss` and backward, on the default route and under
+   `SAM2_TPU_FUSED_ROPE=0`: the loss and every gradient agree, and
    memory attention's q/k projections get a nonzero gradient;
 10. training through `Trainer.run` (the slice's main path): hiera-b+ at
    1024², one 8-frame video of two objects per batch, remat "encoder", 3
    steps in fp32 and 3 in bf16, with exact K1/K2/K3 launch counts per step;
    finite losses, fp32 masters that moved, bf16 within 10% of fp32 on the
    first step; ms per step, peak memory and the device split and idle share
-   of one profiled step; and, where Pillow is installed, the CLI on a small
-   PNG folder.
+   of one profiled step, with K3's device time in it; and, where Pillow is
+   installed, the CLI on a small PNG folder.
 
 11. K5, K6 and K7 (one per-window attention kernel behind three wrappers)
    against their plain version, bf16 and fp32: at hiera-L's four windowed
@@ -100,7 +103,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    split of all three routes;
 17. training under the switch: `Trainer.run` at hiera-b+ 1024², two fp32
    and two bf16 steps with exact launches per step (K1 6, K2 28, K4 28, K3a 59, K3b
-   59), the fp32 first-step loss held to phase 10's default route;
+   59), the fp32 first-step loss held to phase 10's default route; then
+   under `SAM2_TPU_FUSED_ROPE=0` (slice 7): two fp32 and two bf16 steps,
+   K1 62 per step (56 of them at D = 256, memory attention's: K1's count
+   less the trunk's 6), K2 0, K3a and K3b 59, the fp32 first-step loss held to phase 10's and bf16's to
+   this route's fp32 within 10%;
 18. K9 and K10 (the window bench tool's kernels, the window kernel of phase
    11 behind two more wrappers) against the plain version at the tool's
    four shapes, bf16, with a negative control; then the tool's port
@@ -114,9 +121,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    route's; under `SAM2_TPU_KERNEL_FAST_EXP=1` a bf16 route to K1
    (`ops.flash_or_sdpa`) or K2 (memory attention) raises.
 Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-19; each
-phase that sets a switch restores it. Since slice 6, K8 (phases 12-14) is a
+phase that sets a switch restores it and logs its wall seconds, which the
+summary line before the kernels line gathers under "phase_seconds". Since slice 6, K8 (phases 12-14) is a
 warp-specialised wgmma/TMA kernel; phase 14 also gives the bound of the
 work it executes (its column split recomputes GEMM1 at hiera-L stages 3-4).
+Since slice 7, K3 (phase 8) is one too in bf16, and runs fp32 on the tensor
+cores as three TF32 products, so its fp32 bound is counted at 495/3 TFLOP/s.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -125,6 +135,7 @@ line is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -227,6 +238,21 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+PHASE_SECONDS = {}
+
+
+def phase(fn):
+    """Logs a phase's wall seconds and keeps them for the summary line."""
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        PHASE_SECONDS[fn.__name__] = round(time.perf_counter() - t0, 1)
+        log(f"{fn.__name__}: {PHASE_SECONDS[fn.__name__]} s")
+        return out
+    return timed
+
+
 @contextlib.contextmanager
 def switches(env):
     """Set environment switches for the block, restore them after."""
@@ -323,6 +349,7 @@ def k1_cases(dtype):
     yield ("ragged masked", randn(B, H, Sq, D), randn(B, H, Skv, D), randn(B, H, Skv, D), kv_mask)
 
 
+@phase
 def phase_k1(flash_attention, flash_attention_ref):
     """K1 against its plain version on the card; returns the largest error."""
     max_err = 0.0
@@ -404,6 +431,7 @@ def k2_within(out, ref, dtype):
     return bool((err <= atol + rtol * ref.float().abs()).all()), err
 
 
+@phase
 def phase_k2(flash_attention_rope, flash_attention_rope_ref):
     """K2 against its plain version on the card; returns the largest error.
     The negative control runs the cross case through the kernel with
@@ -481,6 +509,7 @@ def low_res(state, obj_idx=0):
     return torch.stack([frames[t]["pred_masks"][0, 0].float().cpu() for t in sorted(frames)])
 
 
+@phase
 def phase_video(flash_attention, flash_attention_rope):
     """The video slice on the card; returns (predictor, video, points,
     launches on the main path)."""
@@ -630,6 +659,7 @@ def miou(a, b):
     return 1.0 if union == 0 else np.logical_and(a, b).sum() / union
 
 
+@phase
 def phase_slice(flash_attention):
     from sam2_opt_tpu_torch import build_sam2_image_predictor
     from sam2_opt_tpu_torch.models.model import build_sam2
@@ -700,7 +730,7 @@ def phase_slice(flash_attention):
 FAMILIES = [
     ("K5-K7 window_attention (csrc)", r"window_attn_"),
     ("K8 fused_mlp (csrc)", r"fused_mlp_kernel"),
-    ("K3 flash_attention_bwd (csrc)", r"bwd_dkdv_kernel|bwd_dq_kernel"),
+    ("K3 flash_attention_bwd (csrc)", r"bwd_dkdv_|bwd_dq_|(?<!flash_)combine_kernel"),
     ("K4 flash_attention_kv_proj (csrc)", r"flash_kvproj_"),  # its split merge counts as K2's
     ("K2 flash_attention_rope (csrc)", r"flash_rope_"),
     ("K1 flash_attention (csrc)", r"flash_fwd_"),
@@ -744,6 +774,7 @@ def device_split(fn, reps=3):
             sorted(kernels, key=lambda kv: -kv[1])[:8])
 
 
+@phase
 def phase_times(predictor, image, flash_attention, flash_attention_ref):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
     times = {}
@@ -820,6 +851,7 @@ def propagation_times(predictor, video, points, label):
                 peak_gib=peak)
 
 
+@phase
 def phase_video_times(predictor, video, points, flash_attention_rope,
                       flash_attention_rope_ref):
     """Per-frame propagation time, peak memory and the device split of the
@@ -882,8 +914,11 @@ def phase_video_times(predictor, video, points, flash_attention_rope,
 K3_B_SHAPE = (8, 8, 4096, 4096, 56)
 K3_CROSS = (2, 1, 4096, K2_SLOTS * 4096 + 4 * 8, 256)
 K3_SELF = (2, 1, 4096, 4096, 256)
-# fp32: kernel and plain version sum the same fp32 products in other orders
+# fp32: kernel and plain version sum the same products in other orders, the
+# kernel each as three TF32 products (about 2^-21 of each product)
 K3_FP32_REL = 1e-4
+# K3's fp32 rate: three TF32 products per fp32 product (see k3_bound_ms)
+K3_FP32_FLOPS = 495e12 / 3
 TRAIN_FRAMES, TRAIN_OBJECTS, TRAIN_STEPS = 8, 2, 3
 # fp32 on the card vs the CPU, hiera-b+ at 1024², 2 frames (see phase 9)
 TRAIN_CPU_LOSS_RTOL = 1e-4
@@ -896,7 +931,11 @@ def k3_bound_ms(B, H, Sq, Skv, D, dtype, part, valid_keys=None):
     """Least time for K3a ("dkdv": S, dP, dV, dK: 4 products) or K3b ("dq":
     S, dP, dQ: 3 products) on these inputs, 2 operations per multiply-add,
     each input (q, k, v, dO in the dtype, lse and delta fp32) read once and
-    each fp32 gradient written once. Masked keys need no work."""
+    each fp32 gradient written once. Masked keys need no work. fp32 runs on
+    the tensor cores as three TF32 products per product (the split that
+    keeps fp32 accuracy, as the library's fp32 backward does), so its rate
+    is a third of TF32's 495 TFLOP/s (K3_FP32_FLOPS), not the CUDA cores'
+    67: the least time for fp32-accurate work on this card."""
     valid = B * Skv if valid_keys is None else valid_keys
     products = 4 if part == "dkdv" else 3
     flops = 2.0 * products * H * Sq * valid * D
@@ -904,7 +943,8 @@ def k3_bound_ms(B, H, Sq, Skv, D, dtype, part, valid_keys=None):
     out_rows = 2 * Skv if part == "dkdv" else Sq
     nbytes = (itemsize * B * H * D * (2 * Sq + 2 * Skv) + 8 * B * H * Sq + B * Skv
               + 4 * B * H * D * out_rows)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    peak = K3_FP32_FLOPS if dtype == torch.float32 else PEAK_FLOPS[dtype]
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -949,10 +989,12 @@ def k3_cases(dtype):
            randn(B, H, Sq, D), None)
 
 
+@phase
 def phase_k3():
     """K3a and K3b against their plain versions on the card; returns the
-    largest error per kernel. The negative control runs the cross case with
-    lse + 1: the check must fail."""
+    largest error per kernel. On the cross case (where bf16 K3b splits its kv
+    axis) a second launch must give bitwise-equal gradients, and the
+    negative control, lse + 1, must fail the check."""
     from sam2_opt_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_bf16_bound,
         flash_attention_bwd_delta,
@@ -992,6 +1034,13 @@ def phase_k3():
                 check(bool(dead.any()) and not dq[dead].any() and not dk[dead].any()
                       and not dv[dead].any(), "K3: a fully masked row must get zero gradients")
             if label.startswith("cross"):
+                # no atomics: a second launch gives bitwise-equal gradients
+                dk2, dv2 = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, mask)
+                dq2 = flash_attention_bwd_dq(q, k, v, do, lse, delta, mask)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), (dq2, dk2, dv2)))
+                log(f"  determinism: a second launch of K3a and K3b is bitwise equal: {same}")
+                check(same, "K3 must be deterministic")
                 bad_lse = lse + 1.0
                 dk2, dv2 = flash_attention_bwd_dkdv(q, k, v, do, bad_lse, delta, mask)
                 dq2 = flash_attention_bwd_dq(q, k, v, do, bad_lse, delta, mask)
@@ -1005,6 +1054,18 @@ def phase_k3():
     return max_err
 
 
+def k3_tiling(dtype, B, H, Sq, Skv, D, part):
+    """K3a's ("dkdv") or K3b's ("dq") tile, CTAs and split for the log, as
+    the kernel's library reports its launch."""
+    from sam2_opt_tpu_torch.kernels.flash_attention import bwd_tiling
+
+    t = bwd_tiling(part == "dq", dtype, B, H, Sq, Skv, D)
+    axes = ("query rows", "keys") if part == "dq" else ("keys", "query rows")
+    return (f"{t['cta_rows']} {axes[0]} per CTA, {t['step_rows']} {axes[1]} per step, "
+            f"{t['ctas']} CTAs, split {t['n_split']}")
+
+
+@phase
 def phase_k3_times():
     """K3a and K3b beside their plain versions, the SDPA backward and their
     bounds, at the three training shapes, every key valid (the steady state;
@@ -1029,7 +1090,7 @@ def phase_k3_times():
             mask = torch.ones(B, Skv, dtype=torch.bool, device="cuda") if label == "cross" else None
             out, lse = flash_attention_ref(q, k, v, mask)
             delta = flash_attention_bwd_delta(out, do)
-            row = {}
+            row, tiles = {}, {}
             for part, kernel, plain in (("dkdv", flash_attention_bwd_dkdv,
                                          flash_attention_bwd_dkdv_ref),
                                         ("dq", flash_attention_bwd_dq, flash_attention_bwd_dq_ref)):
@@ -1039,6 +1100,7 @@ def phase_k3_times():
                                    warmup=1, flush=flush)
                 bound_ms, bound_by = k3_bound_ms(B, H, Sq, Skv, D, dtype, part)
                 row[part] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                tiles[part] = k3_tiling(dtype, B, H, Sq, Skv, D, part)
             # the library yardstick: autograd of SDPA with the same bool mask,
             # backward only (dQ, dK and dV together)
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1048,13 +1110,15 @@ def phase_k3_times():
                                                              retain_graph=True),
                                  reps=3, warmup=1, flush=flush)
             both = row["dkdv"]["ms"] + row["dq"]["ms"]
-            fused_bound = 1e3 * 10.0 * B * H * Sq * Skv * D / PEAK_FLOPS[dtype]
-            log(f"K3 {dtype} {label} {(B * H, Sq, Skv, D)}: K3a {row['dkdv']['ms']:.4f} ms "
-                f"(plain {row['dkdv']['plain_ms']:.4f}, bound {row['dkdv']['bound_ms']:.4f}), K3b "
-                f"{row['dq']['ms']:.4f} ms (plain {row['dq']['plain_ms']:.4f}, bound "
-                f"{row['dq']['bound_ms']:.4f}); together {both:.4f} ms = "
+            fused_bound = 1e3 * 10.0 * B * H * Sq * Skv * D / (
+                K3_FP32_FLOPS if dtype == torch.float32 else PEAK_FLOPS[dtype])
+            parts = "; ".join(
+                f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+                f"{r['bound_ms'] / r['ms']:.1%} of it; {tiles[part]})"
+                for name, part, r in (("K3a", "dkdv", row["dkdv"]), ("K3b", "dq", row["dq"])))
+            log(f"K3 {dtype} {label} {(B * H, Sq, Skv, D)}: {parts}; together {both:.4f} ms = "
                 f"{fused_bound / both:.1%} of the 10-product bound {fused_bound:.4f} ms; SDPA "
-                f"backward {library_ms:.4f} ms")
+                f"backward {library_ms:.4f} ms ({both / library_ms:.2f}x)")
             for part in row:
                 row[part]["library_ms"] = library_ms
             k3[(label, dtype)] = dict(row, both_ms=both, fused_bound_ms=fused_bound)
@@ -1097,52 +1161,74 @@ def b_plus(device, state_dict=None):
     return m
 
 
+@phase
 def phase_train_vs_cpu():
-    """fp32 loss and gradients on the card against the CPU, same weights."""
+    """fp32 loss and gradients on the card against the CPU, same weights: the
+    default route and, on the same card model, `SAM2_TPU_FUSED_ROPE=0`
+    (memory attention on K1 at D = 256, K3 behind it; the CPU's plain route
+    is the same either way). Launch counts show which route ran: K2 on the
+    default, none under the switch, where K1 runs more."""
     from sam2_opt_tpu_torch.config import model_config
+    from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_rope
     from sam2_opt_tpu_torch.training.sam2_train import video_train_loss
 
     t0 = time.perf_counter()
     cfg = model_config("hiera_b+")
     batch = training_video(T=2)
-    results = {}
+    results, launches = {}, {}
     card = b_plus("cuda")
     cpu = b_plus("cpu", {k: v.cpu() for k, v in card.state_dict().items()})
-    for name, m in (("card", card), ("cpu", cpu)):
+    for name, m, env in (("card", card, {}), ("card, rope off", card, ROPE_OFF_SWITCH),
+                         ("cpu", cpu, {})):
         dev = next(m.parameters()).device
+        m.zero_grad(set_to_none=True)
         images = torch.as_tensor(batch["images"][0], device=dev).float() / 255.0
         masks = torch.as_tensor(batch["masks"][0, :, :1], device=dev)
-        loss, aux = video_train_loss(m, cfg, images, masks, torch.Generator(device=dev),
-                                     use_mask_input=True, num_correction_clicks=0,
-                                     use_remat=False)
-        loss.backward()
+        flash_attention.launches = flash_attention_rope.launches = 0
+        with switches(env):
+            loss, aux = video_train_loss(m, cfg, images, masks, torch.Generator(device=dev),
+                                         use_mask_input=True, num_correction_clicks=0,
+                                         use_remat=False)
+            loss.backward()
+        launches[name] = (flash_attention.launches, flash_attention_rope.launches)
         results[name] = (loss.item(), {n: p.grad.float().cpu() for n, p in m.named_parameters()
                                        if p.grad is not None})
-    (l_card, g_card), (l_cpu, g_cpu) = results["card"], results["cpu"]
-    check(sorted(g_card) == sorted(g_cpu), "the card and the CPU differentiate other parameters")
+    l_cpu, g_cpu = results["cpu"]
+    log(f"training fp32, 2 frames: (K1, K2) launches on the card {launches['card']}, under "
+        f"SAM2_TPU_FUSED_ROPE=0 {launches['card, rope off']}")
+    check(launches["card"][1] > 0 and launches["card, rope off"][1] == 0
+          and launches["card, rope off"][0] > launches["card"][0],
+          "SAM2_TPU_FUSED_ROPE=0 must move memory attention from K2 to K1")
     gmax = max(g.abs().max().item() for g in g_cpu.values())
-    worst, worst_name, bad = 0.0, "", []
-    for n, want in g_cpu.items():
-        err = (g_card[n] - want).abs().max().item()
-        scale = want.abs().max().item()
-        if err > TRAIN_CPU_GRAD_TOL * scale + TRAIN_CPU_GRAD_FLOOR * gmax:
-            bad.append((n, err, scale))
-        if scale >= 1e-6 * gmax and err / scale > worst:
-            worst, worst_name = err / scale, n
-    rel = abs(l_card - l_cpu) / abs(l_cpu)
-    qk = [g_card[f"memory_attention.layers.{i}.{a}.{p}_proj.weight"].abs().max().item()
-          for i in range(4) for a in ("self_attn", "cross_attn_image") for p in ("q", "k")]
-    log(f"training fp32 card vs CPU, hiera-b+ 1024², 2 frames ({time.perf_counter() - t0:.1f} s):"
-        f" loss {l_card:.6f} vs {l_cpu:.6f} (rel {rel:.2e}, limit {TRAIN_CPU_LOSS_RTOL}); "
-        f"{len(g_cpu)} gradients, worst |err|/max|g| {worst:.2e} ({worst_name}; limit "
-        f"{TRAIN_CPU_GRAD_TOL} + {TRAIN_CPU_GRAD_FLOOR} of the largest, {gmax:.3e}); "
-        f"outside: {bad[:3]}; memory-attention q/k grad max|g| min {min(qk):.3e}")
-    check(rel <= TRAIN_CPU_LOSS_RTOL, "the training loss on the card disagrees with the CPU")
-    check(not bad, "training gradients on the card disagree with the CPU")
-    check(min(qk) > 0, "memory attention's q/k projections get no gradient")
+    readings = {}
+    for route in ("card", "card, rope off"):
+        l_card, g_card = results[route]
+        check(sorted(g_card) == sorted(g_cpu), "the card and the CPU differentiate other parameters")
+        worst, worst_name, bad = 0.0, "", []
+        for n, want in g_cpu.items():
+            err = (g_card[n] - want).abs().max().item()
+            scale = want.abs().max().item()
+            if err > TRAIN_CPU_GRAD_TOL * scale + TRAIN_CPU_GRAD_FLOOR * gmax:
+                bad.append((n, err, scale))
+            if scale >= 1e-6 * gmax and err / scale > worst:
+                worst, worst_name = err / scale, n
+        rel = abs(l_card - l_cpu) / abs(l_cpu)
+        qk = [g_card[f"memory_attention.layers.{i}.{a}.{p}_proj.weight"].abs().max().item()
+              for i in range(4) for a in ("self_attn", "cross_attn_image") for p in ("q", "k")]
+        log(f"training fp32 {route} vs CPU, hiera-b+ 1024², 2 frames "
+            f"({time.perf_counter() - t0:.1f} s): loss {l_card:.6f} vs {l_cpu:.6f} (rel "
+            f"{rel:.2e}, limit {TRAIN_CPU_LOSS_RTOL}); {len(g_cpu)} gradients, worst "
+            f"|err|/max|g| {worst:.2e} ({worst_name}; limit {TRAIN_CPU_GRAD_TOL} + "
+            f"{TRAIN_CPU_GRAD_FLOOR} of the largest, {gmax:.3e}); outside: {bad[:3]}; "
+            f"memory-attention q/k grad max|g| min {min(qk):.3e}")
+        check(rel <= TRAIN_CPU_LOSS_RTOL, f"the training loss on the card ({route}) disagrees "
+              "with the CPU")
+        check(not bad, f"training gradients on the card ({route}) disagree with the CPU")
+        check(min(qk) > 0, "memory attention's q/k projections get no gradient")
+        readings[route] = dict(loss_card=l_card, loss_rel=rel, worst_grad_rel=worst)
     del card, cpu, results
     torch.cuda.empty_cache()
-    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel, worst_grad_rel=worst)
+    return dict(loss_cpu=l_cpu, routes=readings)
 
 
 def launches_per_step(T=TRAIN_FRAMES):
@@ -1167,6 +1253,7 @@ def train_config(dtype, root):
                        log_dir=f"{root}/logs")
 
 
+@phase
 def phase_trainer(counters):
     """The main path: Trainer.run at hiera-b+ 1024², fp32 then bf16."""
     import tempfile
@@ -1213,6 +1300,9 @@ def phase_trainer(counters):
             return float(metrics["loss"])
 
         busy, fams, top = device_split(one_step, reps=1)
+        k3_ms = fams.get("K3 flash_attention_bwd (csrc)", {}).get("ms", 0.0)
+        log(f"training {dtype}: profiled step K3 (K3a + K3b) device time {k3_ms:.1f} ms of "
+            f"{busy:.1f} busy ({k3_ms / busy:.1%})")
         log(f"training {dtype}: Trainer.run, {TRAIN_STEPS} steps in "
             f"{time.perf_counter() - t0:.1f} s; losses {[round(x, 4) for x in losses]}; ms per "
             f"step {[round(x, 1) for x in step_ms]} (median after the first {median_ms:.1f}); "
@@ -1223,7 +1313,7 @@ def phase_trainer(counters):
                         "top_kernels_ms": top}))
         runs[dtype] = dict(losses=losses, step_ms=step_ms, median_step_ms=median_ms,
                            peak_gib=peak, busy_ms=busy, idle_share=1 - busy / median_ms,
-                           launches=got)
+                           k3_ms=k3_ms, launches=got)
         del trainer, before
         torch.cuda.empty_cache()
     l32, l16 = runs["float32"]["losses"][0], runs["bfloat16"]["losses"][0]
@@ -1233,6 +1323,7 @@ def phase_trainer(counters):
     return runs, launches
 
 
+@phase
 def phase_train_cli():
     """The CLI on a small PNG folder where Pillow is installed (hiera_t at
     256 px, 2 frames, 1 step: the folder reader and loader on the card)."""
@@ -1327,6 +1418,7 @@ def window_cases(dtype):
         randn(256, 64, 4, 72)
 
 
+@phase
 def phase_windows():
     """K5, K6 and K7 against their plain version on the card; returns the
     largest error per wrapper."""
@@ -1376,6 +1468,7 @@ def mlp_inputs(N, C, gen):
                                            0.1 * randn(C))]
 
 
+@phase
 def phase_k8():
     """K8 against its plain version on the card, bf16; returns the largest
     error. The negative control leaves out the GELU in the plain version:
@@ -1406,6 +1499,7 @@ def phase_k8():
     return max_err
 
 
+@phase
 def phase_route_grads():
     """Autograd through K6, K7 (fp32) and K8 (bf16) against autograd through
     their plain versions, at one small shape; K5 under autograd raises."""
@@ -1458,6 +1552,7 @@ def worst_masks(outs, ref):
     return worst_miou, worst_logit, worst_diou
 
 
+@phase
 def phase_routes(predictor, image, default, counters):
     """The slice's main path: the hiera-L image predictor's set_image and
     predict under W1 and W2 (bf16) and W1 (fp32); returns the launches of
@@ -1495,6 +1590,7 @@ def phase_routes(predictor, image, default, counters):
     return launches
 
 
+@phase
 def phase_route_times(predictor, image):
     """bf16 set_image wall, device split and idle share under the default
     route, W1 and W2."""
@@ -1514,6 +1610,7 @@ def phase_route_times(predictor, image):
     return times
 
 
+@phase
 def phase_route_kernel_times():
     """K5, K6, K7 at hiera-L's windowed shapes (bf16; K5 also fp32) and K8
     at its four block-MLP shapes, cold L2, beside bound, plain version and
@@ -1656,6 +1753,7 @@ def k4_cases(dtype, bias=0.5):
             *k4_params(gen, dtype, bias), c[:1500].contiguous(), s[:1500].contiguous(), kv_mask])
 
 
+@phase
 def phase_k4(kv_proj, kv_proj_ref):
     """K4 against its plain version on the card; returns the largest error.
     The negative control holds the kernel to the plain version without bk:
@@ -1692,6 +1790,7 @@ def phase_k4(kv_proj, kv_proj_ref):
     return max_err
 
 
+@phase
 def phase_k4_grads(kv_proj, kv_proj_ref):
     """The seven gradients through K4 (backward: K3 and the projection
     products) against autograd of the plain version at the cross shape with
@@ -1743,6 +1842,7 @@ def phase_k4_grads(kv_proj, kv_proj_ref):
     return readings
 
 
+@phase
 def phase_k4_times(kv_proj, kv_proj_ref):
     """K4 at the cross shape, every key valid (the steady state), cold L2,
     beside its bound, its plain version, the unfused route it replaces (two
@@ -1788,6 +1888,7 @@ def phase_k4_times(kv_proj, kv_proj_ref):
     return rows
 
 
+@phase
 def phase_k1_wide(flash_attention, flash_attention_ref):
     """K1 at D = 256, memory attention's attention under
     `SAM2_TPU_FUSED_ROPE=0`, against its plain version on phase 4's cases
@@ -1849,6 +1950,7 @@ def phase_k1_wide(flash_attention, flash_attention_ref):
     return max_err, times
 
 
+@phase
 def phase_route_video(counters):
     """The video slice under memory attention's switches: the hiera-L video
     predictor of phase 6 (rebuilt from the seed), 3 frames of its video in
@@ -1920,6 +2022,7 @@ def phase_route_video(counters):
     return launches, times
 
 
+@phase
 def phase_k4_train(counters, default_fp32_loss):
     """Training under the switch: Trainer.run at hiera-b+ 1024², two fp32
     and two bf16 steps on phase 10's batch and weights (the schedule warms
@@ -1971,6 +2074,72 @@ def phase_k4_train(counters, default_fp32_loss):
     return launches, runs
 
 
+@phase
+def phase_rope_off_train(counters, default_fp32_loss):
+    """Training under `SAM2_TPU_FUSED_ROPE=0`: Trainer.run at hiera-b+
+    1024², two fp32 and two bf16 steps on phase 10's batch and weights.
+    Memory attention rotates K in torch and runs K1 at D = 256 where K2 ran,
+    so per step K1 launches the trunk's 6 plus the 8 per tracked frame at
+    D = 256 (K1's count less the trunk's, as phase 16 counts them), K2 none,
+    K3a and K3b 59 each, the last 56 of them at D = 256 behind K1. The fp32
+    first-step loss within 1e-4 relative of phase 10's default route,
+    bf16's within 10% of this route's fp32, finite losses, masters that
+    moved. Returns (K1 launches at D = 256, {dtype: losses, ms per step,
+    launches})."""
+    import tempfile
+
+    from sam2_opt_tpu_torch.config import model_config
+    from sam2_opt_tpu_torch.training.trainer import Trainer
+
+    cfg = model_config("hiera_b+")
+    batch = training_video()
+    tmp = tempfile.mkdtemp(prefix="sam2_chip_smoke_train_rope_off_")
+    per_step = launches_per_step()
+    k2 = per_step.pop("K2")
+    expect = {**per_step, "K1": per_step["K1"] + k2, "K2": 0, "K4": 0}
+    runs = {}
+    with switches(ROPE_OFF_SWITCH):
+        for dtype in ("float32", "bfloat16"):
+            trainer = Trainer(cfg, b_plus("cuda"), train_config(dtype, f"{tmp}/{dtype}"))
+            before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+            torch.cuda.synchronize()
+            # the main path: counts to 0 just before, read just after
+            for c in counters.values():
+                c.launches = 0
+            trainer.run(lambda epoch: iter([batch] * K4_TRAIN_STEPS),
+                        steps_per_epoch=K4_TRAIN_STEPS)
+            torch.cuda.synchronize()
+            got = {k: c.launches for k, c in counters.items()}
+            wide = got["K1"] - K4_TRAIN_STEPS * per_step["K1"]
+            step_ms = [1e3 * x for x in trainer.step_seconds]
+            moved = sum(not torch.equal(p, before[n])
+                        for n, p in trainer.model.named_parameters())
+            log(f"training under SAM2_TPU_FUSED_ROPE=0, {dtype}: {K4_TRAIN_STEPS} steps, losses "
+                f"{[round(x, 6) for x in trainer.step_losses]}, ms per step "
+                f"{[round(x, 1) for x in step_ms]}; launches {got}, K1 at D = 256 {wide}; "
+                f"{moved} of {len(before)} parameters moved")
+            want = {k: K4_TRAIN_STEPS * v for k, v in expect.items()}
+            check(got == want, f"{dtype} training under SAM2_TPU_FUSED_ROPE=0 launched {got}, "
+                  f"expected {want}")
+            check(wide == K4_TRAIN_STEPS * k2,
+                  f"K1 at D = 256: {wide} launches, expected {K4_TRAIN_STEPS * k2}")
+            check(all(np.isfinite(trainer.step_losses)) and moved > 0,
+                  "the training steps under SAM2_TPU_FUSED_ROPE=0 must move the masters")
+            loss = trainer.step_losses[0]
+            ref = default_fp32_loss if dtype == "float32" else runs["float32"]["losses"][0]
+            tol = TRAIN_CPU_LOSS_RTOL if dtype == "float32" else TRAIN_BF16_LOSS_RTOL
+            rel = abs(loss - ref) / abs(ref)
+            log(f"  {dtype} first-step loss vs {'the default route' if dtype == 'float32' else 'fp32'}"
+                f" {ref:.6f}: rel {rel:.2e} (limit {tol})")
+            check(rel <= tol, f"{dtype} training loss under SAM2_TPU_FUSED_ROPE=0 drifts")
+            runs[dtype] = dict(losses=trainer.step_losses, step_ms=step_ms, launches=got,
+                               k1_d256=wide)
+            del trainer, before
+            torch.cuda.empty_cache()
+    return sum(r["k1_d256"] for r in runs.values()), runs
+
+
+@phase
 def phase_k9_k10():
     """K9 and K10 against their plain version at the bench tool's four
     shapes, bf16, within `window_attention_bf16_bound`; the negative control
@@ -2012,6 +2181,7 @@ def phase_k9_k10():
     return max_err, plain
 
 
+@phase
 def phase_bench_tool(counters):
     """The ported bench tool's entry point on the card (its main path): one
     JSON row per shape, both kernels within the bound; returns (rows,
@@ -2040,6 +2210,7 @@ SWITCH_FRAMES = 3
 FLASH_OFF_SWITCH = {"SAM2_TPU_FLASH": "0"}
 
 
+@phase
 def phase_switches(counters):
     """The switches of `ops.use_flash_attention` and of the fast-exp refusal
     on the card: under `SAM2_TPU_FLASH=0`, an fp32 `set_image` + `predict`,
@@ -2159,7 +2330,8 @@ def main():
 
     t0 = time.perf_counter()
     logs = _build.build_all()
-    log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 1)
+    log(f"build: {sorted(logs)} in {PHASE_SECONDS['build']} s")
     for lib, text in logs.items():
         regs = [line.strip() for line in text.splitlines() if "registers" in line or "spill" in line]
         log(f"  {lib}: {len(regs) // 2} kernels; " + "; ".join(sorted(set(regs))))
@@ -2201,6 +2373,9 @@ def main():
     route_video_launches, route_video_times = phase_route_video(
         {"K1": flash_attention, "K2": flash_attention_rope, "K4": flash_attention_kv_proj})
     k4_train_launches, k4_train = phase_k4_train(
+        {**counters, "K4": flash_attention_kv_proj}, train_runs["float32"]["losses"][0])
+    # slice 7: training under SAM2_TPU_FUSED_ROPE=0 (K3 at D = 256 behind K1)
+    rope_off_k1, rope_off_train = phase_rope_off_train(
         {**counters, "K4": flash_attention_kv_proj}, train_runs["float32"]["losses"][0])
     window_tool_err, window_tool_plain = phase_k9_k10()
     tool_rows, tool_launches = phase_bench_tool(
@@ -2311,6 +2486,7 @@ def main():
         "source": "sam2_opt_tpu_torch/csrc/flash_attention.cu",
         "replaces": "sam2_opt_tpu/kernels/flash_attention.py:97",
         "launches": route_video_launches["rope off"]["K1 D=256"],
+        "training_launches": rope_off_k1,
         "max_abs_err": k1_wide_err,
         **k1_wide[("cross", torch.bfloat16)],
         "shape": list(K2_CROSS),
@@ -2351,10 +2527,11 @@ def main():
                     "routes": route_times,
                     "video": {str(dt).replace("torch.", ""): t for dt, t in video_times.items()},
                     "video_memory_routes": route_video_times, "training_k4_route": k4_train,
+                    "training_rope_off_route": rope_off_train,
                     "k4_gradient_errors": k4_grads,
                     "training": train_runs, "training_vs_cpu": train_cpu,
                     "training_cli_loss": cli_loss, "switches_default_launches": switch_launches,
-                    "card": smi[0]}))
+                    "phase_seconds": PHASE_SECONDS, "card": smi[0]}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                            "count": torch.cuda.device_count()}}))

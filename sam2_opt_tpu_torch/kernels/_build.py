@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled with `nvcc` for
 Hopper (`sm_90a`) into a shared library under `<repo>/build/`, on first use,
 then loaded with `ctypes`. PyTorch's headers are never included, so a build
-takes seconds. The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and never mixed with a stale binary.
+takes seconds. The library's file name carries a hash of its source, of every
+header in `csrc/` (the sources share `hopper.cuh`) and of the flags, so an
+edited source or header is rebuilt and never mixed with a stale binary.
 """
 
 from __future__ import annotations
@@ -43,8 +44,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -562,7 +562,9 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, kv_mask=None):
 
 def _bwd_library(symbol):
     """The C entry points of K3: q, k, v, mask, dout, lse, delta, dq, dk, dv,
-    dtype, B, H, Sq, Skv, D, 13 strides, scale, stream."""
+    dtype, B, H, Sq, Skv, D, 13 strides, scale, stream. Where the kernel
+    splits its streamed axis, the pointer it does not write (K3a's dq, K3b's
+    dk) carries its fp32 scratch."""
     fn = getattr(_build.load("flash_attention_bwd"), symbol)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -581,23 +583,59 @@ def _bwd_check(q, k, v, do, lse, delta, kv_mask):
             raise ValueError(f"{name} must be fp32 [{B}, {H}, {Sq}] on q's device")
 
 
+@lru_cache(maxsize=64)
+def bwd_splits(dq: bool, device_index: int, dtype: int, B: int, H: int, Sq: int, Skv: int,
+               D: int) -> int:
+    """The number of CTAs over which K3a (`dq` False: query tiles) or K3b
+    (kv tiles) splits its streamed axis for a shape on a device, as the
+    kernel's library chooses it (bf16 only, where the grid alone would leave
+    SMs idle); 1 = no split. Asked once per shape."""
+    fn = _build.load("flash_attention_bwd").sam2_flash_attention_bwd_splits
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 7
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device_index):
+        return fn(int(dq), dtype, B, H, Sq, Skv, D)
+
+
+def bwd_tiling(dq: bool, dtype: torch.dtype, B: int, H: int, Sq: int, Skv: int,
+               D: int) -> dict:
+    """K3a's (`dq` False) or K3b's launch geometry for a shape on the current
+    device, as the kernel's library reports it: rows of the CTA axis per CTA
+    (K3a keys, K3b query rows), rows of the streamed axis per step, the
+    grid's CTAs over every split, and the split."""
+    fn = _build.load("flash_attention_bwd").sam2_flash_attention_bwd_tiling
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = None
+    out = (ctypes.c_int * 4)()
+    fn(int(dq), _DTYPES[dtype], B, H, Sq, Skv, D, out)
+    return dict(zip(("cta_rows", "step_rows", "ctas", "n_split"), out))
+
+
 def _bwd_launch(symbol, q, k, v, do, lse, delta, kv_mask, what):
-    """Checks, allocates the fp32 gradients and launches K3a or K3b on the
-    current stream; raises on a refused launch."""
+    """Checks, allocates the fp32 gradients (and the split's fp32 partial
+    sums) and launches K3a or K3b on the current stream; raises on a
+    refused launch."""
     _check_cuda(q, k, v, kv_mask, range(8, 257, 8), what)
-    aligned = do.stride(-1) == 1 and (q.dtype != torch.bfloat16 or (
-        do.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in do.stride()[:3])))
-    if not aligned:
-        do = do.contiguous()
+    # the kernels copy rows in 16-byte chunks
+    q, k, v, do = (_aligned_rows(t) for t in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
+    is_dq = symbol.endswith("dq")
+    n_split = bwd_splits(is_dq, q.device.index, _DTYPES[q.dtype], B, H, Sq, Skv, D)
+    f32 = dict(dtype=torch.float32, device=q.device)
     dq = dk = dv = None
-    if symbol.endswith("dq"):
-        dq = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    if is_dq:
+        dq = torch.empty((B, H, Sq, D), **f32)
+        if n_split > 1:
+            dk = torch.empty((n_split, B * H, Sq, D), **f32)
     else:
-        dk = torch.empty((B, H, Skv, D), dtype=torch.float32, device=q.device)
+        dk = torch.empty((B, H, Skv, D), **f32)
         dv = torch.empty_like(dk)
+        if n_split > 1:
+            dq = torch.empty((2, n_split, B * H, Skv, D), **f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_library(symbol)(
@@ -609,7 +647,7 @@ def _bwd_launch(symbol, q, k, v, do, lse, delta, kv_mask, what):
             0 if kv_mask is None else kv_mask.stride(0), 1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
-    return dq, dk, dv
+    return (dq, None, None) if is_dq else (None, dk, dv)
 
 
 def _bwd_device(q):

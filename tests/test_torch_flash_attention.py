@@ -29,7 +29,7 @@ from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
 torch.set_num_threads(2)
 
 CASES = [
-    # B, H, Sq, Skv, D, mask: None | "random" | "random+empty row"
+    # B, H, Sq, Skv, D, mask: None | "random" | "block" (+ "+empty row")
     (1, 2, 256, 384, 72, None),
     (1, 2, 256, 384, 72, "random"),
     (2, 1, 200, 300, 56, None),
@@ -43,7 +43,10 @@ def _inputs(B, H, Sq, Skv, D, mask, seed=0):
     kv_mask = None
     if mask is not None:
         kv_mask = rng.random((B, Skv)) > 0.3
-        if mask == "random+empty row":
+        if mask.startswith("block"):  # whole 64-key tiles masked, the rest valid
+            kv_mask[:] = True
+            kv_mask[:, 64:192] = False
+        if mask.endswith("empty row"):
             kv_mask[-1] = False  # every query row of the last batch sees no key
     return q, k, v, kv_mask
 
@@ -374,17 +377,30 @@ def _assert_bwd_within(got, ref, bounds):
             assert over <= 1e-6 * b.abs().max().item(), (name, over)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,Sq,Skv,D,mask", BWD_CASES + [
+# The card's K3 tiles (bf16): K3a 64 keys per CTA and 64 query rows per
+# stage; K3b 128 query rows per CTA and 64 keys per stage (32 above D =
+# 128); cases one below and one above each, whole masked key tiles, D from 8
+# to 256 (56 and 200 padded by the loads), B*H = 64.
+BWD_CUDA_CASES = BWD_CASES + [
     (1, 1, 65, 4100, 256, "random+empty row"), (2, 1, 300, 700, 128, "random"),
-    (1, 3, 130, 70, 8, None), (1, 1, 100, 90, 200, None)])
-def test_cuda_bwd_kernels_match_ref(B, H, Sq, Skv, D, mask, dtype):
-    """K3a and K3b against their plain versions on the card (bounds in
-    `_assert_bwd_within`); one launch of each; fully masked rows give zero dq and
-    unseen keys zero dk/dv."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    (1, 3, 130, 70, 8, None), (1, 1, 100, 90, 200, None),
+    (1, 1, 63, 65, 256, "random"), (1, 1, 65, 63, 256, None),
+    (1, 2, 127, 31, 256, "random"), (1, 2, 129, 33, 256, None),
+    (2, 1, 129, 65, 64, "block+empty row"), (1, 1, 127, 63, 128, None),
+    (2, 1, 200, 700, 56, "block+empty row"), (1, 2, 190, 260, 72, "block"),
+    (2, 1, 300, 520, 200, "block+empty row"), (8, 8, 130, 200, 56, "random"),
+]
+# bf16 shapes whose grid alone would leave SMs idle: the streamed axis splits
+# over several CTAs and a second kernel sums their partials
+BWD_SPLIT_CASES = [
+    (1, 1, 1000, 130, 256, "random"), (1, 1, 200, 4100, 256, "block+empty row"),
+    (1, 1, 700, 300, 64, None), (2, 1, 900, 100, 200, "random+empty row"),
+]
+
+
+def _cuda_bwd(q, k, v, do, m):
+    """(dq, dk, dv) of K3a and K3b on the card and of their plain versions,
+    and the bf16 bounds (None for fp32); one launch of each kernel."""
     from sam2_opt_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_bf16_bound,
         flash_attention_bwd_delta,
@@ -394,11 +410,6 @@ def test_cuda_bwd_kernels_match_ref(B, H, Sq, Skv, D, mask, dtype):
         flash_attention_bwd_dq_ref,
     )
 
-    q, k, v, kv_mask = _inputs(B, H, Sq, Skv, D, mask)
-    do = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
-    dev = lambda x: torch.from_numpy(x).cuda().to(dtype)  # noqa: E731
-    q, k, v, do = dev(q), dev(k), dev(v), dev(do)
-    m = None if kv_mask is None else torch.from_numpy(kv_mask).cuda()
     out, lse = flash_attention_ref(q, k, v, m)
     delta = flash_attention_bwd_delta(out, do)
     before = (flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches)
@@ -409,11 +420,103 @@ def test_cuda_bwd_kernels_match_ref(B, H, Sq, Skv, D, mask, dtype):
         before[0] + 1, before[1] + 1)
     ref = (flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, m),
            *flash_attention_bwd_dkdv_ref(q, k, v, do, lse, delta, m))
-    bounds = None if dtype == torch.float32 else flash_attention_bwd_bf16_bound(
+    bounds = None if q.dtype == torch.float32 else flash_attention_bwd_bf16_bound(
         q, k, v, do, lse, delta, m)
-    _assert_bwd_within((dq, dk, dv), ref, bounds)
-    if mask == "random+empty row":
-        assert not dq[-1].any() and not dk[-1].any() and not dv[-1].any()
+    return (dq, dk, dv), ref, bounds
+
+
+def _cuda_bwd_case(B, H, Sq, Skv, D, mask, dtype):
+    q, k, v, kv_mask = _inputs(B, H, Sq, Skv, D, mask)
+    do = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    dev = lambda x: torch.from_numpy(x).cuda().to(dtype)  # noqa: E731
+    m = None if kv_mask is None else torch.from_numpy(kv_mask).cuda()
+    return dev(q), dev(k), dev(v), dev(do), m
+
+
+def _check_cuda_bwd(B, H, Sq, Skv, D, mask, dtype):
+    got, ref, bounds = _cuda_bwd(*_cuda_bwd_case(B, H, Sq, Skv, D, mask, dtype))
+    _assert_bwd_within(got, ref, bounds)
+    if mask is not None and mask.endswith("empty row"):
+        assert not got[0][-1].any() and not got[1][-1].any() and not got[2][-1].any()
+    if mask is not None and mask.startswith("block"):  # keys no row sees
+        assert not got[1][:, :, 64:192].any() and not got[2][:, :, 64:192].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Skv,D,mask", BWD_CUDA_CASES)
+def test_cuda_bwd_kernels_match_ref(B, H, Sq, Skv, D, mask, dtype):
+    """K3a and K3b against their plain versions on the card (bounds in
+    `_assert_bwd_within`); one launch of each; fully masked rows give zero dq and
+    unseen keys zero dk/dv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _check_cuda_bwd(B, H, Sq, Skv, D, mask, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Skv,D,mask", BWD_SPLIT_CASES)
+def test_cuda_bwd_split_and_combine(B, H, Sq, Skv, D, mask):
+    """bf16 shapes on which both kernels split their streamed axis (checked
+    through `bwd_splits`, and `bwd_tiling` reporting the same split), against
+    the plain versions as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sam2_opt_tpu_torch.kernels.flash_attention import bwd_splits, bwd_tiling
+
+    dev = torch.cuda.current_device()
+    assert bwd_splits(False, dev, 1, B, H, Sq, Skv, D) > 1 or bwd_splits(
+        True, dev, 1, B, H, Sq, Skv, D) > 1
+    assert bwd_splits(False, dev, 0, B, H, Sq, Skv, D) == 1  # fp32 never splits
+    for is_dq in (False, True):
+        for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+            t = bwd_tiling(is_dq, dtype, B, H, Sq, Skv, D)
+            assert t["n_split"] == bwd_splits(is_dq, dev, code, B, H, Sq, Skv, D)
+            rows = Sq if is_dq else Skv
+            assert t["ctas"] == B * H * -(-rows // t["cta_rows"]) * t["n_split"]
+    _check_cuda_bwd(B, H, Sq, Skv, D, mask, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_bwd_takes_strided_qkv_views(dtype):
+    """K3 on q/k/v as Hiera hands them over: strided views of one
+    [B, S, 3, H, D] projection, B*H = 64, D = 56."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, S, H, D = 8, 300, 8, 56
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(rng.standard_normal((B, S, 3, H, D)).astype(np.float32)).cuda().to(dtype)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    assert q.stride() == (S * 3 * H * D, D, 3 * H * D, 1)
+    do = torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(np.float32)).cuda().to(dtype)
+    m = torch.from_numpy(rng.random((B, S)) > 0.3).cuda()
+    _assert_bwd_within(*_cuda_bwd(q, k, v, do, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Skv,D,mask", [(2, 1, 300, 700, 256, "block+empty row"),
+                                               BWD_SPLIT_CASES[0], BWD_SPLIT_CASES[1]])
+def test_cuda_bwd_is_deterministic(B, H, Sq, Skv, D, mask, dtype):
+    """No atomics: two launches on the same inputs give bitwise-equal dQ, dK
+    and dV, with and without the split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sam2_opt_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_delta,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq,
+    )
+
+    q, k, v, do, m = _cuda_bwd_case(B, H, Sq, Skv, D, mask, dtype)
+    out, lse = flash_attention_ref(q, k, v, m)
+    delta = flash_attention_bwd_delta(out, do)
+    runs = [(flash_attention_bwd_dq(q, k, v, do, lse, delta, m),
+             *flash_attention_bwd_dkdv(q, k, v, do, lse, delta, m)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

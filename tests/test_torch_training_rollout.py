@@ -200,6 +200,37 @@ def test_mask_input_rollout_fused_kv_proj_matches_jax(mask_input, tiny128_params
             assert got[2][f"memory_attention.layers.{layer}.cross_attn_image.{proj}.weight"].abs().max() > 0
 
 
+def test_mask_input_rollout_rope_off_matches_jax(mask_input, tiny128_params, monkeypatch):
+    """The port's rollout under `SAM2_TPU_FUSED_ROPE=0` with
+    `SAM2_TPU_FLASH=1`: memory attention rotates K in torch and runs K1's
+    plain version at D = 256 (on the card, K1 forward and K3 backward) in
+    place of K2's; a spy sees it in the self- and the cross-attention of
+    every layer of every tracked frame, and loss and gradients match the
+    same JAX result at the tolerances above."""
+    import sam2_opt_tpu_torch.models.memory_attention as ma
+
+    calls = {"self": 0, "cross": 0}
+    k1_ref = ma.flash_attention_ref
+
+    def spy(q, k, *a):
+        assert q.shape[-1] == 256
+        calls["cross" if k.shape[-2] > q.shape[-2] else "self"] += 1
+        return k1_ref(q, k, *a)
+
+    def no_rope(*a):
+        raise AssertionError("K2's route runs under SAM2_TPU_FUSED_ROPE=0")
+
+    monkeypatch.setattr(ma, "flash_attention_ref", spy)
+    monkeypatch.setattr(ma, "flash_attention_rope_ref", no_rope)
+    monkeypatch.setenv("SAM2_TPU_FUSED_ROPE", "0")
+    monkeypatch.setenv("SAM2_TPU_FLASH", "1")
+    ref, _ = mask_input
+    got = run_port(tiny128_params, use_mask_input=True, num_correction_clicks=0)
+    assert calls == {"self": 4 * (T - 1), "cross": 4 * (T - 1)}, calls  # 4 layers a frame
+    assert_loss_and_aux(ref, got)
+    assert_grads(ref, got)
+
+
 def test_losses_match_jax():
     rng = np.random.default_rng(0)
     masks = [rng.standard_normal((3, 3, 32, 32)).astype(np.float32) * 4 for _ in range(2)]
