@@ -1,6 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase below
+    python3 chip_smoke.py --kernel-times   # build, then the kernel times of
+                                           # phases 7 (K1) and 14 (K5-K8) only
+
+`--kernel-times` times whichever `sam2_opt_tpu_torch` it imports, so a copy
+of this script in another checkout's root times that checkout's kernels:
+run parent, change, change, parent in one call to compare two commits.
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. device: the card's name and power limit;
@@ -127,6 +133,12 @@ warp-specialised wgmma/TMA kernel; phase 14 also gives the bound of the
 work it executes (its column split recomputes GEMM1 at hiera-L stages 3-4).
 Since slice 7, K3 (phase 8) is one too in bf16, and runs fp32 on the tensor
 cores as three TF32 products, so its fp32 bound is counted at 495/3 TFLOP/s.
+Since slice 8, K1 in bf16 at D <= 128 (phases 3, 7) is a warp-specialised
+wgmma/TMA kernel, timed at hiera-L's and hiera-b+'s global blocks with its
+tile, CTAs and exponential floor in the log; the window kernel's fp32 path
+(K5-K7, phases 11 and 14) runs one pass of three TF32 products, so its fp32
+bound is counted at 495/3 TFLOP/s as well. The build log keeps ptxas' lines
+on registers, spills and wgmma serialisation.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -775,8 +787,7 @@ def device_split(fn, reps=3):
 
 
 @phase
-def phase_times(predictor, image, flash_attention, flash_attention_ref):
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+def phase_times(predictor, image):
     times = {}
     prompt = PROMPTS["point"]
     for dtype, backend in ((torch.float32, "eager"), (torch.bfloat16, "cuda")):
@@ -794,22 +805,59 @@ def phase_times(predictor, image, flash_attention, flash_attention_ref):
         times[dtype] = dict(set_image_ms=set_ms, predict_ms=pred_ms, peak_gib=peak,
                             set_image_busy_ms=busy, idle_share=1 - busy / set_ms)
 
-    B, H, S, D = MAIN_SHAPE
+    return times
+
+
+@phase
+def phase_k1_times(flash_attention, flash_attention_ref, tiling=True):
+    """K1 at hiera-L's global blocks in both dtypes and in bf16 at
+    hiera-b+'s (D = 56, the training shape's head dim), cold L2, beside its
+    plain version, SDPA and its bound; device times from CUDA graph replays
+    (`graph_ms`: since slice 8, when K1 bf16 became shorter than the
+    wrapper's host work, which CUDA events around a call would time). With
+    `tiling`, the log line also gives its tile and CTAs as its library
+    reports them and its exponential floor."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    base = [torch.randn(B, H, S, D, device="cuda", generator=gen) for _ in range(3)]
     k1 = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (t.to(dtype) for t in base)
-        ms = cuda_ms(lambda: flash_attention(q, k, v), flush=flush)
-        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), flush=flush)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), flush=flush)
-        bound_ms, bound_by = k1_bound_ms(B, H, S, S, D, dtype)
-        log(f"K1 {dtype} {MAIN_SHAPE}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"F.scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), {bound_ms / ms:.1%} of bound")
-        k1[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
-    return times, k1
+    for shape, dtypes in ((MAIN_SHAPE, (torch.bfloat16, torch.float32)),
+                          (K1_SHAPES[1], (torch.bfloat16,))):
+        B, H, S, D = shape
+        base = [torch.randn(B, H, S, D, device="cuda", generator=gen) for _ in range(3)]
+        for dtype in dtypes:
+            q, k, v = (t.to(dtype) for t in base)
+            ms = graph_ms(lambda: flash_attention(q, k, v), flush=flush)
+            plain_ms = graph_ms(lambda: flash_attention_ref(q, k, v), reps=5, flush=flush)
+            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v), flush=flush)
+            bound_ms, bound_by = k1_bound_ms(B, H, S, S, D, dtype)
+            log(f"K1 {dtype} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"F.scaled_dot_product_attention {library_ms:.4f} ms ({ms / library_ms:.2f}x), "
+                f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound"
+                + (f"; {k1_tiling_line(dtype, B, H, S, S, D)}" if tiling else ""))
+            k1[(shape, dtype)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by)
+    return k1
+
+
+def sm_clock_hz():
+    """The card's highest SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return 1e6 * float(out.strip().splitlines()[0])
+
+
+def k1_tiling_line(dtype, B, H, Sq, Skv, D):
+    """K1's tile and CTAs as its library reports them, and the least time
+    of its exponentials alone: one per score, at 16 a clock per SM (the
+    SFU's ex2 rate) on every SM at the highest clock."""
+    from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention_tiling
+
+    t = flash_attention_tiling(dtype, B, H, Sq, Skv, D)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_ms = 1e3 * B * H * Sq * Skv / (16 * n_sm * sm_clock_hz())
+    return (f"tile {t['rows']} rows x {t['keys']} keys, {t['stages']} kv stages, "
+            f"{t['ctas']} CTAs on {n_sm} SMs, exponential floor {exp_ms:.4f} ms")
 
 
 def propagation_times(predictor, video, points, label):
@@ -1365,10 +1413,14 @@ def phase_train_cli():
 
 def window_bound_ms(N, H, Sq, Skv, D, dtype):
     """Least time for per-window attention on these inputs: 4*Sq*Skv*D
-    operations per (window, head); q, k, v read once, out written once."""
+    operations per (window, head); q, k, v read once, out written once.
+    fp32 runs on the tensor cores as three TF32 products per fp32 product
+    (since slice 8), so, as for K3, its operations count at a third of
+    TF32's 495 TFLOP/s (K3_FP32_FLOPS): no share of bound reads over 100%."""
     flops = 4.0 * N * H * Sq * Skv * D
     nbytes = (torch.finfo(dtype).bits // 8) * N * H * D * (2 * Sq + 2 * Skv)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    peak = K3_FP32_FLOPS if dtype == torch.float32 else PEAK_FLOPS[dtype]
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1592,21 +1644,26 @@ def phase_routes(predictor, image, default, counters):
 
 @phase
 def phase_route_times(predictor, image):
-    """bf16 set_image wall, device split and idle share under the default
-    route, W1 and W2."""
-    predictor.set_runtime_backend("cuda")
+    """set_image wall, device split and idle share: bf16 under the default
+    route, W1 and W2; fp32 under the default route and W1 (K5's 42 launches)."""
     times = {}
-    for setting in ("default", "W1", "W2"):
-        with switches(ROUTES.get(setting, {})):
-            wall = cuda_ms(lambda: predictor.set_image(image), reps=5, warmup=2)
-            busy, fams, top = device_split(lambda: predictor.set_image(image))
-        launches = sum(f["launches"] for f in fams.values())
-        log(f"bf16 set_image, {setting}: {wall:.3f} ms (device busy {busy:.3f} ms, idle share "
-            f"{1 - busy / wall:.1%}, {launches:.0f} kernel launches)")
-        log(json.dumps({"set_image_device_split": f"bfloat16 {setting}", "families": fams,
-                        "top_kernels_ms": top}))
-        times[setting] = dict(set_image_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+    for dtype, backend, settings in ((torch.bfloat16, "cuda", ("default", "W1", "W2")),
+                                     (torch.float32, "eager", ("default", "W1"))):
+        predictor.set_runtime_backend(backend)
+        name = str(dtype).replace("torch.", "")
+        for setting in settings:
+            with switches(ROUTES.get(setting, {})):
+                wall = cuda_ms(lambda: predictor.set_image(image), reps=5, warmup=2)
+                busy, fams, top = device_split(lambda: predictor.set_image(image))
+            launches = sum(f["launches"] for f in fams.values())
+            log(f"{name} set_image, {setting}: {wall:.3f} ms (device busy {busy:.3f} ms, idle "
+                f"share {1 - busy / wall:.1%}, {launches:.0f} kernel launches)")
+            log(json.dumps({"set_image_device_split": f"{name} {setting}", "families": fams,
+                            "top_kernels_ms": top}))
+            key = setting if dtype == torch.bfloat16 else f"{name} {setting}"
+            times[key] = dict(set_image_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
                               launches=launches)
+    predictor.set_runtime_backend("cuda")
     return times
 
 
@@ -2298,7 +2355,10 @@ def phase_switches(counters):
     return launches["default"]
 
 
-def main():
+def main(argv):
+    if argv not in ([], ["--kernel-times"]):
+        print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2333,8 +2393,19 @@ def main():
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 1)
     log(f"build: {sorted(logs)} in {PHASE_SECONDS['build']} s")
     for lib, text in logs.items():
-        regs = [line.strip() for line in text.splitlines() if "registers" in line or "spill" in line]
+        regs = [line.strip() for line in text.splitlines()
+                if "registers" in line or "spill" in line or "wgmma" in line]
         log(f"  {lib}: {len(regs) // 2} kernels; " + "; ".join(sorted(set(regs))))
+
+    if argv == ["--kernel-times"]:
+        # the kernel times alone (K1; K5-K8 at the window and MLP shapes),
+        # for a comparison of two checkouts of the package in one call
+        label = lambda key: " ".join(str(k).replace("torch.", "") for k in key)  # noqa: E731
+        k1 = phase_k1_times(flash_attention, flash_attention_ref, tiling=False)
+        rows = phase_route_kernel_times()
+        log(json.dumps({"kernel_times": {label(k): v for k, v in {**k1, **rows}.items()},
+                        "card": smi[0]}))
+        return 0
 
     k1_err = phase_k1(flash_attention, flash_attention_ref)
     k2_err = phase_k2(flash_attention_rope, flash_attention_rope_ref)
@@ -2344,7 +2415,8 @@ def main():
     k8_err = phase_k8()
     phase_route_grads()
     predictor, image, image_launches, default_outs = phase_slice(flash_attention)
-    times, k1 = phase_times(predictor, image, flash_attention, flash_attention_ref)
+    times = phase_times(predictor, image)
+    k1 = phase_k1_times(flash_attention, flash_attention_ref)
     route_counters = {"K1": flash_attention, "K5": window_attention, "K6": window_flash_3d,
                       "K7": packed_window_attention, "K8": fused_mlp}
     route_launches = phase_routes(predictor, image, default_outs, route_counters)
@@ -2393,10 +2465,12 @@ def main():
         "replaces": "sam2_opt_tpu/kernels/flash_attention.py:97",
         "launches": k1_launches,
         "max_abs_err": k1_err,
-        **k1[torch.bfloat16],
+        **k1[(MAIN_SHAPE, torch.bfloat16)],
         "shape": list(MAIN_SHAPE),
         "dtype": "bfloat16",
-        "fp32": k1[torch.float32],
+        "fp32": k1[(MAIN_SHAPE, torch.float32)],
+        "b+ global": {"shape": list(K1_SHAPES[1]),
+                      "bfloat16": k1[(K1_SHAPES[1], torch.bfloat16)]},
         "image_launches": image_launches,
     }, {
         "name": "flash_attention_rope_fwd (K2)",
@@ -2539,4 +2613,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

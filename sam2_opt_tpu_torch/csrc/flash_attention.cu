@@ -20,24 +20,24 @@
 // (sam2_opt_tpu_torch/kernels/flash_attention.py) allocates every output;
 // this file launches on the caller's stream and allocates nothing. Pallas'
 // sequential kv grid axis becomes a loop inside the CTA: one CTA owns a
-// 64-row query tile of one (b, h), walks the 64-key tiles, and keeps the
-// running m, l and the [64, D] accumulator in registers. The head dim is
-// zero-padded to a multiple of 16 in shared memory only (never in device
-// memory), so D = 56, 72, 96 and any multiple of 8 up to 128 run through one
-// template each.
+// tile of query rows of one (b, h) (fp32: 64, bf16: 128), walks the kv
+// tiles, and keeps the running m, l and the [rows, D] accumulator in
+// registers. The head dim is zero-padded in shared memory only (never in
+// device memory): to a multiple of 16 for Q . K^T, so D = 56, 72, 96 and any
+// multiple of 8 up to 128 run through one template each.
 //
 // Bound. At the main-path shape (hiera-L global blocks: B*H = 8,
 // Sq = Skv = 4096, D = 72) K1 does 4*8*4096^2*72 = 38.7 GFLOP on 18.9 MB of
 // bf16 q/k/v/out, 2000 operations per byte: compute-bound on either route.
 // What the design does about it:
-//  - bf16 runs on the tensor cores with mma.sync m16n8k16 (fp32
-//    accumulation), bounded by 989 TFLOP/s, ~39 us. Each warp owns 16 query
-//    rows; S = Q K^T stays in registers and is re-packed in place as the A
-//    operand of P V (no trip through shared memory); K and V tiles stream
-//    through a 2-stage cp.async ring, so the next tile loads while this one
-//    is multiplied, and reach the tensor cores through ldmatrix; the softmax
-//    runs in the log2 domain on the SFU's exp2.
-//    wgmma, TMA and warp specialisation are the next steps.
+//  - bf16 (D <= 128) runs warp-specialised wgmma fed by TMA (its section
+//    below): 128 query rows a CTA (256 CTAs at hiera-L, two waves of one CTA
+//    per SM on 132 SMs), so each CTA's streaming of K and V (1.18 MB, from
+//    L2) is shared by twice the rows of a 64-row tile: 0.3 GB of L2 reads a
+//    call instead of 0.6. The tensor-core bound is 39 us (41 us of executed
+//    work: Q . K^T at D padded to 80); 8*4096^2 = 134M exponentials at 16 a
+//    clock per SM need 32 us on their own, so one warpgroup's softmax runs
+//    while the other's products do.
 //  - fp32 runs true fp32 FMAs on the CUDA cores (no TF32), bounded by
 //    67 TFLOP/s, ~0.58 ms: a 4x4 score micro-tile from 16-byte shared loads
 //    keeps the Q K^T loop FMA-bound, and 102 KB of shared memory per CTA lets
@@ -55,7 +55,9 @@
 // cross-attention 4096 x 28,736 keys (7 memory frames + 64 pointer tokens)
 // under a validity mask. Bound: 4*4096*28736*256 = 120.5 GFLOP on 29 MB of
 // bf16 K/V, compute-bound (0.122 ms bf16, 1.80 ms fp32). Design:
-//  - bf16: K1's mma.sync scheme, but at D = 256 a warp's fp32 accumulator
+//  - bf16: mma.sync m16n8k16 with fp32 accumulation, 16 query rows a warp,
+//    S re-packed in registers as the A operand of P V, K and V through a
+//    2-stage cp.async ring and ldmatrix; at D = 256 a warp's fp32 accumulator
 //    takes 128 registers per thread, so Q lives in shared memory (one
 //    ldmatrix per k-step) and the kv tile is 32 keys; each K tile is rotated
 //    in place in shared memory after its cp.async lands and before the
@@ -113,7 +115,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using hopper::fence_regs;
+using hopper::make_map;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::named_arrive;
+using hopper::named_sync;
+using hopper::pack_bf16;
+using hopper::smem_desc;
+using hopper::smem_desc_mn_atoms;
+using hopper::smem_u32;
+using hopper::tma_load_4d;
+using hopper::to_a_frag;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_rs_tb;
+using hopper::wgmma_ss_n128;
+using hopper::wgmma_wait;
 
 constexpr float NEG_INF = -1e30f;
 
@@ -352,28 +376,18 @@ __global__ void __launch_bounds__(THREADS, 2) flash_rope_f32_kernel(const Params
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulation)
+// bf16 on mma.sync m16n8k16 (fp32 accumulation): the helpers of K2, K4 and
+// K1 at D = 256
 // ---------------------------------------------------------------------------
 
 constexpr int TC_WARPS = 4;
 constexpr int TC_BQ = 16 * TC_WARPS;  // query rows per CTA, 16 per warp
-constexpr int TC_BK = 64;             // keys per kv tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Row stride (in bf16) of the K/V tiles: DP + 8 makes it an odd multiple of
 // 16 bytes, so the 8 rows one fragment load touches hit distinct banks.
 __host__ __device__ constexpr int tc_ld(int dp) { return dp + 8; }
-
-template <int DP>
-constexpr int smem_bytes_bf16() {
-  return 2 * 2 * TC_BK * tc_ld(DP) * static_cast<int>(sizeof(__nv_bfloat16));  // {K,V} x 2 stages
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // c += a . b for one 16x8x16 tile: a row-major [16][16], b column-major [16][8]
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -438,180 +452,338 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Up to DP = 80 the kernel is held to 128 registers, so four CTAs share an
-// SM and hiera-L's 512 CTAs (B*H = 8, Sq = 4096) fill the 132 SMs in one
-// wave; wider heads keep their registers (the cap spills them).
-template <int DP>
-__global__ void __launch_bounds__(TC_WARPS * 32, DP <= 80 ? 4 : 1)
-    flash_fwd_bf16_kernel(const Params p) {
-  constexpr int LDK = tc_ld(DP);
-  constexpr int KS = DP / 16;     // k-steps of Q . K^T
-  constexpr int ND = DP / 8;      // 8-column slices of the output
-  constexpr int NT = TC_BK / 8;   // 8-key slices of S
-  constexpr int TILE = TC_BK * LDK;
-  extern __shared__ __align__(16) __nv_bfloat16 tc_smem[];
-  __nv_bfloat16* Ks = tc_smem;              // [2][TC_BK][LDK]
-  __nv_bfloat16* Vs = tc_smem + 2 * TILE;   // [2][TC_BK][LDK]
+// ---------------------------------------------------------------------------
+// K1 bf16 at D <= 128: warp-specialised wgmma fed by TMA
+// ---------------------------------------------------------------------------
+//
+// A CTA is three warpgroups. One warp of the first keeps TMA loads in flight
+// (40 registers, setmaxnreg); the other two consume (232), each owning 64 of
+// the CTA's 128 query rows. Q arrives once; K and V tiles of 128 keys stream
+// through two rings, one of K tiles and one of V tiles (3 stages each at
+// D > 64, 6 below), each stage with its own full/empty mbarrier pair, so a K
+// stage is free again as soon as its S is done; tiles arrive as 128-byte
+// swizzled boxes of 64 head-dim columns whose columns past D TMA fills with
+// zeros. Beside each K stage the producer writes the tile's first key and
+// its valid keys as four 32-bit words (from the mask where one is given,
+// else from Skv: no mask bytes are read), and whether all 128 are valid; a
+// tile with no valid key is skipped, which is exact (see the top note). Per
+// tile and warpgroup:
+//   S = Q K^T      wgmma m64n128k16, both operands K-major from shared
+//                  memory, over the head dim padded to DP, the next multiple
+//                  of 16 (72 -> 80, 56 -> 64), not of 64;
+//   O += P V       wgmma m64nDVk16, P from registers (S's accumulator fragment
+//                  rounded to bf16 is the A fragment) and V as the MN-major
+//                  B operand, N = DV = D at D = 56, 72 and multiples of 16
+//                  (one descriptor spans both 64-column swizzle atoms: its
+//                  leading offset is the box stride), else D padded to 16.
+// The softmax of one warpgroup runs while the other's products do
+// (FlashAttention-3's ping-pong): two named barriers hand the tensor cores
+// from one warpgroup to the other, and each turn issues S of tile i and then
+// P V of tile i - 1, so a warpgroup's exponentials overlap the other's
+// products and its own P V.
+//
+// What bounds it (H100 80GB HBM3, 700 W, hiera-L's (1, 8, 4096, 72)): not
+// the products nor the exponentials, whose removal each moved the time by
+// under a tenth, nor the ping-pong; about 0.07 ms of a call does not grow
+// with D (D = 56 and 64 take the same time), and the kv stream is slower on
+// hiera's 144-byte rows than on 256-byte ones. Two CTAs sharing each K/V
+// tile by TMA multicast, or 256 query rows a CTA (half the L2 reads per
+// product), were slower.
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, lane in the quad
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * TC_BQ + warp * 16;
+constexpr int WG_THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int WG_BQ = 128;       // query rows per CTA, 64 per consumer warpgroup
+constexpr int WG_BK = 128;       // keys per stage
+constexpr int BOX_ROW = 128;     // bytes of one swizzled box row: 64 bf16 columns
+constexpr int SMEM_LIMIT = 232448;
+constexpr int BARS_BYTES = 512;  // mbarriers, then each K stage's first key, key words, density
+constexpr int MAX_STAGES = 6;
+constexpr int BAR_TURN = 1;      // named barriers 1 and 2: the consumer warpgroups' turns
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+template <int DV>
+struct FwdWg {
+  static constexpr int DP = (DV + 15) / 16 * 16;  // depth of Q . K^T
+  static constexpr int NB = (DP + 63) / 64;       // 64-column boxes of a row
+  static constexpr int KSTEPS = DP / 16;
+  static constexpr int Q_BOX = WG_BQ * BOX_ROW;
+  static constexpr int KV_BOX = WG_BK * BOX_ROW;
+  static constexpr int Q_BYTES = NB * Q_BOX;
+  static constexpr int TILE = NB * KV_BOX;  // one K or V tile
+  static constexpr int FIXED = Q_BYTES + 1024 + BARS_BYTES;  // + alignment slack
+  static constexpr int STAGES = (SMEM_LIMIT - FIXED) / (2 * TILE) < MAX_STAGES
+                                    ? (SMEM_LIMIT - FIXED) / (2 * TILE)
+                                    : MAX_STAGES;
+  static constexpr int SMEM = FIXED + 2 * STAGES * TILE;
+  static_assert(STAGES >= 2, "K1 needs two stages in each ring");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int DV>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using S = FwdWg<DV>;
+  constexpr int NB = S::NB, ST = S::STAGES;
+  constexpr int NX = WG_BK / 2;   // S accumulator registers: 16 n8 chunks of 4
+  constexpr int PK = WG_BK / 16;  // k16 steps of P . V
+  extern __shared__ uint8_t fwd_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(fwd_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* Qs = smem;
+  uint8_t* k_ring = Qs + S::Q_BYTES;
+  uint8_t* v_ring = k_ring + ST * S::TILE;
+  uint8_t* bars = v_ring + ST * S::TILE;
+  // mbarriers: Q, then full and empty of each K stage and each V stage
+  const uint32_t q_bar = smem_u32(bars);
+  const uint32_t k_full = q_bar + 8, k_empty = k_full + 8 * MAX_STAGES;
+  const uint32_t v_full = k_empty + 8 * MAX_STAGES, v_empty = v_full + 8 * MAX_STAGES;
+  // beside each K stage: the tile's first key (-1: the end), its valid keys
+  // as four 32-bit words, and whether all 128 are valid
+  volatile int* tile_s = reinterpret_cast<volatile int*>(bars + 8 + 32 * MAX_STAGES);
+  volatile uint32_t* words_s =
+      reinterpret_cast<volatile uint32_t*>(bars + 8 + 36 * MAX_STAGES);  // [ST][4]
+  volatile int* dense_s = reinterpret_cast<volatile int*>(bars + 8 + 52 * MAX_STAGES);
+
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * WG_BQ;
   const uint8_t* mg = p.mask ? p.mask + b * p.mask_sb : nullptr;
 
-  // The padded head-dim columns [D, DP) (one 8-column chunk at most) are
-  // zeroed once; the copies below never write them.
-  if (p.D < DP)
-    for (int r = threadIdx.x; r < 4 * TC_BK; r += blockDim.x)
-      *reinterpret_cast<uint4*>(&tc_smem[r * LDK + p.D]) = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const int chunks = p.D / 8;  // 16-byte chunks per row in device memory
-  auto load_tile = [&](int tile, int stage) {
-    const int k0 = tile * TC_BK;
-    for (int idx = threadIdx.x; idx < TC_BK * chunks; idx += blockDim.x) {
-      const int r = idx / chunks, c = (idx % chunks) * 8;
-      const bool in = k0 + r < p.Skv;  // rows past Skv are zero-filled
-      const long long row = in ? k0 + r : 0;
-      cp_async_16(Ks + stage * TILE + r * LDK + c, kg + row * p.k_ss + c, in);
-      cp_async_16(Vs + stage * TILE + r * LDK + c, vg + row * p.v_ss + c, in);
+  if (threadIdx.x < 128) {
+    // producer: warp 0 walks the kv tiles, skipping those with no valid key;
+    // its lane 0 issues every TMA load, K then V of each tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, S::Q_BYTES);
+      for (int c = 0; c < NB; ++c)
+        tma_load_4d(smem_u32(Qs + c * S::Q_BOX), &tm_q, q_bar, 64 * c, q0, h, b);
     }
-  };
-  const int n_tiles = (p.Skv + TC_BK - 1) / TC_BK;
-  load_tile(0, 0);
-  cp_async_commit();
-
-  // this warp's 16 query rows as the A operand of Q . K^T, straight from device memory
-  uint32_t qa[KS][4];
-  auto q_pair = [&](int row, int col) -> uint32_t {
-    return (row < p.Sq && col < p.D)
-               ? *reinterpret_cast<const uint32_t*>(qg + row * p.q_ss + col)
-               : 0u;
-  };
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    qa[ks][0] = q_pair(q0 + g, 16 * ks + 2 * t);
-    qa[ks][1] = q_pair(q0 + g + 8, 16 * ks + 2 * t);
-    qa[ks][2] = q_pair(q0 + g, 16 * ks + 8 + 2 * t);
-    qa[ks][3] = q_pair(q0 + g + 8, 16 * ks + 8 + 2 * t);
-  }
-
-  // rows g and g + 8 of the warp's tile; scores kept in the log2 domain
-  const float scale_log2 = p.scale * LOG2E;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) load_tile(tile + 1, (tile + 1) & 1);
-    cp_async_commit();  // possibly empty: keeps "all but the newest group" = this tile
-    cp_async_wait_newest_pending();
-    __syncthreads();
-    const __nv_bfloat16* ks_tile = Ks + (tile & 1) * TILE;
-    const __nv_bfloat16* vs_tile = Vs + (tile & 1) * TILE;
-
-    // S = Q . K^T: [16 rows][64 keys] per warp, fp32
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    // ldmatrix rows: keys 8*nt + 0..15 (two 8-key slices), d-columns 16*ks + {0, 8}
-    const __nv_bfloat16* kfrag =
-        ks_tile + ((lane & 7) + 8 * (lane >> 4)) * LDK + 8 * ((lane >> 3) & 1);
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2)
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, kfrag + 8 * nt * LDK + 16 * ks);
-        mma_bf16(s[nt], qa[ks], kb[0], kb[1]);
-        mma_bf16(s[nt + 1], qa[ks], kb[2], kb[3]);
-      }
-
-    // scale, mask, online softmax
-    const int k0 = tile * TC_BK;
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool valid = key_valid(mg, k0 + 8 * nt + 2 * t + j, p.Skv);
-        s[nt][j] = valid ? s[nt][j] * scale_log2 : NEG_INF;
-        s[nt][2 + j] = valid ? s[nt][2 + j] * scale_log2 : NEG_INF;
-        mx[0] = fmaxf(mx[0], s[nt][j]);
-        mx[1] = fmaxf(mx[1], s[nt][2 + j]);
-      }
-    float alpha[2], row_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    const int n_tiles = (p.Skv + WG_BK - 1) / WG_BK;
+    int i = 0;
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int k0 = kt * WG_BK;
+      uint32_t w[4];
+      bool any = false, dense = true;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[nt][j] = exp2f(s[nt][j] - m[j >> 1]);
-        row_sum[j >> 1] += s[nt][j];
+        w[j] = __ballot_sync(0xffffffffu, key_valid(mg, k0 + 32 * j + lane, p.Skv));
+        any = any || w[j] != 0u;
+        dense = dense && w[j] == 0xffffffffu;
       }
+      // a tile with no valid key is skipped, but one tile always goes: the
+      // consumers' first turn has a tile (all masked: its rows end at 0)
+      if (!any && (i > 0 || kt + 1 < n_tiles)) continue;
+      const int s = i % ST, parity = ((i / ST) & 1) ^ 1;
+      if (lane == 0) {
+        mbar_wait(k_empty + 8 * s, parity);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(row_sum[i]);
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      o[nd][0] *= alpha[0];
-      o[nd][1] *= alpha[0];
-      o[nd][2] *= alpha[1];
-      o[nd][3] *= alpha[1];
-    }
-
-    // O += P . V: S's accumulator layout is the A-operand layout, so P is
-    // re-packed to bf16 in registers
-#pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vrow = vs_tile + (16 * kk + (lane & 15)) * LDK + 8 * (lane >> 4);
-#pragma unroll
-      for (int nd = 0; nd < ND; nd += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vrow + 8 * nd);
-        mma_bf16(o[nd], pa, vb[0], vb[1]);
-        mma_bf16(o[nd + 1], pa, vb[2], vb[3]);
+        for (int j = 0; j < 4; ++j) words_s[4 * s + j] = w[j];
+        dense_s[s] = dense;
+        tile_s[s] = k0;
+        mbar_expect_tx(k_full + 8 * s, S::TILE);
+        for (int c = 0; c < NB; ++c)
+          tma_load_4d(smem_u32(k_ring + s * S::TILE + c * S::KV_BOX), &tm_k, k_full + 8 * s,
+                      64 * c, k0, h, b);
+        mbar_wait(v_empty + 8 * s, parity);
+        mbar_expect_tx(v_full + 8 * s, S::TILE);
+        for (int c = 0; c < NB; ++c)
+          tma_load_4d(smem_u32(v_ring + s * S::TILE + c * S::KV_BOX), &tm_v, v_full + 8 * s,
+                      64 * c, k0, h, b);
       }
+      ++i;
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    if (lane == 0) {
+      const int s = i % ST;
+      mbar_wait(k_empty + 8 * s, ((i / ST) & 1) ^ 1);
+      tile_s[s] = -1;
+      mbar_arrive(k_full + 8 * s);
+    }
+    return;
   }
 
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int my_turn = BAR_TURN + wg, other_turn = BAR_TURN + 1 - wg;
+  if (wg == 1) named_arrive(BAR_TURN);  // warpgroup 0 takes the first turn
+  const uint32_t qa = smem_u32(Qs) + wg * 64 * BOX_ROW;
+  const float scale_log2 = p.scale * LOG2E;
+
+  float o[DV / 2];
+#pragma unroll
+  for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
+  float x[NX];  // S, then P in fp32: chunk i holds rows g, g + 8 x keys 8i + 2t, +1
+#pragma unroll
+  for (int e = 0; e < NX; ++e) x[e] = 0.f;
+  uint32_t pf[PK][4];  // P rounded to bf16: the A fragments of P . V
+  // rows g and g + 8: running max (log2 domain), this lane's share of the
+  // running sum, and the factor O still owes the last max move
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+
+  // Every wgmma below is issued on a straight path (no branch around it),
+  // so ptxas need not serialise them.
+  auto issue_s = [&](int s) {  // S = Q . K^T of the tile in K stage s
+    const uint32_t kb = smem_u32(k_ring + s * S::TILE);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < S::KSTEPS; ++j)
+      wgmma_ss_n128(x, smem_desc(qa + (j / 4) * S::Q_BOX) + 2 * (j % 4),
+                    smem_desc(kb + (j / 4) * S::KV_BOX) + 2 * (j % 4), j > 0);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int s) {  // O = O * alpha + P . V of the tile in V stage s
+#pragma unroll
+    for (int e = 0; e < DV / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+    const uint32_t vb = smem_u32(v_ring + s * S::TILE);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < PK; ++j)
+      wgmma_rs_tb<DV>(o, pf[j], smem_desc_mn_atoms(vb + j * 16 * BOX_ROW, S::KV_BOX));
+    wgmma_commit();
+  };
+  // this lane's view of a K stage's valid keys: bit 8 (i % 4) + (e & 1) of
+  // wt[i / 4] is key 8i + 2t + (e & 1), read before the stage is released
+  bool dense;
+  uint32_t wt[4];
+  auto read_keys = [&](int s) {
+    dense = dense_s[s];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wt[j] = words_s[4 * s + j] >> (2 * t);
+  };
+  auto release = [&](uint32_t empty) {
+    if (lane == 0) mbar_arrive(empty);
+  };
+  // online softmax of S in the log2 domain; masked keys and keys past Skv
+  // get -1e30; leaves P in x and this tile's factor in alpha
+  auto softmax = [&]() {
+    float mx[2] = {NEG_INF, NEG_INF}, sum[2] = {0.f, 0.f};
+    if (dense) {
+#pragma unroll
+      for (int e = 0; e < NX; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x[e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int e = 0; e < NX; ++e) {
+        x[e] = ex2(fmaf(x[e], scale_log2, -m[(e >> 1) & 1]));
+        sum[(e >> 1) & 1] += x[e];
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < NX; ++e) {
+        const bool valid = (wt[e / 16] >> (8 * ((e / 4) % 4) + (e & 1))) & 1u;
+        x[e] = valid ? x[e] * scale_log2 : NEG_INF;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x[e]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int e = 0; e < NX; ++e) {
+        x[e] = ex2(x[e] - m[(e >> 1) & 1]);
+        sum[(e >> 1) & 1] += x[e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+  };
+
+  // first turn: S of the first tile (the producer always delivers one)
+  mbar_wait(q_bar, 0);
+  mbar_wait(k_full, 0);
+  read_keys(0);
+  named_sync(my_turn);
+  issue_s(0);
+  named_arrive(other_turn);
+  wgmma_wait<0>();
+  fence_regs(x);
+  release(k_empty);
+  softmax();
+  to_a_frag<PK>(pf, x);
+  int prev = 0;  // the stage of the previous tile, whose P . V comes next turn
+  int i = 1;      // tiles seen
+  for (;; ++i) {
+    const int s = i % ST;
+    mbar_wait(k_full + 8 * s, (i / ST) & 1);
+    if (tile_s[s] < 0) break;
+    read_keys(s);
+    mbar_wait(v_full + 8 * prev, ((i - 1) / ST) & 1);
+    // one turn: S of this tile, then P . V of the previous one
+    named_sync(my_turn);
+    issue_s(s);
+    issue_pv(prev);
+    named_arrive(other_turn);
+    wgmma_wait<1>();  // S: this K stage is free
+    fence_regs(x);
+    release(k_empty + 8 * s);
+    softmax();
+    wgmma_wait<0>();  // the previous tile's P . V: its V stage and pf are free
+    fence_regs(o);
+    fence_regs(pf);
+    release(v_empty + 8 * prev);
+    to_a_frag<PK>(pf, x);
+    prev = s;
+  }
+  // closing turn: P . V of the last tile; warpgroup 1 gives no turn after
+  // it, so the turns stay balanced
+  mbar_wait(v_full + 8 * prev, ((i - 1) / ST) & 1);
+  named_sync(my_turn);
+  issue_pv(prev);
+  if (wg == 0) named_arrive(other_turn);
+  wgmma_wait<0>();
+  fence_regs(o);
+
+  float l_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_row[r] = quad_sum(l[r]);
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + g + 8 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 64 * wg + 16 * warp + g + 8 * r;
     if (row >= p.Sq) continue;
-    const bool seen_valid = m[i] > NEG_INF * 0.5f;
-    const float inv_l = seen_valid ? 1.f / l[i] : 0.f;
+    const bool seen_valid = m[r] > NEG_INF * 0.5f;
+    const float inv_l = seen_valid ? 1.f / l_row[r] : 0.f;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int col = 8 * nd + 2 * t;
+    for (int i = 0; i < DV / 8; ++i) {
+      const int col = 8 * i + 2 * t;
       if (col < p.D)
         *reinterpret_cast<__nv_bfloat162*>(og + row * p.o_ss + col) =
-            __floats2bfloat162_rn(o[nd][2 * i] * inv_l, o[nd][2 * i + 1] * inv_l);
+            __floats2bfloat162_rn(o[4 * i + 2 * r] * inv_l, o[4 * i + 2 * r + 1] * inv_l);
     }
     if (t == 0)
-      p.lse[(long long)bh * p.Sq + row] = seen_valid ? (m[i] + log2f(l[i])) * LN2 : NEG_INF;
+      p.lse[(long long)bh * p.Sq + row] =
+          seen_valid ? (m[r] + log2f(l_row[r])) * LN2 : NEG_INF;
   }
 }
 
 // ---------------------------------------------------------------------------
-// K2 bf16 (ROPE = true) and K1 bf16 at D = 256 (ROPE = false): K1's
-// tensor-core scheme at head dims up to 256, K2 rotating K in shared memory
+// K2 bf16 (ROPE = true) and K1 bf16 at D = 256 (ROPE = false): mma.sync at
+// head dims up to 256, K2 rotating K in shared memory
 // ---------------------------------------------------------------------------
 //
 // At D = 256 a warp's [16][256] fp32 accumulator alone takes 128 registers
@@ -1386,11 +1558,46 @@ cudaError_t launch(Kernel kernel, int smem, int rows_per_cta, int threads, const
 }
 
 template <int DP>
-cudaError_t launch_dp(bool bf16, const Params& p, cudaStream_t stream) {
-  if (bf16)
-    return launch(flash_fwd_bf16_kernel<DP>, smem_bytes_bf16<DP>(), TC_BQ, TC_WARPS * 32, p,
-                  stream);
+cudaError_t launch_f32_dp(const Params& p, cudaStream_t stream) {
   return launch(flash_fwd_f32_kernel<DP>, smem_bytes_f32<DP>(), BQ, THREADS, p, stream);
+}
+
+// K1 bf16 at D <= 128: the tensor maps of q, k and v, then the kernel
+template <int DV>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, p.q, p.B, p.H, p.Sq, p.D, p.q_sb, p.q_sh, p.q_ss, WG_BQ) ||
+      !make_map(&mk, p.k, p.B, p.H, p.Skv, p.D, p.k_sb, p.k_sh, p.k_ss, WG_BK) ||
+      !make_map(&mv, p.v, p.B, p.H, p.Skv, p.D, p.v_sb, p.v_sh, p.v_ss, WG_BK))
+    return cudaErrorInvalidValue;
+  constexpr int smem = FwdWg<DV>::SMEM;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + WG_BQ - 1) / WG_BQ, p.B * p.H);
+  flash_fwd_wgmma_kernel<DV><<<grid, WG_THREADS, smem, stream>>>(mq, mk, mv, p);
+  return cudaGetLastError();
+}
+
+// P . V runs at N = D where D is 56, 72 (hiera-b+'s and hiera-L's global
+// blocks) or a multiple of 16; other D at D padded to 16
+cudaError_t dispatch_wgmma(const Params& p, cudaStream_t stream) {
+  switch (p.D) {
+    case 56: return launch_wgmma<56>(p, stream);
+    case 72: return launch_wgmma<72>(p, stream);
+    default: break;
+  }
+  switch ((p.D + 15) / 16) {
+    case 1: return launch_wgmma<16>(p, stream);
+    case 2: return launch_wgmma<32>(p, stream);
+    case 3: return launch_wgmma<48>(p, stream);
+    case 4: return launch_wgmma<64>(p, stream);
+    case 5: return launch_wgmma<80>(p, stream);
+    case 6: return launch_wgmma<96>(p, stream);
+    case 7: return launch_wgmma<112>(p, stream);
+    case 8: return launch_wgmma<128>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // After a kv-split launch (K1 at D = 256, K2, K4): the combine kernel on the
@@ -1416,15 +1623,16 @@ cudaError_t launch_k1_wide(bool bf16, const Params& p, cudaStream_t stream) {
 
 cudaError_t dispatch(bool bf16, const Params& p, cudaStream_t stream) {
   if (p.D == 256) return launch_k1_wide(bf16, p, stream);
+  if (bf16) return dispatch_wgmma(p, stream);
   switch ((p.D + 15) / 16) {
-    case 1: return launch_dp<16>(bf16, p, stream);
-    case 2: return launch_dp<32>(bf16, p, stream);
-    case 3: return launch_dp<48>(bf16, p, stream);
-    case 4: return launch_dp<64>(bf16, p, stream);
-    case 5: return launch_dp<80>(bf16, p, stream);
-    case 6: return launch_dp<96>(bf16, p, stream);
-    case 7: return launch_dp<112>(bf16, p, stream);
-    case 8: return launch_dp<128>(bf16, p, stream);
+    case 1: return launch_f32_dp<16>(p, stream);
+    case 2: return launch_f32_dp<32>(p, stream);
+    case 3: return launch_f32_dp<48>(p, stream);
+    case 4: return launch_f32_dp<64>(p, stream);
+    case 5: return launch_f32_dp<80>(p, stream);
+    case 6: return launch_f32_dp<96>(p, stream);
+    case 7: return launch_f32_dp<112>(p, stream);
+    case 8: return launch_f32_dp<128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1569,6 +1777,25 @@ extern "C" int sam2_flash_attention_splits(int dtype, int B, int H, int Sq, int 
   if (D != 256) return D > 0 && D <= 128 && D % 8 == 0 ? 1 : -1;
   return kv_splits(k1_wide_ctas_per_sm(bf16), bf16 ? TC_BQ : BQ, bf16 ? RP_BK : BK, B, H, Sq,
                    Skv);
+}
+
+// K1's tiling for a head dim: out[0] query rows per CTA, out[1] keys per kv
+// tile, out[2] stages of the kv ring (bf16 at D <= 128: stages of each of the K
+// and V rings).
+extern "C" void sam2_flash_attention_tiling(int dtype, int D, int* out) {
+  if (dtype == 1 && D <= 128) {
+    out[0] = WG_BQ;
+    out[1] = WG_BK;
+    out[2] = D <= 64 ? FwdWg<64>::STAGES : FwdWg<128>::STAGES;
+  } else if (dtype == 1) {
+    out[0] = TC_BQ;
+    out[1] = RP_BK;
+    out[2] = 2;
+  } else {
+    out[0] = BQ;
+    out[1] = BK;
+    out[2] = 1;
+  }
 }
 
 // K2: K1 with K rotated in the kernel; D in {64, 128, 256}; cos/sin [Skv, D/2]

@@ -69,8 +69,9 @@
 // fp32: the tensor cores with a three-pass TF32 split, the route of the
 // library's fp32 attention backward. Each fp32 operand splits as a = a_hi +
 // a_lo (a_hi = tf32(a), a_lo = tf32(a - a_hi)) and each product is a_lo b_hi
-// + a_hi b_lo + a_hi b_hi, accumulated in fp32 (mma.sync m16n8k8): about
-// 2^-21 of |a b| per product against fp32's 2^-24. The tensor cores'
+// + a_hi b_lo + a_hi b_hi, accumulated in fp32 (mma.sync m16n8k8; the split
+// and the products are hopper.cuh's, shared with K5): about 2^-21 of |a b|
+// per product against fp32's 2^-24. The tensor cores'
 // accumulation does not round to nearest, and over the 28,704 keys of a
 // memory cross attention that alone took dQ past 1e-4 of max |g|; so each
 // tile's dV, dK or dQ products sum into a zeroed partial that is added to
@@ -151,36 +152,6 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, 
 
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b in three TF32 products, the small ones first
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4], float b0, float b1) {
-  uint32_t b0h, b0l, b1h, b1l;
-  split_tf32(b0, b0h, b0l);
-  split_tf32(b1, b1h, b1l);
-  mma_tf32(c, alo, b0h, b1h);
-  mma_tf32(c, ahi, b0l, b1l);
-  mma_tf32(c, ahi, b0h, b1h);
 }
 
 // Warp products in the m16n8 accumulator layout: lane (g = lane / 4,
@@ -502,25 +473,6 @@ constexpr int SMEM_EXTRA = 1024 + 256;  // alignment slack, BARS_BYTES
 constexpr int MAX_STAGES = 4;
 constexpr int BAR_P_FULL = 1, BAR_P_EMPTY = 2;  // K3a's named barriers
 
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// The fragment of an m64nN accumulator, rounded to bf16, as the A fragments
-// of N/16 k16 steps: n8 chunk i (rows g and g + 8, columns 8i + 2t, +1) is
-// half i % 2 of k16 step i / 2.
-template <int KSTEPS>
-__device__ __forceinline__ void to_a_frag(uint32_t (&a)[KSTEPS][4], const float (&x)[8 * KSTEPS]) {
-#pragma unroll
-  for (int i = 0; i < 2 * KSTEPS; ++i) {
-    a[i / 2][2 * (i % 2)] = pack_bf16(x[4 * i], x[4 * i + 1]);
-    a[i / 2][2 * (i % 2) + 1] = pack_bf16(x[4 * i + 2], x[4 * i + 3]);
-  }
-}
-
 // acc[c] += A . B[:, 64c : 64c + 64] over KSTEPS k16 steps, A from registers
 // and B an MN-major tile of rows x DP stored as DP/64 boxes of `box_bytes`
 template <int NB, int KSTEPS>
@@ -531,7 +483,8 @@ __device__ __forceinline__ void product_rs(float (&acc)[NB][32], const uint32_t 
   for (int c = 0; c < NB; ++c)
 #pragma unroll
     for (int j = 0; j < KSTEPS; ++j)
-      wgmma_rs_n64_tb(acc[c], a[j], smem_desc_mn(b + c * box_bytes + j * 16 * ROW_BYTES));
+      wgmma_rs_tb<64>(acc[c], a[j],
+                      smem_desc_mn_atoms(b + c * box_bytes + j * 16 * ROW_BYTES, box_bytes));
   wgmma_commit();
 }
 
@@ -1102,35 +1055,6 @@ int n_splits(bool dq, int dtype, int BH, int Sq, int Skv, int D) {
   int n = 1;
   while (n < 8 && ctas * (n + 1) <= n_sm && tiles >= 2 * (n + 1)) ++n;
   return n;
-}
-
-// a bf16 [B, H, S, D] tensor with strides (sb, sh, ss, 1) in elements, read
-// in 128-byte swizzled boxes of 64 columns x box_rows rows; zeros past its
-// edges. A stride of a dimension of size 1 is never used and is replaced by
-// a valid one.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int H, int S, int D, long long sb,
-              long long sh, long long ss, int box_rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  long long st[3] = {ss * 2, sh * 2, sb * 2};
-  const long long n[3] = {S, H, B};
-  long long prev = ((2ll * D + 15) / 16) * 16, prev_n = 1;
-  for (int i = 0; i < 3; ++i) {
-    if (n[i] == 1) st[i] = prev * prev_n;
-    if (st[i] <= 0 || st[i] % 16 != 0 || st[i] >= (1ll << 40)) return false;
-    prev = st[i];
-    prev_n = n[i];
-  }
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[0]), static_cast<cuuint64_t>(st[1]),
-                                 static_cast<cuuint64_t>(st[2])};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
 }
 
 cudaError_t combine(const float* part, float* out, long long n, int n_split, cudaStream_t stream) {

@@ -6,6 +6,7 @@
 //   K6 _kernel_3d     [N, S, heads, d]     (window_flash_3d)
 //   K7 _packed_kernel [N, Sq/Skv, heads, d] (packed_window_attention; its
 //                     block-diagonal packing only shaped the MXU's products)
+// and the bench tool's two (tools/bench_window_flash.py::_kern_h, _kern_3d).
 // Here the layout is strides: every (window, head) pair is one attention of
 // Sq query rows over Skv keys, at window / head / row strides given per
 // tensor (unit stride along the head dim), so Hiera's q/k/v views of one
@@ -16,18 +17,25 @@
 //   p = exp(s - rowmax(s)) / rowsum(exp(s - rowmax(s))), rounded to v's dtype
 //   out = p . v in fp32, rounded to q's dtype
 // with no mask: the zero-padded tokens of window_partition attend, as they
-// do in the JAX package. The probabilities are normalized before they are
-// rounded, as the reference does, so each CTA walks the keys twice: pass 1
-// forms the logits and keeps the running row max and row sum, pass 2 forms
-// them again and multiplies the normalized probabilities into V.
+// do in the JAX package.
+//
+// bf16 normalizes the probabilities before it rounds them, as the reference
+// does, so its CTA walks the keys twice: pass 1 forms the logits and keeps
+// the running row max and row sum, pass 2 forms them again and multiplies
+// the normalized probabilities into V. In fp32 that rounding is the
+// identity, so fp32 makes one pass with an online softmax (O rescaled as the
+// row max moves, one division at the end): the same function up to the
+// order of fp32 roundings.
 //
 // Bound. At hiera-L's shapes (1024 windows of 64 tokens at 2 heads, 1024 x 16
-// at 4, 16 x 256 at 8, 16 x 64 at 16; D = 72) bf16 does at most 4*S*D = 74K
-// operations per query row (S = 256) against 4*D*2 = 576 bytes of q, k, v
-// and out: 128 operations per byte, under the card's 295, so bf16 is bound
-// by bytes (22.5, 11.3, 5.6 and 2.8 us at 3.35 TB/s). fp32 does S/4
-// operations per byte against a ridge of 20, so it is bound by its FMAs from
-// S = 80 up. What the design does about it:
+// at 4, 16 x 256 at 8, 16 x 64 at 16; D = 72) the function does 4*S*D
+// operations per query row (74K at S = 256) against 4*D*itemsize bytes of
+// q, k, v and out. bf16: 128 operations per byte at S = 256, under the
+// card's 295, so bound by bytes (22.5, 11.3, 5.6 and 2.8 us at 3.35 TB/s).
+// fp32 on the tensor cores runs three TF32 products per fp32 product, so its
+// rate is a third of TF32's 495 TFLOP/s: S/4 operations per byte against a
+// ridge of 49, bound by bytes below S = 196 (45.1, 22.5 and 5.6 us at
+// stages 1, 2 and 4) and by operations at stage 3 (14.6 us). Design:
 //  - one launch per block, logits never leave the SM (an unfused graph
 //    writes and reads the [pairs, S, S] logits and probabilities);
 //  - thousands of 16-row windows (stage 2) do not get a 64-row tile each:
@@ -37,19 +45,34 @@
 //  - bf16 runs on the tensor cores (mma.sync m16n8k16, fp32 accumulation):
 //    Q fragments straight from device memory, K and V tiles of 32 keys
 //    through a 2-stage cp.async ring and ldmatrix, S kept in registers and
-//    re-packed as the A operand of P . V, exp2 on the SFU;
-//  - fp32 runs true fp32 FMAs on 4 x 4 micro-tiles from 16-byte shared
-//    loads, laid out so that the 8 lanes of a quarter-warp hit distinct
-//    banks.
-// The second pass re-reads K from L2 (or shared memory when the window has
-// one kv tile); at 6*S*D operations per row bf16 stays bound by bytes.
-// wgmma, TMA and keeping whole windows in shared memory are later steps.
+//    re-packed as the A operand of P . V, exp2 on the SFU. The second pass
+//    re-reads K from L2 (or shared memory when the window has one kv tile);
+//    at 6*S*D operations per row bf16 stays bound by bytes;
+//  - fp32 runs on the tensor cores as three TF32 products per fp32 product
+//    (mma.sync m16n8k8, each operand split as hi + lo, about 2^-21 of |a b|
+//    per product), as K3's fp32 route does and the library's fp32 attention
+//    does: S and P never leave the registers, K and V in a ring of up to 2
+//    tiles of 32 keys per pair group (a window of up to 64 keys is loaded
+//    once), one pass. Each tile's P . V products go into a zeroed partial
+//    that is added to the rescaled output in fp32, as K3 needed over 28,704
+//    keys, so the error does not grow with the window. 55 KB of shared
+//    memory and at most 128 registers a thread at D = 72: four CTAs an SM.
+//    The operand split takes two integer operations (split_k5), not two
+//    conversions: with it and the fourth CTA, stage 3 ran in 0.076 ms, not
+//    0.140 (on an H100 80GB HBM3 at 700 W).
+// wgmma's tf32 form takes K-major operands only (V in P . V is MN-major), so
+// fp32 stays on mma.sync; wgmma and TMA for bf16 are later steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using hopper::mma_tf32;
+using hopper::pack_bf16;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int WARPS = 4;
@@ -107,11 +130,6 @@ __host__ __device__ constexpr int ld_bf16(int dp) { return dp + 8; }  // odd mul
 template <int DP>
 constexpr int smem_bf16(int ppc) {  // {K, V} x 2 stages per pair group
   return ppc * 4 * KT * ld_bf16(DP) * static_cast<int>(sizeof(__nv_bfloat16));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -323,177 +341,220 @@ __global__ void __launch_bounds__(THREADS) window_attn_bf16_kernel(const Params 
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA-core FMAs
+// fp32: one pass, three-pass TF32 on the tensor cores
 // ---------------------------------------------------------------------------
 //
-// A warp's S tile is 16 rows x 32 keys: lane (rg = lane / 8, c = lane % 8)
-// holds rows rg + 4i and keys c + 8j (i, j < 4). A quarter-warp shares rg,
-// so its Q reads are broadcasts, and reads 8 consecutive K rows, whose
-// 16-byte chunks land on distinct banks because the row stride DP + 4 is an
-// odd multiple of 4 words. For P . V the lane holds rows rg + 4i and the
-// 16-byte column chunks c + 8m.
+// A warp owns 16 query rows of one pair; they are copied once to shared
+// memory, the A operand of S = Q K^T (one float2 load per row and 8-column
+// chunk, split as it is read), so the registers hold the output, S and P
+// only. Both products take k in the order (2t, 2t+1) for lane t's mma slots
+// (t, t+4), so a lane's S accumulator of 8 keys is already the A fragment of
+// P . V for those keys: P never leaves the registers. K and V tiles of 32
+// keys stream through a ring of up to 2 stages of 16-byte cp.async copies
+// per pair group; a window of up to 2 tiles (64 keys) is loaded once. Q and
+// K rows are DP or DP + 8 floats apart (= 8 mod 16: a half-warp's float2
+// reads of 4 rows x 4 lanes hit 32 distinct banks), V rows DP + 4 (= 4 mod
+// 16: the scalar reads of rows 2t and 2t + 1 do too).
 
-__host__ __device__ constexpr int ld_f32(int dp) { return dp + 4; }
-constexpr int LDP = KT + 8;  // row stride of P: the 32 lanes' writes hit distinct banks
+constexpr int F_KT = 32;         // keys per kv tile
+constexpr int F_MAX_STAGES = 2;  // kv tiles in flight per pair group
+
+// a = hi + lo for the TF32 products: hi = a rounded to TF32 (to nearest,
+// ties away, as cvt.rna does) with two integer operations, lo = a - hi
+// exactly. lo is not rounded again: the tensor cores read its top 10
+// mantissa bits, so |a - hi - lo_tf32| < 2^-10 |lo| <= 2^-21 |a|, where
+// hopper.cuh's split_tf32 (K3's) reaches 2^-22 at two more conversions.
+__device__ __forceinline__ void split_k5(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// c += a . b in three TF32 products, the small ones first
+__device__ __forceinline__ void mma_3x_k5(float (&c)[4], const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4], float b0, float b1) {
+  uint32_t b0h, b0l, b1h, b1l;
+  split_k5(b0, b0h, b0l);
+  split_k5(b1, b1h, b1l);
+  mma_tf32(c, alo, b0h, b1h);
+  mma_tf32(c, ahi, b0l, b1l);
+  mma_tf32(c, ahi, b0h, b1h);
+}
+
+__host__ __device__ constexpr int ldk_f32(int dp) { return dp % 16 == 8 ? dp : dp + 8; }
+__host__ __device__ constexpr int ldv_f32(int dp) { return dp + 4; }
+
+// stages and rows per stage of a pair group's ring, for Skv keys
+__host__ __device__ inline int f32_stages(int Skv) {
+  const int n_tiles = (Skv + F_KT - 1) / F_KT;
+  return n_tiles < F_MAX_STAGES ? n_tiles : F_MAX_STAGES;
+}
+__host__ __device__ inline int f32_stage_rows(int Skv) {
+  return Skv < F_KT ? (Skv + 7) / 8 * 8 : F_KT;
+}
 
 template <int DP>
-constexpr int smem_f32(int ppc) {  // {K, V} per pair group + {Q, P} per warp
-  return (ppc * 2 * KT * ld_f32(DP) + WARPS * ROWS * (ld_f32(DP) + LDP)) *
+int smem_f32(int ppc, int Skv) {  // {K, V} ring per pair group + Q per warp
+  return (ppc * f32_stages(Skv) * f32_stage_rows(Skv) * (ldk_f32(DP) + ldv_f32(DP)) +
+          WARPS * ROWS * ldk_f32(DP)) *
          static_cast<int>(sizeof(float));
 }
 
-__device__ __forceinline__ float group8_max(float x) {
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group8_sum(float x) {
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// all but the newest `pending` (0 or 1) copy groups have landed
+__device__ __forceinline__ void cp_async_wait_stages(int pending) {
+  if (pending == 1)
+    cp_async_wait_newest_pending();
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS) window_attn_f32_kernel(const Params p) {
-  constexpr int LD = ld_f32(DP);
-  constexpr int C4 = DP / 4;          // 16-byte chunks per padded row
-  constexpr int MC = (C4 + 7) / 8;    // output chunks per lane
+__global__ void __launch_bounds__(THREADS, 4) window_attn_f32_kernel(const Params p) {
+  constexpr int LDK = ldk_f32(DP), LDV = ldv_f32(DP);
+  constexpr int KC = DP / 8;     // 8-wide chunks of the head dim
+  constexpr int NT = F_KT / 8;   // 8-key chunks of a kv tile
+  constexpr int C4 = DP / 4;     // 16-byte chunks of a row
   extern __shared__ __align__(16) float smem_f[];
 
   const Slot sl = slot_of(p);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = lane >> 3, c = lane & 7;
-  const int ppc = WARPS / p.wpp;
-  float* Ks = smem_f + sl.grp * 2 * KT * LD;  // [KT][LD]
-  float* Vs = Ks + KT * LD;                   // [KT][LD]
-  float* Qs = smem_f + ppc * 2 * KT * LD + warp * ROWS * (LD + LDP);  // [16][LD]
-  float* Ps = Qs + ROWS * LD;                                          // [16][LDP]
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, lane in the quad
+  const int n_tiles = (p.Skv + F_KT - 1) / F_KT;
+  const int R = f32_stages(p.Skv), KR = f32_stage_rows(p.Skv);
+  const int stage_floats = KR * (LDK + LDV);
+  float* group = smem_f + sl.grp * R * stage_floats;  // [R][K: KR x LDK | V: KR x LDV]
+  float* qs = smem_f + (WARPS / p.wpp) * R * stage_floats + (threadIdx.x >> 5) * ROWS * LDK;
   const float* qg = static_cast<const float*>(p.q) + sl.off_q;
   const float* kg = static_cast<const float*>(p.k) + sl.off_k;
   const float* vg = static_cast<const float*>(p.v) + sl.off_v;
 
+  // keys past Skv are zero-filled, so their p (0) meets finite v
+  auto load = [&](int tile, int stage) {
+    float* ks = group + stage * stage_floats;
+    float* vs = ks + KR * LDK;
+    for (int idx = sl.gtid; idx < KR * C4; idx += sl.gthreads) {
+      const int r = idx / C4, c = (idx % C4) * 4;
+      const int key = tile * F_KT + r;
+      const bool in = sl.live && key < p.Skv;
+      const long long row = in ? key : 0;
+      cp_async_16(ks + r * LDK + c, kg + row * p.k_ss + c, in);
+      cp_async_16(vs + r * LDV + c, vg + row * p.v_ss + c, in);
+    }
+  };
+  // this warp's 16 query rows (zero past Sq), in the first copy group
   for (int idx = lane; idx < ROWS * C4; idx += 32) {
-    const int r = idx / C4, ch = idx % C4;
-    const bool in = sl.live && sl.q0 + r < p.Sq && 4 * ch < p.D;
-    *reinterpret_cast<float4*>(Qs + r * LD + 4 * ch) =
-        in ? *reinterpret_cast<const float4*>(qg + (sl.q0 + r) * p.q_ss + 4 * ch)
-           : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int r = idx / C4, c = (idx % C4) * 4;
+    const bool in = sl.live && sl.q0 + r < p.Sq;
+    cp_async_16(qs + r * LDK + c, qg + (in ? sl.q0 + r : 0) * p.q_ss + c, in);
+  }
+  for (int st = 0; st < R - 1; ++st) {
+    load(st, st);
+    cp_async_commit();
   }
 
-  const int n_tiles = (p.Skv + KT - 1) / KT;
-  float m[4], l[4], inv_l[4], o[4][MC][4];
+  // online softmax in the log2 domain: running max m and (per-lane) sum l
+  const float scale_log2 = p.scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[KC][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-    inv_l[i] = 0.f;
-#pragma unroll
-    for (int mc = 0; mc < MC; ++mc) o[i][mc][0] = o[i][mc][1] = o[i][mc][2] = o[i][mc][3] = 0.f;
-  }
+  for (int kk = 0; kk < KC; ++kk) o[kk][0] = o[kk][1] = o[kk][2] = o[kk][3] = 0.f;
 
-  for (int step = 0; step < 2 * n_tiles; ++step) {
-    const int k0 = (step % n_tiles) * KT;
-    const bool pass2 = step >= n_tiles;
-    __syncthreads();  // the previous step's K and V reads are done
-    for (int idx = sl.gtid; idx < KT * C4; idx += sl.gthreads) {
-      const int r = idx / C4, ch = idx % C4;
-      const bool in = sl.live && k0 + r < p.Skv && 4 * ch < p.D;
-      const long long row = k0 + r;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(Ks + r * LD + 4 * ch) =
-          in ? *reinterpret_cast<const float4*>(kg + row * p.k_ss + 4 * ch) : zero;
-      if (pass2)
-        *reinterpret_cast<float4*>(Vs + r * LD + 4 * ch) =
-            in ? *reinterpret_cast<const float4*>(vg + row * p.v_ss + 4 * ch) : zero;
-    }
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + R - 1 < n_tiles) load(tile + R - 1, (tile + R - 1) % R);
+    cp_async_commit();  // possibly empty: keeps "all but the R - 1 newest groups" = this tile
+    cp_async_wait_stages(R - 1);
     __syncthreads();
+    const float* ks = group + (tile % R) * stage_floats;
+    const float* vs = ks + KR * LDK;
+    const int k0 = tile * F_KT;
 
-    float s[4][4];
+    // S = Q . K^T: [16 rows][32 keys], chunks past Skv skipped
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int ch = 0; ch < C4; ++ch) {
-      float4 a[4], b[4];
+    for (int kk = 0; kk < KC; ++kk) {
+      // rows g and g + 8, columns 8kk + 2t and + 1
+      const float2 q0 = *reinterpret_cast<const float2*>(qs + g * LDK + 8 * kk + 2 * t);
+      const float2 q1 = *reinterpret_cast<const float2*>(qs + (g + 8) * LDK + 8 * kk + 2 * t);
+      uint32_t ahi[4], alo[4];
+      split_k5(q0.x, ahi[0], alo[0]);
+      split_k5(q1.x, ahi[1], alo[1]);
+      split_k5(q0.y, ahi[2], alo[2]);
+      split_k5(q1.y, ahi[3], alo[3]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(Qs + (rg + 4 * i) * LD + 4 * ch);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(Ks + (c + 8 * j) * LD + 4 * ch);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+      for (int n = 0; n < NT; ++n)
+        if (k0 + 8 * n < p.Skv) {
+          const float2 kb =
+              *reinterpret_cast<const float2*>(ks + (8 * n + g) * LDK + 8 * kk + 2 * t);
+          mma_3x_k5(s[n], ahi, alo, kb.x, kb.y);
         }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool valid = k0 + c + 8 * j < p.Skv;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[i][j] = valid ? s[i][j] * p.scale : NEG_INF;
-    }
 
-    if (!pass2) {
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float m_new =
-            fmaxf(m[i], group8_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]))));
-        float sum = 0.f;
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
-        l[i] = l[i] * expf(m[i] - m_new) + group8_sum(sum);
-        m[i] = m_new;
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = k0 + 8 * n + 2 * t + (e & 1) < p.Skv ? s[n][e] * scale_log2 : NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
-      continue;
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
     }
-    if (step == n_tiles)
+    // P as the A fragment of P . V, split: slots (t, t + 4) hold keys (2t, 2t + 1)
+    uint32_t phi[NT][4], plo[NT][4];
+    float row_sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) inv_l[i] = 1.f / l[i];
+    for (int n = 0; n < NT; ++n) {
+      float pr[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int e = 0; e < 4; ++e) {
+        pr[e] = exp2f(s[n][e] - m[e >> 1]);
+        row_sum[e >> 1] += pr[e];
+      }
+      split_k5(pr[0], phi[n][0], plo[n][0]);
+      split_k5(pr[2], phi[n][1], plo[n][1]);
+      split_k5(pr[1], phi[n][2], plo[n][2]);
+      split_k5(pr[3], phi[n][3], plo[n][3]);
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(rg + 4 * i) * LDP + c + 8 * j] = expf(s[i][j] - m[i]) * inv_l[i];
-    __syncwarp();
-#pragma unroll 4
-    for (int kk = 0; kk < KT; ++kk) {
-      float pk[4];
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + row_sum[i];
+
+    // O = O * alpha + P . V: each 8-column chunk's products go into a zeroed
+    // partial added in fp32 (the tensor cores' accumulation does not round
+    // to nearest; see flash_attention_bwd.cu)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pk[i] = Ps[(rg + 4 * i) * LDP + kk];
+    for (int nd = 0; nd < KC; ++nd) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int mc = 0; mc < MC; ++mc) {
-        const int ch = c + 8 * mc;
-        if (ch >= C4) continue;
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * LD + 4 * ch);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][mc][0] = fmaf(pk[i], vv.x, o[i][mc][0]);
-          o[i][mc][1] = fmaf(pk[i], vv.y, o[i][mc][1]);
-          o[i][mc][2] = fmaf(pk[i], vv.z, o[i][mc][2]);
-          o[i][mc][3] = fmaf(pk[i], vv.w, o[i][mc][3]);
+      for (int n = 0; n < NT; ++n)
+        if (k0 + 8 * n < p.Skv) {
+          const float* vrow = vs + (8 * n + 2 * t) * LDV + 8 * nd + g;
+          mma_3x_k5(part, phi[n], plo[n], vrow[0], vrow[LDV]);
         }
-      }
+      o[nd][0] = fmaf(o[nd][0], alpha[0], part[0]);
+      o[nd][1] = fmaf(o[nd][1], alpha[0], part[1]);
+      o[nd][2] = fmaf(o[nd][2], alpha[1], part[2]);
+      o[nd][3] = fmaf(o[nd][3], alpha[1], part[3]);
     }
-    __syncwarp();  // P is read before the next step rewrites it
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
   if (!sl.live) return;
   float* og = static_cast<float*>(p.o) + sl.off_o;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = sl.q0 + rg + 4 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = sl.q0 + g + 8 * i;
+    const float inv_l = 1.f / quad_sum(l[i]);  // every row sees at least one key
     if (row >= p.Sq) continue;
 #pragma unroll
-    for (int mc = 0; mc < MC; ++mc) {
-      const int ch = c + 8 * mc;
-      if (ch < C4 && 4 * ch < p.D)
-        *reinterpret_cast<float4*>(og + row * p.o_ss + 4 * ch) =
-            make_float4(o[i][mc][0], o[i][mc][1], o[i][mc][2], o[i][mc][3]);
-    }
+    for (int nd = 0; nd < KC; ++nd)
+      *reinterpret_cast<float2*>(og + row * p.o_ss + 8 * nd + 2 * t) =
+          make_float2(o[nd][2 * i] * inv_l, o[nd][2 * i + 1] * inv_l);
   }
 }
 
@@ -510,22 +571,48 @@ cudaError_t launch(Kernel kernel, int smem, const Params& p, cudaStream_t stream
 }
 
 template <int DP>
-cudaError_t launch_dp(bool bf16, const Params& p, cudaStream_t stream) {
-  const int ppc = WARPS / p.wpp;
-  if (bf16) return launch(window_attn_bf16_kernel<DP>, smem_bf16<DP>(ppc), p, stream);
-  return launch(window_attn_f32_kernel<DP>, smem_f32<DP>(ppc), p, stream);
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  return launch(window_attn_bf16_kernel<DP>, smem_bf16<DP>(WARPS / p.wpp), p, stream);
 }
 
-cudaError_t dispatch(bool bf16, const Params& p, cudaStream_t stream) {
+template <int DP>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  return launch(window_attn_f32_kernel<DP>, smem_f32<DP>(WARPS / p.wpp, p.Skv), p, stream);
+}
+
+cudaError_t dispatch_bf16(const Params& p, cudaStream_t stream) {
   switch ((p.D + 15) / 16) {
-    case 1: return launch_dp<16>(bf16, p, stream);
-    case 2: return launch_dp<32>(bf16, p, stream);
-    case 3: return launch_dp<48>(bf16, p, stream);
-    case 4: return launch_dp<64>(bf16, p, stream);
-    case 5: return launch_dp<80>(bf16, p, stream);
-    case 6: return launch_dp<96>(bf16, p, stream);
-    case 7: return launch_dp<112>(bf16, p, stream);
-    case 8: return launch_dp<128>(bf16, p, stream);
+    case 1: return launch_bf16<16>(p, stream);
+    case 2: return launch_bf16<32>(p, stream);
+    case 3: return launch_bf16<48>(p, stream);
+    case 4: return launch_bf16<64>(p, stream);
+    case 5: return launch_bf16<80>(p, stream);
+    case 6: return launch_bf16<96>(p, stream);
+    case 7: return launch_bf16<112>(p, stream);
+    case 8: return launch_bf16<128>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// fp32 runs at the head dim itself (a multiple of 8): no padded k-steps
+cudaError_t dispatch_f32(const Params& p, cudaStream_t stream) {
+  switch (p.D / 8) {
+    case 1: return launch_f32<8>(p, stream);
+    case 2: return launch_f32<16>(p, stream);
+    case 3: return launch_f32<24>(p, stream);
+    case 4: return launch_f32<32>(p, stream);
+    case 5: return launch_f32<40>(p, stream);
+    case 6: return launch_f32<48>(p, stream);
+    case 7: return launch_f32<56>(p, stream);
+    case 8: return launch_f32<64>(p, stream);
+    case 9: return launch_f32<72>(p, stream);
+    case 10: return launch_f32<80>(p, stream);
+    case 11: return launch_f32<88>(p, stream);
+    case 12: return launch_f32<96>(p, stream);
+    case 13: return launch_f32<104>(p, stream);
+    case 14: return launch_f32<112>(p, stream);
+    case 15: return launch_f32<120>(p, stream);
+    case 16: return launch_f32<128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -558,5 +645,6 @@ extern "C" int sam2_window_attention_fwd(
   p.scale = scale;
   const int row_blocks = (Sq + ROWS - 1) / ROWS;
   p.wpp = row_blocks >= 3 ? 4 : row_blocks;
-  return static_cast<int>(dispatch(dtype == 1, p, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == 1 ? dispatch_bf16(p, st) : dispatch_f32(p, st));
 }

@@ -115,6 +115,24 @@ def _kv_splits(symbol: str, device_index: int, dtype: int, B: int, H: int, Sq: i
     return n_split
 
 
+def flash_attention_tiling(dtype, B, H, Sq, Skv, D):
+    """K1's launch geometry for a shape on the current device, as its
+    library reports it: query rows per CTA, keys per kv tile, kv tiles in
+    flight in shared memory, the kv split and the CTAs of the grid (every
+    split counted). For logs; a CUDA card builds the library."""
+    fn = _build.load("flash_attention").sam2_flash_attention_tiling
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = None
+    out = (ctypes.c_int * 3)()
+    fn(_DTYPES[dtype], D, out)
+    rows, keys, stages = out
+    n_split = _kv_splits("sam2_flash_attention_splits", torch.cuda.current_device(),
+                         _DTYPES[dtype], B, H, Sq, Skv, D)
+    return dict(rows=rows, keys=keys, stages=stages, n_split=n_split,
+                ctas=-(-Sq // rows) * B * H * n_split)
+
+
 def _split_scratch(q, n_split):
     """fp32 part_o [n_split, B*H, Sq, D] and part_lse [n_split, B*H, Sq] for a
     split kv axis; (None, None) without a split."""

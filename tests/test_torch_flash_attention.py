@@ -46,6 +46,9 @@ def _inputs(B, H, Sq, Skv, D, mask, seed=0):
         if mask.startswith("block"):  # whole 64-key tiles masked, the rest valid
             kv_mask[:] = True
             kv_mask[:, 64:192] = False
+        if mask.startswith("tiles"):  # whole 128-key tiles masked, the rest valid
+            kv_mask[:] = True
+            kv_mask[:, 128:384] = False
         if mask.endswith("empty row"):
             kv_mask[-1] = False  # every query row of the last batch sees no key
     return q, k, v, kv_mask
@@ -105,13 +108,27 @@ FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=1e-2, atol=1e-3)
 
 
+GPU_CASES = CASES + [(1, 8, 1000, 1500, 96, "random+empty row"), (1, 3, 130, 70, 8, None),
+                     (1, 1, 65, 4100, 128, "random"), (2, 1, 1000, 1500, 256, "random+empty row"),
+                     (1, 1, 4096, 7 * 4096 + 64, 256, "random")]
+# bf16 at D <= 128 (the wgmma kernel): 128 query rows a CTA and 128 keys a
+# stage, one below and one above each; D from 8 to 128 (56 and 72 at N = D,
+# the others padded to 16); whole 128-key tiles masked (skipped); a batch row
+# with no valid key; one query row; B*H = 64 at 4096 rows, hiera-b+'s
+# global blocks of an 8-frame training batch
+BF16_CASES = [
+    (1, 2, 127, 129, 72, None), (1, 2, 129, 127, 72, None), (1, 1, 255, 257, 56, "random"),
+    (1, 1, 257, 255, 80, None), (2, 2, 200, 300, 8, None), (1, 2, 300, 200, 80, "random"),
+    (1, 2, 333, 520, 120, "random"), (1, 1, 130, 129, 128, None), (1, 2, 200, 640, 72, "tiles"),
+    (2, 2, 300, 300, 72, "random+empty row"), (2, 2, 300, 520, 56, "tiles+empty row"),
+    (1, 2, 1, 300, 72, None), (2, 1, 1, 1, 56, None), (8, 8, 4096, 4096, 56, None),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,Sq,Skv,D,mask", CASES + [(1, 8, 1000, 1500, 96, "random+empty row"),
-                                                       (1, 3, 130, 70, 8, None),
-                                                       (1, 1, 65, 4100, 128, "random"),
-                                                       (2, 1, 1000, 1500, 256, "random+empty row"),
-                                                       (1, 1, 4096, 7 * 4096 + 64, 256, "random")])
+@pytest.mark.parametrize("B,H,Sq,Skv,D,mask,dtype",
+                         [c + (dt,) for c in GPU_CASES for dt in (torch.bfloat16, torch.float32)]
+                         + [c + (torch.bfloat16,) for c in BF16_CASES])
 def test_cuda_kernel_matches_ref(B, H, Sq, Skv, D, mask, dtype):
     """fp32: the kernel runs true fp32 FMAs, rtol 1e-5 + atol 1e-5. bf16:
     inputs rounded to bf16 for both, P rounded to bf16 against the running
@@ -119,7 +136,8 @@ def test_cuda_kernel_matches_ref(B, H, Sq, Skv, D, mask, dtype):
     at most 2^-7 of |out|, so rtol 1e-2 + atol 1e-3 (sound runs at the
     hiera-L shape differ by at most 9.8e-4, where |out| is typically 0.02).
     D = 256 is memory attention under SAM2_TPU_FUSED_ROPE=0, up to its
-    cross shape (K2's kernel without the rotation, the kv axis split)."""
+    cross shape (K2's kernel without the rotation, the kv axis split).
+    Fully masked rows give 0 and lse -1e30."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     q, k, v, kv_mask = _inputs(B, H, Sq, Skv, D, mask)
@@ -134,17 +152,21 @@ def test_cuda_kernel_matches_ref(B, H, Sq, Skv, D, mask, dtype):
     tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
     torch.testing.assert_close(out.float(), ref_out.float(), **tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    if mask is not None and mask.endswith("empty row"):
+        assert not out[-1].any() and bool((lse[-1] == -1e30).all())
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [72, 56])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_takes_strided_qkv_views(dtype):
+def test_cuda_kernel_takes_strided_qkv_views(dtype, D):
     """q/k/v as the Hiera block hands them over: head-major views into one
-    interleaved [B, S, 3, H, D] projection (no copies). Tolerances as above.
-    A bf16 view whose rows are not 16-byte aligned is refused."""
+    interleaved [B, S, 3, H, D] projection (no copies), at hiera-L's and
+    hiera-b+'s head dims. Tolerances as above. A bf16 view whose rows are
+    not 16-byte aligned is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    B, S, H, D = 2, 300, 3, 72
+    B, S, H = 2, 300, 3
     rng = np.random.default_rng(1)
     qkv = torch.from_numpy(rng.standard_normal((B, S, 3, H, D)).astype(np.float32))
     q, k, v = qkv.cuda().to(dtype).unbind(2)

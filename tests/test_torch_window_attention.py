@@ -177,12 +177,21 @@ def test_flash_or_sdpa_routes_window_kernel(monkeypatch):
     assert len(calls) == 1
 
 
-# On the card: the kernel against its plain version. fp32 runs true fp32
-# FMAs on both sides, so 1e-5; bf16 within `window_attention_bf16_bound`.
+# On the card: the kernel against its plain version. fp32 runs three-pass
+# TF32 products (about 2^-21 of |q k| each) against the plain version's fp32
+# matmul, 1e-5; bf16 within `window_attention_bf16_bound`.
 GPU_CASES = [  # N, Sq, Skv, H, D
     (64, 64, 64, 2, 72), (256, 16, 16, 4, 72), (4, 256, 256, 8, 72), (4, 64, 64, 16, 72),
     (8, 49, 49, 3, 56), (2, 196, 196, 4, 96), (6, 16, 64, 2, 72), (2, 1024, 1024, 1, 64),
     (3, 40, 24, 2, 8), (2, 100, 100, 1, 128),
+    # the fp32 kernel's tiling: 16 query rows a warp, 64 a CTA; kv tiles of 32
+    # keys, a window of up to 2 tiles loaded once, a 2-stage ring above
+    (4, 1, 1, 2, 72), (6, 17, 17, 2, 120), (2, 15, 15, 3, 56), (2, 31, 31, 3, 72),
+    (2, 33, 33, 3, 72), (2, 63, 63, 2, 128), (2, 65, 65, 2, 72), (2, 95, 95, 2, 72),
+    (2, 97, 97, 2, 8), (1, 255, 255, 2, 72), (1, 257, 257, 2, 56), (1, 1024, 1024, 2, 72),
+    (3, 15, 97, 2, 56), (2, 97, 31, 2, 120), (4, 17, 33, 2, 8),
+    # pairs not a multiple of a CTA's: 4 per CTA at 16 rows, 2 at 32
+    (5, 16, 16, 1, 72), (3, 32, 32, 1, 56),
 ]
 
 
