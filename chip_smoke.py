@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --kernel-times   # build, then the kernel times of
-                                           # phases 7 (K1) and 14 (K5-K8) only
+                                           # phases 7 (K1, K2) and 14 (K5-K8) and
+                                           # K1 at D = 256 only
 
 `--kernel-times` times whichever `sam2_opt_tpu_torch` it imports, so a copy
 of this script in another checkout's root times that checkout's kernels:
@@ -137,8 +138,14 @@ Since slice 8, K1 in bf16 at D <= 128 (phases 3, 7) is a warp-specialised
 wgmma/TMA kernel, timed at hiera-L's and hiera-b+'s global blocks with its
 tile, CTAs and exponential floor in the log; the window kernel's fp32 path
 (K5-K7, phases 11 and 14) runs one pass of three TF32 products, so its fp32
-bound is counted at 495/3 TFLOP/s as well. The build log keeps ptxas' lines
-on registers, spills and wgmma serialisation.
+bound is counted at 495/3 TFLOP/s as well. Since slice 9, K2 (phases 4, 7)
+is a rotation kernel run once per call and then K1's body on the rotated K
+(bf16: the warp-specialised wgmma/TMA kernel, at D = 256 with 64-key
+stages; fp32, also K1's at every D: three-pass TF32 on mma.sync): phase 4
+holds the rotation alone bit for bit against the plain rotation, phases 7
+and 15 time K2, its rotation and K1 at D = 256 from CUDA graph replays, and
+K1's and K2's fp32 bounds count their products at 495/3 TFLOP/s. The build
+log keeps ptxas' lines on registers, spills and wgmma serialisation.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -165,6 +172,9 @@ import torch.nn.functional as F
 # its bytes over the memory rate.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# the fp32 rate of the attention kernels (K1-K3, K5): three TF32 products per
+# fp32 product (see attention_flops_rate)
+K3_FP32_FLOPS = 495e12 / 3
 SEED = 0
 K1_SHAPES = [  # (B, H, S, D): the global-attention blocks of hiera-L, b+ and t/s at 1024²
     (1, 8, 4096, 72),
@@ -172,13 +182,15 @@ K1_SHAPES = [  # (B, H, S, D): the global-attention blocks of hiera-L, b+ and t/
     (1, 4, 4096, 96),
 ]
 MAIN_SHAPE = K1_SHAPES[0]
-# K1 vs plain: fp32 runs true fp32 FMAs on both sides; in bf16 both take the
-# same bf16 inputs, round P to bf16 and accumulate in fp32, so they differ by
-# the order of the sums, P's rounding against the running (not the final)
-# row max, and the output's rounding: one bf16 ulp is at most 2^-7 = 0.78% of
-# |out|. Sound runs at every shape below differ by at most 9.8e-4 (one ulp
-# near 0.2), so bf16 is held at 1% of |out| plus 1e-3; at the main shape a
-# typical |out| is 0.02, so a P.V stage off by 10% of it fails.
+# K1 vs plain: fp32 runs three TF32 products per fp32 product (about 2^-21
+# of each, each kv tile's into a zeroed partial) against the plain version's
+# fp32 products; in bf16 both take the same bf16 inputs, round P to bf16 and
+# accumulate in fp32, so they differ by the order of the sums, P's rounding
+# against the running (not the final) row max, and the output's rounding: one
+# bf16 ulp is at most 2^-7 = 0.78% of |out|. Sound runs at every shape below
+# differ by at most 9.8e-4 (one ulp near 0.2), so bf16 is held at 1% of |out|
+# plus 1e-3; at the main shape a typical |out| is 0.02, so a P.V stage off by
+# 10% of it fails.
 K1_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-3)}  # (rtol, atol)
 LSE_TOL = (1e-5, 1e-5)
 # fp32 card vs CPU after 48 blocks: the two sum in different orders (K1's
@@ -330,14 +342,24 @@ def graph_ms(fn, reps=10, flush=None):
     return total / reps
 
 
+def attention_flops_rate(dtype):
+    """The rate the attention kernels' products run at: bf16 on the tensor
+    cores, fp32 as three TF32 products per product on them, at 495/3
+    TFLOP/s (`K3_FP32_FLOPS`; K3 since slice 7, K5 since slice 8, K1 and K2
+    since slice 9)."""
+    return K3_FP32_FLOPS if dtype == torch.float32 else PEAK_FLOPS[dtype]
+
+
 def k1_bound_ms(B, H, Sq, Skv, D, dtype, valid_keys=None):
     """Least time for K1's work on these inputs: 4*Sq*valid_keys*D operations
-    per (b, h) and each input read once, each output written once."""
+    per (b, h) at `attention_flops_rate` (fp32 products as three TF32
+    products, as the kernel runs them) and each input read once, each output
+    written once."""
     valid = B * Skv if valid_keys is None else valid_keys
     flops = 4.0 * H * Sq * valid * D
     itemsize = torch.finfo(dtype).bits // 8
     nbytes = itemsize * B * H * D * (2 * Sq + 2 * Skv) + 4 * B * H * Sq
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / attention_flops_rate(dtype), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -389,14 +411,27 @@ def phase_k1(flash_attention, flash_attention_ref):
 
 
 def k2_bound_ms(B, Sq, Skv, D, dtype, valid_keys=None):
-    """Least time for K2's work: K1's on these inputs plus reading the two
-    [Skv, D/2] tables and the [B, Skv] mask once; the rotation's 6 operations
-    per K pair are counted with the rest."""
+    """Least time for K2's work: K1's on these inputs (its products at
+    `attention_flops_rate`) plus the rotation's, counted once per call:
+    reading the two [Skv, D/2] tables once and its 6 operations per K pair
+    (3 per element) on the CUDA cores' fp32 rate, and the [B, Skv] mask
+    read once. The rotated K the kernels pass between them is scratch, not
+    an input or output of the function, and is not counted."""
     valid = B * Skv if valid_keys is None else valid_keys
-    flops = 4.0 * Sq * valid * D + 3.0 * valid * D
     itemsize = torch.finfo(dtype).bits // 8
     nbytes = (itemsize * (B * D * (2 * Sq + 2 * Skv) + Skv * D) + B * Skv + 4 * B * Sq)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops = (4.0 * Sq * valid * D / attention_flops_rate(dtype)
+             + 3.0 * B * Skv * D / PEAK_FLOPS[torch.float32])
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def rotation_bound_ms(B, Skv, D, dtype):
+    """Least time for K2's rotation alone: K read once, the rotated K written
+    once, the two tables read once (bytes-bound)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * (2 * B * Skv * D + Skv * D)
+    t_ops, t_bytes = 3.0 * B * Skv * D / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -444,13 +479,21 @@ def k2_within(out, ref, dtype):
 
 
 @phase
-def phase_k2(flash_attention_rope, flash_attention_rope_ref):
+def phase_k2(flash_attention_rope, flash_attention_rope_ref, rope_rotate):
     """K2 against its plain version on the card; returns the largest error.
-    The negative control runs the cross case through the kernel with
-    identity tables (no rotation): the check must fail."""
+    Its rotation alone (`rope_rotate`, since slice 9 a kernel of its own)
+    must equal the plain rotation bit for bit on every case. The negative
+    control runs the cross case through the kernel with identity tables (no
+    rotation): the check must fail."""
+    from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
+
     max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for label, q, k, v, c, s, kv_mask in k2_cases(dtype):
+            kr = rope_rotate(k, c, s)
+            kr_ref = apply_rotary_split(k.float(), c.float(), s.float()).to(dtype)
+            check(torch.equal(kr, kr_ref), f"K2's rotation differs from the plain one ({label})")
+            del kr, kr_ref
             out, lse = flash_attention_rope(q, k, v, c, s, kv_mask)
             ref, ref_lse = flash_attention_rope_ref(q, k, v, c, s, kv_mask)
             torch.cuda.synchronize()
@@ -738,12 +781,16 @@ def phase_slice(flash_attention):
     return predictor, image, launches, {torch.float32: fp32, torch.bfloat16: bf16}
 
 
-# kernel-name patterns for the split of device time, first match wins
+# kernel-name patterns for the split of device time, first match wins. Every
+# `__global__` kernel of `sam2_opt_tpu_torch/csrc/` matches one of the first
+# six (tests/test_torch_chip_smoke_families.py): each caller's kernels carry
+# its prefix, so K2's rotation, attention and split merge count as K2's even
+# though its attention body is K1's, and K1's and K4's merges as theirs.
 FAMILIES = [
     ("K5-K7 window_attention (csrc)", r"window_attn_"),
     ("K8 fused_mlp (csrc)", r"fused_mlp_kernel"),
-    ("K3 flash_attention_bwd (csrc)", r"bwd_dkdv_|bwd_dq_|(?<!flash_)combine_kernel"),
-    ("K4 flash_attention_kv_proj (csrc)", r"flash_kvproj_"),  # its split merge counts as K2's
+    ("K3 flash_attention_bwd (csrc)", r"bwd_dkdv_|bwd_dq_|\bcombine_kernel"),
+    ("K4 flash_attention_kv_proj (csrc)", r"flash_kvproj_"),
     ("K2 flash_attention_rope (csrc)", r"flash_rope_"),
     ("K1 flash_attention (csrc)", r"flash_fwd_"),
     ("convolution", r"conv|fprop|dgrad|wgrad|cudnn|implicit_gemm|winograd"),
@@ -899,55 +946,96 @@ def propagation_times(predictor, video, points, label):
                 peak_gib=peak)
 
 
-@phase
-def phase_video_times(predictor, video, points, flash_attention_rope,
-                      flash_attention_rope_ref):
-    """Per-frame propagation time, peak memory and the device split of the
-    tracked frames, fp32 and bf16; K2 beside its plain version, the library
-    yardstick and its bound at the self and cross shapes."""
-    from sam2_opt_tpu_torch.kernels.flash_attention import _kv_splits
+def memory_attention_times(kernels, rope_rotate=None, tiling=False, plain=True):
+    """K2 (`kernels["K2"]`: flash_attention_rope and its plain version)
+    and/or K1 at D = 256 (`kernels["K1 D=256"]`: flash_attention and its
+    plain version) at memory attention's cross and self shapes in both
+    dtypes, every key valid, cold L2, device times from CUDA graph replays
+    (since slice 9; CUDA events around each call before, which also timed
+    the wrappers' host work): each beside its plain version (CUDA events;
+    skipped when `plain` is false), its library yardstick (K2: the rotation
+    in torch, then F.scaled_dot_product_attention; K1: SDPA) and its bound;
+    K2's rotation alone beside its bound and its share of K2's time where
+    `rope_rotate` is given. With `tiling` the log line also gives the tile,
+    kv split and CTAs as the kernel library reports them. Returns {kernel
+    key or "rotation": {(shape label, dtype): row}}."""
     from sam2_opt_tpu_torch.models.memory_attention import _rope_half_tables
     from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
 
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = {key: {} for key in (*kernels, *(("rotation",) if rope_rotate else ()))}
+    for label, (B, Sq, Skv, D) in (("cross", K2_CROSS), ("self", K2_SELF)):
+        base = [torch.randn(B, 1, n, D, device="cuda", generator=gen) for n in (Sq, Skv, Skv)]
+        reps = 1 if label == "self" else K2_SLOTS
+        # the main path's steady state: every slot and pointer valid
+        mask = torch.ones(B, Skv, dtype=torch.bool, device="cuda") if label == "cross" else None
+        attn_mask = None if mask is None else mask[:, None, None, :]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype) for t in base)
+            c, s = _rope_half_tables(D, 64, 64, 10000.0, reps, Skv - 4096 * reps,
+                                     torch.device("cuda"), dtype)
+
+            def library(key):
+                if key == "K2":
+                    kr = apply_rotary_split(k.float(), c.float(), s.float()).to(dtype)
+                    return F.scaled_dot_product_attention(q, kr, v, attn_mask=attn_mask)
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+
+            for key, (fn, ref) in kernels.items():
+                args = (q, k, v, c, s, mask) if key == "K2" else (q, k, v, mask)
+                ms = graph_ms(lambda: fn(*args), flush=flush)
+                plain_ms = (cuda_ms(lambda: ref(*args), reps=3, warmup=1, flush=flush)
+                            if plain else None)
+                library_ms = graph_ms(lambda: library(key), flush=flush)
+                bound_ms, bound_by = (k2_bound_ms(B, Sq, Skv, D, dtype) if key == "K2"
+                                      else k1_bound_ms(B, 1, Sq, Skv, D, dtype))
+                row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+                line = (f"{key} {dtype} {label} {(B, Sq, Skv, D)}: {ms:.4f} ms, "
+                        + (f"plain {plain_ms:.4f} ms, " if plain else "")
+                        + ("rotation + " if key == "K2" else "")
+                        + f"F.scaled_dot_product_attention {library_ms:.4f} ms "
+                        f"({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}), "
+                        f"{bound_ms / ms:.1%} of bound")
+                if tiling:
+                    from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention_tiling
+
+                    t = flash_attention_tiling(dtype, B, 1, Sq, Skv, D)
+                    row.update(kv_splits=t["n_split"], ctas=t["ctas"])
+                    line += (f"; tile {t['rows']} rows x {t['keys']} keys, {t['n_split']} kv "
+                             f"splits, {t['ctas']} CTAs on "
+                             f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+                log(line)
+                rows[key][(label, dtype)] = row
+            if rope_rotate is not None:
+                rot_ms = graph_ms(lambda: rope_rotate(k, c, s), flush=flush)
+                bound_ms, bound_by = rotation_bound_ms(B, Skv, D, dtype)
+                share = (f", {rot_ms / rows['K2'][(label, dtype)]['ms']:.1%} of K2's time"
+                         if "K2" in kernels else "")
+                log(f"K2's rotation alone {dtype} {label} (B={B}, Skv={Skv}, D={D}): "
+                    f"{rot_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                    f"{bound_ms / rot_ms:.1%} of bound{share}")
+                rows["rotation"][(label, dtype)] = dict(ms=rot_ms, bound_ms=bound_ms,
+                                                        bound_by=bound_by)
+        del base, q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+@phase
+def phase_video_times(predictor, video, points, flash_attention_rope,
+                      flash_attention_rope_ref, rope_rotate):
+    """Per-frame propagation time, peak memory and the device split of the
+    tracked frames, fp32 and bf16; K2 and its rotation alone at the self and
+    cross shapes (`memory_attention_times`)."""
     times = {}
     for dtype, backend in ((torch.float32, "eager"), (torch.bfloat16, "cuda")):
         predictor.set_runtime_backend(backend)
         times[dtype] = propagation_times(predictor, video, points, str(dtype))
 
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    k2 = {}
-    for label, (B, Sq, Skv, D) in (("cross", K2_CROSS), ("self", K2_SELF)):
-        base = [torch.randn(B, 1, n, D, device="cuda", generator=gen) for n in (Sq, Skv, Skv)]
-        reps = 1 if label == "self" else K2_SLOTS
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (t.to(dtype) for t in base)
-            c, s = _rope_half_tables(D, 64, 64, 10000.0, reps, Skv - 4096 * reps,
-                                   torch.device("cuda"), dtype)
-            # the main path's steady state: every slot and pointer valid
-            mask = torch.ones(B, Skv, dtype=torch.bool, device="cuda") if label == "cross" else None
-            attn_mask = None if mask is None else mask[:, None, None, :]
-
-            def library():
-                kr = apply_rotary_split(k.float(), c.float(), s.float()).to(dtype)
-                return F.scaled_dot_product_attention(q, kr, v, attn_mask=attn_mask)
-
-            ms = cuda_ms(lambda: flash_attention_rope(q, k, v, c, s, mask), reps=5, flush=flush)
-            plain_ms = cuda_ms(lambda: flash_attention_rope_ref(q, k, v, c, s, mask), reps=3,
-                               warmup=1, flush=flush)
-            library_ms = cuda_ms(library, reps=5, flush=flush)
-            bound_ms, bound_by = k2_bound_ms(B, Sq, Skv, D, dtype)
-            n_split = _kv_splits("sam2_flash_attention_rope_splits", 0,
-                                 int(dtype == torch.bfloat16), B, 1, Sq, Skv, D)
-            ctas = -(-Sq // 64) * B * n_split
-            log(f"K2 {dtype} {label} {(B, Sq, Skv, D)}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"rotation + F.scaled_dot_product_attention {library_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; {n_split} kv "
-                f"splits, {ctas} CTAs of 64 query rows on "
-                f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
-            k2[(label, dtype)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                      bound_ms=bound_ms, bound_by=bound_by, kv_splits=n_split,
-                                      ctas=ctas)
+    k2 = memory_attention_times({"K2": (flash_attention_rope, flash_attention_rope_ref)},
+                                rope_rotate=rope_rotate, tiling=True)
     return times, k2
 
 
@@ -965,8 +1053,6 @@ K3_SELF = (2, 1, 4096, 4096, 256)
 # fp32: kernel and plain version sum the same products in other orders, the
 # kernel each as three TF32 products (about 2^-21 of each product)
 K3_FP32_REL = 1e-4
-# K3's fp32 rate: three TF32 products per fp32 product (see k3_bound_ms)
-K3_FP32_FLOPS = 495e12 / 3
 TRAIN_FRAMES, TRAIN_OBJECTS, TRAIN_STEPS = 8, 2, 3
 # fp32 on the card vs the CPU, hiera-b+ at 1024², 2 frames (see phase 9)
 TRAIN_CPU_LOSS_RTOL = 1e-4
@@ -991,8 +1077,7 @@ def k3_bound_ms(B, H, Sq, Skv, D, dtype, part, valid_keys=None):
     out_rows = 2 * Skv if part == "dkdv" else Sq
     nbytes = (itemsize * B * H * D * (2 * Sq + 2 * Skv) + 8 * B * H * Sq + B * Skv
               + 4 * B * H * D * out_rows)
-    peak = K3_FP32_FLOPS if dtype == torch.float32 else PEAK_FLOPS[dtype]
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / attention_flops_rate(dtype), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1158,8 +1243,7 @@ def phase_k3_times():
                                                              retain_graph=True),
                                  reps=3, warmup=1, flush=flush)
             both = row["dkdv"]["ms"] + row["dq"]["ms"]
-            fused_bound = 1e3 * 10.0 * B * H * Sq * Skv * D / (
-                K3_FP32_FLOPS if dtype == torch.float32 else PEAK_FLOPS[dtype])
+            fused_bound = 1e3 * 10.0 * B * H * Sq * Skv * D / attention_flops_rate(dtype)
             parts = "; ".join(
                 f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, "
                 f"{r['bound_ms'] / r['ms']:.1%} of it; {tiles[part]})"
@@ -1419,8 +1503,7 @@ def window_bound_ms(N, H, Sq, Skv, D, dtype):
     TF32's 495 TFLOP/s (K3_FP32_FLOPS): no share of bound reads over 100%."""
     flops = 4.0 * N * H * Sq * Skv * D
     nbytes = (torch.finfo(dtype).bits // 8) * N * H * D * (2 * Sq + 2 * Skv)
-    peak = K3_FP32_FLOPS if dtype == torch.float32 else PEAK_FLOPS[dtype]
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / attention_flops_rate(dtype), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1950,11 +2033,10 @@ def phase_k1_wide(flash_attention, flash_attention_ref):
     """K1 at D = 256, memory attention's attention under
     `SAM2_TPU_FUSED_ROPE=0`, against its plain version on phase 4's cases
     (K arrives rotated on that route, so the tables play no part), bf16 and
-    fp32, with K2's tolerances (the same kernel without the rotation); the
+    fp32, with K2's tolerances (K2 runs this body on the rotated K); the
     negative control holds the cross case to the plain version without its
-    mask (it must fail). Then its times at the cross and self shapes, every
-    key valid, cold L2, beside its bound, its plain version and
-    F.scaled_dot_product_attention. Returns (largest error, {(shape label,
+    mask (it must fail). Then its times at the cross and self shapes
+    (`memory_attention_times`). Returns (largest error, {(shape label,
     dtype): times})."""
     max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -1982,29 +2064,8 @@ def phase_k1_wide(flash_attention, flash_attention_ref):
                 check(not bad, "the K1 D = 256 check cannot see the mask")
             del out, lse, ref, ref_lse
 
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
-    times = {}
-    for label, (B, Sq, Skv, D) in (("cross", K2_CROSS), ("self", K2_SELF)):
-        base = [torch.randn(B, 1, n, D, device="cuda", generator=gen) for n in (Sq, Skv, Skv)]
-        mask = torch.ones(B, Skv, dtype=torch.bool, device="cuda") if label == "cross" else None
-        attn_mask = None if mask is None else mask[:, None, None, :]
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (t.to(dtype) for t in base)
-            ms = cuda_ms(lambda: flash_attention(q, k, v, mask), reps=5, flush=flush)
-            plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, mask), reps=3, warmup=1,
-                               flush=flush)
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask),
-                                 reps=5, flush=flush)
-            bound_ms, bound_by = k1_bound_ms(B, 1, Sq, Skv, D, dtype)
-            log(f"K1 D=256 {dtype} {label} {(B, Sq, Skv, D)}: {ms:.4f} ms, plain {plain_ms:.4f} "
-                f"ms, F.scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}), {bound_ms / ms:.1%} of bound")
-            times[(label, dtype)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                         bound_ms=bound_ms, bound_by=bound_by)
-        del base, q, k, v
-    torch.cuda.empty_cache()
-    return max_err, times
+    times = memory_attention_times({"K1 D=256": (flash_attention, flash_attention_ref)})
+    return max_err, times["K1 D=256"]
 
 
 @phase
@@ -2369,6 +2430,7 @@ def main(argv):
     log(smi[0])
 
     from sam2_opt_tpu_torch.kernels import _build
+    from sam2_opt_tpu_torch.kernels import flash_attention as flash_module
     from sam2_opt_tpu_torch.kernels.fused_mlp import fused_mlp
     from sam2_opt_tpu_torch.kernels.window_attention import (
         packed_window_attention,
@@ -2397,18 +2459,29 @@ def main(argv):
                 if "registers" in line or "spill" in line or "wgmma" in line]
         log(f"  {lib}: {len(regs) // 2} kernels; " + "; ".join(sorted(set(regs))))
 
+    # K2's rotation alone (since slice 9; absent from an older checkout,
+    # which --kernel-times may time)
+    rope_rotate = getattr(flash_module, "rope_rotate", None)
     if argv == ["--kernel-times"]:
-        # the kernel times alone (K1; K5-K8 at the window and MLP shapes),
-        # for a comparison of two checkouts of the package in one call
+        # the kernel times alone (K1; K5-K8 at the window and MLP shapes; K2,
+        # its rotation and K1 at D = 256 at memory attention's shapes), for
+        # a comparison of two checkouts of the package in one call
         label = lambda key: " ".join(str(k).replace("torch.", "") for k in key)  # noqa: E731
         k1 = phase_k1_times(flash_attention, flash_attention_ref, tiling=False)
         rows = phase_route_kernel_times()
-        log(json.dumps({"kernel_times": {label(k): v for k, v in {**k1, **rows}.items()},
+        memory = memory_attention_times(
+            {"K2": (flash_attention_rope, flash_attention_rope_ref),
+             "K1 D=256": (flash_attention, flash_attention_ref)}, rope_rotate=rope_rotate,
+            plain=False)
+        memory_rows = {(key, *shape): row for key, by in memory.items() for shape, row in by.items()}
+        log(json.dumps({"kernel_times": {label(k): v for k, v in {**k1, **rows,
+                                                                  **memory_rows}.items()},
                         "card": smi[0]}))
         return 0
+    check(rope_rotate is not None, "this checkout has no rope_rotate")
 
     k1_err = phase_k1(flash_attention, flash_attention_ref)
-    k2_err = phase_k2(flash_attention_rope, flash_attention_rope_ref)
+    k2_err = phase_k2(flash_attention_rope, flash_attention_rope_ref, rope_rotate)
     k3_err = phase_k3()
     k3 = phase_k3_times()
     window_err = phase_windows()
@@ -2427,7 +2500,7 @@ def main(argv):
     video_predictor, video, points, (k1_launches, k2_launches), video_route_launches = phase_video(
         flash_attention, flash_attention_rope)
     video_times, k2 = phase_video_times(video_predictor, video, points, flash_attention_rope,
-                                        flash_attention_rope_ref)
+                                        flash_attention_rope_ref, rope_rotate)
     del video_predictor
     torch.cuda.empty_cache()
 
@@ -2479,12 +2552,15 @@ def main(argv):
         "replaces": "sam2_opt_tpu/kernels/flash_attention.py:121",
         "launches": k2_launches,
         "max_abs_err": k2_err,
-        **k2[("cross", torch.bfloat16)],
+        **k2["K2"][("cross", torch.bfloat16)],
         "shape": list(K2_CROSS),
         "dtype": "bfloat16",
-        "fp32": k2[("cross", torch.float32)],
-        "self": {"shape": list(K2_SELF), "bfloat16": k2[("self", torch.bfloat16)],
-                 "fp32": k2[("self", torch.float32)]},
+        "library": "rotation in torch + F.scaled_dot_product_attention",
+        "fp32": k2["K2"][("cross", torch.float32)],
+        "self": {"shape": list(K2_SELF), "bfloat16": k2["K2"][("self", torch.bfloat16)],
+                 "fp32": k2["K2"][("self", torch.float32)]},
+        "rotation": {f"{label} {str(dt).replace('torch.', '')}": row
+                     for (label, dt), row in k2["rotation"].items()},
     }]
     entries[0]["training_launches"] = train_launches["K1"]
     entries[1]["training_launches"] = train_launches["K2"]

@@ -1,8 +1,10 @@
-// Masked flash-attention forward for Hopper (sm_90a), fp32 and bf16.
+// Masked flash-attention forward for Hopper (sm_90a), fp32 and bf16: the
+// ports of three Pallas TPU kernels of sam2_opt_tpu/kernels/flash_attention.py,
+// K1 (_kernel), K2 (_kernel_rope) and K4 (_kernel_rope_kvproj).
 //
-// Replaces the Pallas TPU kernel sam2_opt_tpu/kernels/flash_attention.py::_kernel
-// (K1, with its online-softmax helpers _ns_init/_ns_update/_ns_finish). It
-// computes exactly what K1 computes:
+// K1 (sam2_flash_attention_fwd) replaces ::_kernel (with its online-softmax
+// helpers _ns_init/_ns_update/_ns_finish). It computes exactly what K1
+// computes:
 //   s      = (q . k^T) * scale,  scale = 1/sqrt(D) with the true head dim D
 //   s[key] = -1e30 where the key is masked (kv_mask false) or past Skv
 //   out    = softmax(s) . v, accumulated in fp32 with an online softmax
@@ -13,107 +15,106 @@
 // lse = -1e30 (K1's _ns_finish rule). Masking with -1e30 rather than -inf
 // keeps an all-masked kv tile inside a valid row exact: its p underflows to
 // 0, and a masked prefix is rescaled away by alpha = exp(-1e30 - m) = 0.
+// So every kernel here skips kv tiles with no valid key (the empty memory
+// slots of the first tracked frames), which is exact.
 //
 // Layout. q/k/v are [B, H, S, D] with any batch/head/sequence strides and a
-// unit stride along D (bf16: rows 16-byte aligned, which the wrapper
-// checks); out has its own strides; lse is [B*H, Sq] fp32. The wrapper
-// (sam2_opt_tpu_torch/kernels/flash_attention.py) allocates every output;
-// this file launches on the caller's stream and allocates nothing. Pallas'
-// sequential kv grid axis becomes a loop inside the CTA: one CTA owns a
-// tile of query rows of one (b, h) (fp32: 64, bf16: 128), walks the kv
-// tiles, and keeps the running m, l and the [rows, D] accumulator in
-// registers. The head dim is zero-padded in shared memory only (never in
-// device memory): to a multiple of 16 for Q . K^T, so D = 56, 72, 96 and any
-// multiple of 8 up to 128 run through one template each.
+// unit stride along D (rows 16-byte aligned, which the wrapper checks); out
+// has its own strides; lse is [B*H, Sq] fp32. The wrapper
+// (sam2_opt_tpu_torch/kernels/flash_attention.py) allocates every output
+// and scratch buffer; this file launches on the caller's stream and
+// allocates nothing. Pallas' sequential kv grid axis becomes a loop inside
+// the CTA: one CTA owns 128 query rows of one (b, h), walks the kv tiles,
+// and keeps the running m, l and the [rows, D] accumulator in registers.
+// Where one CTA per 128 query rows leaves SMs idle (memory attention: one
+// head, 32 query tiles), the kv axis is split over blockIdx.z into as many
+// ranges as keep the grid in one wave of resident CTAs (at least 8 kv tiles
+// each, the occupancy API says how many CTAs fit): each split writes its
+// normalized fp32 output and row LSE to scratch, and a combine kernel merges
+// them (out = sum_s exp(lse_s - lse) out_s), a few MB against ~100 GFLOP.
 //
-// Bound. At the main-path shape (hiera-L global blocks: B*H = 8,
-// Sq = Skv = 4096, D = 72) K1 does 4*8*4096^2*72 = 38.7 GFLOP on 18.9 MB of
-// bf16 q/k/v/out, 2000 operations per byte: compute-bound on either route.
-// What the design does about it:
-//  - bf16 (D <= 128) runs warp-specialised wgmma fed by TMA (its section
-//    below): 128 query rows a CTA (256 CTAs at hiera-L, two waves of one CTA
-//    per SM on 132 SMs), so each CTA's streaming of K and V (1.18 MB, from
-//    L2) is shared by twice the rows of a 64-row tile: 0.3 GB of L2 reads a
-//    call instead of 0.6. The tensor-core bound is 39 us (41 us of executed
-//    work: Q . K^T at D padded to 80); 8*4096^2 = 134M exponentials at 16 a
-//    clock per SM need 32 us on their own, so one warpgroup's softmax runs
-//    while the other's products do.
-//  - fp32 runs true fp32 FMAs on the CUDA cores (no TF32), bounded by
-//    67 TFLOP/s, ~0.58 ms: a 4x4 score micro-tile from 16-byte shared loads
-//    keeps the Q K^T loop FMA-bound, and 102 KB of shared memory per CTA lets
-//    two CTAs share an SM to hide load latency.
+// Bound. At hiera-L's global blocks (B*H = 8, Sq = Skv = 4096, D = 72) K1
+// does 4*8*4096^2*72 = 38.7 GFLOP on 18.9 MB of bf16 q/k/v/out, 2000
+// operations per byte; memory attention (one head, D = 256) does
+// 4*4096*28736*256 = 120.5 GFLOP on 29 MB of bf16 K/V at the cross shape
+// (7 memory frames of 4096 keys and 64 pointer tokens), 17.2 GFLOP at the
+// self shape: compute-bound in both dtypes. The tensor cores' bounds:
+// 0.039 / 0.122 ms in bf16 (989 TFLOP/s), 0.235 / 0.730 ms in fp32 as three
+// TF32 products per product (495/3 TFLOP/s).
+//  - bf16 runs warp-specialised wgmma fed by TMA (its section below), 128
+//    query rows a CTA, so each CTA's stream of K and V from L2 is shared by
+//    twice the rows of a 64-row tile. At D = 72 the tensor-core bound is
+//    39 us and 8*4096^2 = 134M exponentials at 16 a clock per SM need 32 us
+//    on their own, so one warpgroup's softmax runs while the other's
+//    products do.
+//  - fp32 runs the tensor cores as three TF32 products per fp32 product on
+//    mma.sync (wgmma's tf32 form takes K-major operands only, and V is
+//    MN-major in P . V), about 2^-21 of each product against fp32's 2^-24;
+//    P never leaves the registers (its section below).
 //
-// K2 (sam2_flash_attention_rope_fwd) replaces the Pallas TPU kernel
-// sam2_opt_tpu/kernels/flash_attention.py::_kernel_rope: K1, with K rotated
-// inside the kernel in the split channel layout as each kv tile arrives,
+// K2 (sam2_flash_attention_rope_fwd) replaces ::_kernel_rope: K1 with K
+// rotated in the split channel layout,
 //   kr = [k1 * cos - k2 * sin, k1 * sin + k2 * cos]   (k1, k2: halves of D)
-// with cos/sin [Skv, D/2] tables (rows with cos = 1, sin = 0 leave the
-// object-pointer tokens unrotated); q arrives rotated. The rotation runs in
-// fp32 from the inputs with separate roundings (no FMA), rounded once to
-// K's dtype, exactly as the plain version rotates. It serves memory
-// attention at D = 256, H = 1: self-attention 4096 x 4096 keys and
-// cross-attention 4096 x 28,736 keys (7 memory frames + 64 pointer tokens)
-// under a validity mask. Bound: 4*4096*28736*256 = 120.5 GFLOP on 29 MB of
-// bf16 K/V, compute-bound (0.122 ms bf16, 1.80 ms fp32). Design:
-//  - bf16: mma.sync m16n8k16 with fp32 accumulation, 16 query rows a warp,
-//    S re-packed in registers as the A operand of P V, K and V through a
-//    2-stage cp.async ring and ldmatrix; at D = 256 a warp's fp32 accumulator
-//    takes 128 registers per thread, so Q lives in shared memory (one
-//    ldmatrix per k-step) and the kv tile is 32 keys; each K tile is rotated
-//    in place in shared memory after its cp.async lands and before the
-//    ldmatrix loads. 101 KB of shared memory, two CTAs per SM.
-//  - fp32: K1's FMA kernel, rotating K while it is copied to shared memory.
-//  - Both skip kv tiles whose keys are all masked (the empty memory slots of
-//    the first tracked frames), which is exact.
-//  - At one object one CTA per 64 query rows is only 64 CTAs, under half
-//    the 132 SMs. So the kv axis is split over blockIdx.z into as many
-//    ranges as keep the grid in one wave of resident CTAs (the occupancy
-//    API says how many fit, sam2_flash_attention_rope_splits): each split
-//    writes its normalized fp32 output and row LSE to scratch, and
-//    flash_combine_kernel merges them (out = sum_s exp(lse_s - lse)
-//    out_s), a few MB of traffic against ~100 GFLOP.
-// K1 at D = 256 (memory attention with the rotation fusion turned off,
-// SAM2_TPU_FUSED_ROPE=0: K rotated beforehand, the same shapes as K2's) runs
-// K2's kernels without the rotation (flash_wide_bf16_kernel<256, false>,
-// flash_fwd_f32_kernel<256>), with K2's kv split, combine and exact skip of
-// kv tiles without a valid key.
+// by [Skv, D/2] tables (rows with cos = 1, sin = 0 leave the object-pointer
+// tokens unrotated); q arrives rotated. It serves memory attention (D = 256,
+// one head) at the self and cross shapes. K2 rotates K once per call, in a
+// kernel of its own (flash_rope_rotate_kernel: fp32 from the inputs with one
+// rounding per operation, no FMA, rounded once to K's dtype, as the plain
+// version rotates, so the attention sees the same K bit for bit) into
+// contiguous scratch the wrapper allocates, then runs K1's attention body on
+// it under K2's own kernel names (flash_rope_*, so a profile tells K2's time
+// from K1's), with K1's kv split and combine. Rotating inside the attention
+// kernel would repeat the rotation and the table reads once per query tile
+// (at the cross shape each of 32 tiles would rotate all 28,736 keys and read
+// the 14.7 MB of bf16 tables), and would keep TMA from feeding wgmma (a box
+// lands in shared memory without passing through registers). The rotation
+// is bound by bytes: K read once, kr written once, each table row read once
+// per call (44 MB in bf16 at the cross shape, 13 us at 3.35 TB/s; 88 MB and
+// 26 us in fp32); kr (14.7 MB in bf16, 29 MB in fp32) then stays in the
+// 50 MB L2 while the attention reads it. On an H100 80GB HBM3 at 700 W
+// (chip_smoke.py, cold L2) K2 takes 0.343 ms in bf16 and 2.69 ms in fp32 at
+// the cross shape, the rotation 0.023 and 0.037 ms of it.
 //
-// K4 (sam2_flash_attention_kvproj_fwd) replaces the Pallas TPU kernel
-// sam2_opt_tpu/kernels/flash_attention.py::_kernel_rope_kvproj: K2 with the
-// memory cross-attention's K and V projections (mem_dim Dm = 64 -> D = 256)
-// fused in. The kv stream is read Dm wide; each kv tile is projected on the
-// SM,
+// K4 (sam2_flash_attention_kvproj_fwd) replaces ::_kernel_rope_kvproj: K2
+// with the memory cross-attention's K and V projections (mem_dim Dm = 64 ->
+// D = 256) fused in. The kv stream is read Dm wide; each kv tile is
+// projected on the SM,
 //   kp = round(mem_k . Wk^T + bk),  vp = round(mem_v . Wv^T + bv)
 // (fp32 sums, the bias added in fp32, one rounding to q's dtype), kp is
-// rotated as K2 rotates K, and the tile goes through K2's masked flash
+// rotated as K2 rotates K, and the tile goes through K1's masked flash
 // softmax; the projected K/V never reach device memory. Weights are
 // nn.Linear [D, Dm] in q's dtype, biases fp32 [D]. Bound at the cross shape
 // (B = 1, 4096 queries, 28,736 keys): 4*4096*28736*256 + 2*2*28736*64*256 =
-// 122.4 GFLOP (0.124 ms bf16, 1.83 ms fp32), compute-bound. Each query tile
-// re-projects every kv tile it reads, so the executed work is 120.5 GFLOP of
-// attention plus (Sq / rows per CTA) x 1.88 GFLOP of projections. Design:
-//  - 128 query rows per CTA (8 warps; K2 has 64), so the projections add
-//    half the attention's work (60 GFLOP at 32 query tiles), not all of it;
-//  - bf16: mma.sync as K2. Wk and Wv (2 x 36 KB) stay resident in shared
-//    memory for the CTA's life; the raw 32-key memory tiles stream through a
-//    2-stage cp.async ring. Each warp projects K for its 16 channels d of
-//    the first half and the 16 channels d + D/2 of the second, so one thread
-//    holds both halves of a rotation pair in its accumulators and rotates in
+// 122.4 GFLOP (0.124 ms bf16, 1.83 ms fp32 on the CUDA cores), compute-bound.
+// Each query tile re-projects every kv tile it reads, so the executed work is
+// 120.5 GFLOP of attention plus (Sq / rows per CTA) x 1.88 GFLOP of
+// projections. Design:
+//  - 128 query rows per CTA (8 warps), so the projections add half the
+//    attention's work (60 GFLOP at 32 query tiles), not all of it;
+//  - bf16: mma.sync m16n8k16 with fp32 accumulation, 16 query rows a warp, S
+//    re-packed in registers as the A operand of P V, operands through
+//    ldmatrix. Wk and Wv (2 x 36 KB) stay resident in shared memory for the
+//    CTA's life; the raw 32-key memory tiles stream through a 2-stage
+//    cp.async ring. Each warp projects K for its 16 channels d of the first
+//    half and the 16 channels d + D/2 of the second, so one thread holds
+//    both halves of a rotation pair in its accumulators and rotates in
 //    registers; V for its 32 channels. Q [128][264], Wk, Wv, K, V tiles and
 //    the ring: 196 KB, one CTA per SM;
-//  - fp32: K2's FMA scheme at 128 rows x 32 keys per CTA (Q, K, P^T and V
-//    in shared memory, 223 KB); each thread projects 2 channels of K (a
-//    rotation pair) or V for the 32 keys, reading the weight rows through
+//  - fp32: FMAs on the CUDA cores at 128 rows x 32 keys per CTA (Q, K, P^T
+//    and V in shared memory, 223 KB); each thread projects 2 channels of K
+//    (a rotation pair) or V for the 32 keys, reading the weight rows through
 //    L1/L2 (they do not fit beside the fp32 Q tile);
-//  - K2's exact skip of kv tiles without a valid key, its -1e30 masking, its
-//    identity rows for the pointer tokens (cos = 1, sin = 0) and its kv split
-//    over blockIdx.z with the LSE combine. Keys past Skv are masked, not
-//    padded: the TPU kernel's lane padding (Dm and D to 128, Skv to the block)
-//    has no counterpart here.
+//  - K1's exact skip of kv tiles without a valid key, its -1e30 masking, the
+//    identity rows for the pointer tokens (cos = 1, sin = 0) and the kv
+//    split over blockIdx.z with the LSE combine. Keys past Skv are masked,
+//    not padded: the TPU kernel's lane padding (Dm and D to 128, Skv to the
+//    block) has no counterpart here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -125,34 +126,39 @@ using hopper::mbar_arrive;
 using hopper::mbar_expect_tx;
 using hopper::mbar_init;
 using hopper::mbar_wait;
+using hopper::mma_3xtf32_int;
 using hopper::named_arrive;
 using hopper::named_sync;
 using hopper::pack_bf16;
 using hopper::smem_desc;
 using hopper::smem_desc_mn_atoms;
 using hopper::smem_u32;
+using hopper::split_tf32_int;
 using hopper::tma_load_4d;
 using hopper::to_a_frag;
 using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_rs_tb;
 using hopper::wgmma_ss_n128;
+using hopper::wgmma_ss_n64;
 using hopper::wgmma_wait;
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   const uint8_t* mask;  // [B, Skv] bool, row stride mask_sb; null = all valid
-  const void* cos;      // K2: [Skv, D/2] in q's dtype, contiguous; K1: null
+  const void* cos;      // K2, K4: [Skv, D/2] in q's dtype, contiguous; K1: null
   const void* sin;
   void* o;
   float* lse;           // [B*H, Sq]
-  // K2 may split the kv axis over blockIdx.z: each split writes its
-  // normalized fp32 output and row LSE here, flash_rope_combine merges them
-  int n_split;          // 1: no split (K1 always)
+  // the kv axis may be split over blockIdx.z: each split writes its
+  // normalized fp32 output and row LSE here, the combine kernel merges them
+  int n_split;          // 1: no split
   float* part_o;        // [n_split, B*H, Sq, D]
   float* part_lse;      // [n_split, B*H, Sq]
   // K4: k / v are the Dm-wide memory tokens, projected in the kernel by
@@ -174,216 +180,16 @@ __device__ __forceinline__ bool key_valid(const uint8_t* mg, int key, int Skv) {
   return key < Skv && (mg == nullptr || mg[key] != 0);
 }
 
-// ---------------------------------------------------------------------------
-// fp32: CUDA-core FMAs
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // keys per kv tile
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int LD = BQ + 4;    // row stride of the d-major tiles (16-byte aligned rows)
-
-static_assert(BQ == BK, "the P^T tile reuses the K tile's row stride");
-
-__device__ __forceinline__ float group16_max(float x) {
-  // the 16 lanes sharing a query row are one aligned half-warp
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int DP>
-constexpr int smem_bytes_f32() {
-  // Qt [DP][LD] + (Kt [DP][LD] | P^T [BK][LD]) + Vs [BK][DP]
-  return (DP * LD + (DP > BK ? DP : BK) * LD + BK * DP) * static_cast<int>(sizeof(float));
-}
-
-// One body for K1 (ROPE = false) and K2 (ROPE = true, D == DP): K2 rotates
-// each K tile as it is copied to shared memory and skips kv tiles whose keys
-// are all masked.
-template <int DP, bool ROPE>
-__device__ __forceinline__ void flash_f32_body(const Params& p) {
-  constexpr int NC = DP / 16;  // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                            // [DP][LD]  Q tile, d-major
-  float* Kt = Qt + DP * LD;                    // [DP][LD]  K tile, d-major
-  float* Pt = Kt;                              // [BK][LD]  P^T, reuses the K tile
-  float* Vs = Kt + (DP > BK ? DP : BK) * LD;   // [BK][DP]  V tile, row-major
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // key columns tx*4..+3 of S; output columns tx + 16c
-  const int ty = tid >> 4;  // query rows ty*4..+3
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * BQ;
-
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const uint8_t* mg = p.mask ? p.mask + b * p.mask_sb : nullptr;
-
-  for (int idx = tid; idx < BQ * DP; idx += THREADS) {
-    const int r = idx / DP, d = idx % DP;
-    Qt[d * LD + r] = (q0 + r < p.Sq && d < p.D) ? qg[(q0 + r) * p.q_ss + d] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_tiles = (p.Skv + BK - 1) / BK;
-  const int per_split = (n_tiles + p.n_split - 1) / p.n_split;
-  const int t_end = min(n_tiles, (static_cast<int>(blockIdx.z) + 1) * per_split);
-  for (int t = blockIdx.z * per_split; t < t_end; ++t) {
-    const int k0 = t * BK;
-    if constexpr (ROPE) {
-      // the barrier after which the previous tile's P^T and V reads are
-      // done; a tile with no valid key is skipped (exact, see the top note)
-      if (!__syncthreads_or(tid < BK && key_valid(mg, k0 + tid, p.Skv))) continue;
-      constexpr int HALF = DP / 2;
-      const float* cg = static_cast<const float*>(p.cos);
-      const float* sg = static_cast<const float*>(p.sin);
-      for (int idx = tid; idx < BK * HALF; idx += THREADS) {
-        const int r = idx / HALF, d = idx % HALF;
-        float lo = 0.f, hi = 0.f;
-        if (k0 + r < p.Skv) {
-          const long long row = k0 + r;
-          const float k1 = kg[row * p.k_ss + d], k2 = kg[row * p.k_ss + d + HALF];
-          const float c = cg[row * HALF + d], s = sg[row * HALF + d];
-          lo = __fsub_rn(__fmul_rn(k1, c), __fmul_rn(k2, s));
-          hi = __fadd_rn(__fmul_rn(k1, s), __fmul_rn(k2, c));
-        }
-        Kt[d * LD + r] = lo;
-        Kt[(d + HALF) * LD + r] = hi;
-      }
-      for (int idx = tid; idx < BK * DP; idx += THREADS) {
-        const int r = idx / DP, d = idx % DP;
-        Vs[r * DP + d] = k0 + r < p.Skv ? vg[(k0 + r) * p.v_ss + d] : 0.f;
-      }
-    } else {
-      __syncthreads();  // the previous tile's P^T and V reads are done
-      for (int idx = tid; idx < BK * DP; idx += THREADS) {
-        const int r = idx / DP, d = idx % DP;
-        const bool in = k0 + r < p.Skv && d < p.D;
-        Kt[d * LD + r] = in ? kg[(k0 + r) * p.k_ss + d] : 0.f;
-        Vs[r * DP + d] = in ? vg[(k0 + r) * p.v_ss + d] : 0.f;
-      }
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * LD + ty * 4]);
-      const float4 kb = *reinterpret_cast<const float4*>(&Kt[d * LD + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {kb.x, kb.y, kb.z, kb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-
-    bool valid[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) valid[j] = key_valid(mg, k0 + tx * 4 + j, p.Skv);
-    __syncthreads();  // every thread is done reading Kt before P^T overwrites it
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = valid[j] ? s[i][j] * p.scale : NEG_INF;
-      const float m_cur = group16_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
-      const float m_new = fmaxf(m[i], m_cur);
-      const float alpha = expf(m[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        row_sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + group16_sum(row_sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Pt[(tx * 4 + j) * LD + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&Pt[kk * LD + ty * 4]);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = Vs[kk * DP + tx + 16 * c];
-        acc[0][c] = fmaf(a.x, vv, acc[0][c]);
-        acc[1][c] = fmaf(a.y, vv, acc[1][c]);
-        acc[2][c] = fmaf(a.z, vv, acc[2][c]);
-        acc[3][c] = fmaf(a.w, vv, acc[3][c]);
-      }
-    }
-  }
-
-  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
-  long long o_ss = p.o_ss;
-  float* lse_out = p.lse + (long long)bh * p.Sq;
-  if (p.n_split > 1) {  // this split's partial result
-    const long long part = static_cast<long long>(blockIdx.z) * p.B * p.H + bh;
-    og = p.part_o + part * p.Sq * p.D;
-    o_ss = p.D;
-    lse_out = p.part_lse + part * p.Sq;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= p.Sq) continue;
-    const bool seen_valid = m[i] > NEG_INF * 0.5f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < p.D) og[row * o_ss + col] = seen_valid ? acc[i][c] / l[i] : 0.f;
-    }
-    if (tx == 0) lse_out[row] = seen_valid ? m[i] + logf(l[i]) : NEG_INF;
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 2) flash_fwd_f32_kernel(const Params p) {
-  flash_f32_body<DP, false>(p);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 2) flash_rope_f32_kernel(const Params p) {
-  flash_f32_body<DP, true>(p);
+// this CTA's range [kt0, kt1) of n_tiles kv tiles: blockIdx.z of n_split
+// balanced ranges, none empty while n_split <= n_tiles
+__device__ __forceinline__ void kv_range(const Params& p, int n_tiles, int& kt0, int& kt1) {
+  kt0 = static_cast<int>(blockIdx.z * static_cast<long long>(n_tiles) / p.n_split);
+  kt1 = static_cast<int>((blockIdx.z + 1ll) * n_tiles / p.n_split);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on mma.sync m16n8k16 (fp32 accumulation): the helpers of K2, K4 and
-// K1 at D = 256
+// mma.sync helpers (K4's bf16 route; the quad reductions of every route)
 // ---------------------------------------------------------------------------
-
-constexpr int TC_WARPS = 4;
-constexpr int TC_BQ = 16 * TC_WARPS;  // query rows per CTA, 16 per warp
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 // Row stride (in bf16) of the K/V tiles: DP + 8 makes it an odd multiple of
 // 16 bytes, so the 8 rows one fragment load touches hit distinct banks.
@@ -420,8 +226,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat1
 }
 
 // 16-byte async copy to shared memory; fill = false writes 16 zero bytes
-__device__ __forceinline__ void cp_async_16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                            bool fill) {
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool fill) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :
@@ -453,29 +258,321 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 bf16 at D <= 128: warp-specialised wgmma fed by TMA
+// fp32 (K1 at every D, K2 on the rotated K): three-pass TF32 on mma.sync
+// ---------------------------------------------------------------------------
+//
+// A CTA is 8 warps of 16 query rows (128 rows). Per kv tile, each warp:
+//   S = Q K^T   m16n8k8 TF32, three products per fp32 product (hopper.cuh's
+//               split_tf32_int), A from the Q tile and B from the K tile in
+//               shared memory, both taking k in the order (2t, 2t + 1) for
+//               lane t's slots (t, t + 4), so each fragment is one 8-byte
+//               load (rows DP or DP + 8 floats apart, 8 mod 16: a half-warp
+//               hits 32 distinct banks); every 8 k-steps sum into a zeroed
+//               partial added to S in fp32;
+//   softmax     online, in the log2 domain, masked keys and keys past Skv
+//               -1e30, one division at the end;
+//   O += P V    P from S's registers: the accumulator of 8 keys is the A
+//               fragment of one k-step when V's rows are taken in the order
+//               (2t, 2t + 1), so P never leaves the registers; V from shared
+//               memory (rows DP + 4 floats apart, 4 mod 16). Each 8-column
+//               tile's products sum into a zeroed partial added to O in fp32:
+//               the tensor cores' accumulation does not round to nearest,
+//               and without this K3's fp32 gate failed over 28,704 keys.
+// K and V have one buffer each: the next tile's K streams in (16-byte
+// cp.async) during this tile's P . V, its V during the next tile's S. 64 keys
+// a tile up to D = 64, 32 above. Shared memory: 198 KB at D = 256 (one CTA an
+// SM), 102 KB at D = 128, 71 KB at D = 64 (two CTAs an SM).
+
+constexpr int F_WARPS = 8;
+constexpr int F_THREADS = 32 * F_WARPS;
+constexpr int F_BQ = 16 * F_WARPS;  // query rows per CTA
+constexpr int F_KCH = 8;            // k-steps of S summed into one zeroed partial
+
+template <int DP>
+struct F32Tile {
+  static constexpr int BK = DP > 64 ? 32 : 64;                // keys per kv tile
+  static constexpr int LDQK = DP % 16 == 8 ? DP : DP + 8;     // Q and K row stride
+  static constexpr int LDV = DP + 4;                          // V row stride
+  static constexpr int SMEM = ((F_BQ + BK) * LDQK + BK * LDV) * static_cast<int>(sizeof(float));
+  static constexpr int MIN_CTAS = DP > 128 ? 1 : 2;
+};
+
+// rows [r0, r0 + rows) of a [*, D] fp32 matrix with row stride rs (rows
+// 16-byte aligned) into a [rows][ld] tile, zeros past `limit` rows and past
+// D columns: 16-byte cp.async copies, all in flight at once
+template <int DP>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* src, long long rs,
+                                              int r0, int rows, int limit, int D) {
+  constexpr int CH = DP / 4;  // 16-byte chunks of a row
+  for (int idx = threadIdx.x; idx < rows * CH; idx += F_THREADS) {
+    const int r = idx / CH, c = (idx % CH) * 4;
+    const bool in = r0 + r < limit && c < D;
+    cp_async_16(dst + r * ld + c, in ? src + static_cast<long long>(r0 + r) * rs + c : src, in);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero4(float (&c)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+}
+
+template <int DP>
+__device__ __forceinline__ void flash_tf32_body(const Params& p) {
+  using T = F32Tile<DP>;
+  constexpr int BK = T::BK, LDQK = T::LDQK, LDV = T::LDV;
+  constexpr int K8 = DP / 8;  // k-steps of Q . K^T
+  constexpr int NT = BK / 8;  // 8-key tiles of S, k-steps of P . V
+  constexpr int ND = DP / 8;  // 8-column tiles of O
+  extern __shared__ __align__(16) float f32_smem[];
+  float* Qs = f32_smem;           // [F_BQ][LDQK]
+  float* Ks = Qs + F_BQ * LDQK;   // [BK][LDQK]
+  float* Vs = Ks + BK * LDQK;     // [BK][LDV]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * F_BQ;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const uint8_t* mg = p.mask ? p.mask + b * p.mask_sb : nullptr;
+  int kt0, kt1;
+  kv_range(p, (p.Skv + BK - 1) / BK, kt0, kt1);
+
+  // the first kv tile from kt on with a valid key (kt1: none) and whether
+  // all its keys are valid; one barrier per tile looked at
+  bool dense = false;
+  auto next_tile = [&](int kt) {
+    for (; kt < kt1; ++kt) {
+      const int n =
+          __syncthreads_count(threadIdx.x < BK && key_valid(mg, kt * BK + threadIdx.x, p.Skv));
+      if (n > 0) {
+        dense = n == BK;
+        break;
+      }
+    }
+    return kt;
+  };
+
+  int kt = next_tile(kt0);
+  load_rows_f32<DP>(Qs, LDQK, qg, p.q_ss, q0, F_BQ, p.Sq, p.D);
+  if (kt < kt1) load_rows_f32<DP>(Ks, LDQK, kg, p.k_ss, kt * BK, BK, p.Skv, p.D);
+  cp_async_commit();
+  if (kt < kt1) load_rows_f32<DP>(Vs, LDV, vg, p.v_ss, kt * BK, BK, p.Skv, p.D);
+  cp_async_commit();
+
+  const float scale_log2 = p.scale * LOG2E;
+  float o[ND][4];
+  zero4(o);
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float* qa = Qs + (16 * warp + g) * LDQK + 2 * t;  // rows g, g + 8; k 2t, 2t + 1
+  const float* kb = Ks + g * LDQK + 2 * t;                // key 8n + g; k 2t, 2t + 1
+  const float* vb = Vs + 2 * t * LDV + g;                 // keys 2t, 2t + 1; column 8n + g
+  // acc += this warp's Q . K^T over k-step kk, for the tile's BK keys
+  auto s_step = [&](float (&acc)[NT][4], int kk) {
+    const float2 x0 = *reinterpret_cast<const float2*>(qa + 8 * kk);
+    const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * LDQK + 8 * kk);
+    uint32_t ahi[4], alo[4];
+    split_tf32_int(x0.x, ahi[0], alo[0]);
+    split_tf32_int(x1.x, ahi[1], alo[1]);
+    split_tf32_int(x0.y, ahi[2], alo[2]);
+    split_tf32_int(x1.y, ahi[3], alo[3]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 y = *reinterpret_cast<const float2*>(kb + 8 * n * LDQK + 8 * kk);
+      mma_3xtf32_int(acc[n], ahi, alo, y.x, y.y);
+    }
+  };
+  // P (the exponentials in s) split as the A fragment of k-step n of P . V:
+  // slots (t, t + 4) hold keys (2t, 2t + 1)
+  auto p_split = [&](const float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    split_tf32_int(x[0], hi[0], lo[0]);
+    split_tf32_int(x[2], hi[1], lo[1]);
+    split_tf32_int(x[1], hi[2], lo[2]);
+    split_tf32_int(x[3], hi[3], lo[3]);
+  };
+  while (kt < kt1) {
+    const int k0 = kt * BK;
+    cp_async_wait_newest_pending();  // Q and this tile's K
+    __syncthreads();
+
+    // S = Q . K^T: [16 rows][BK keys] per warp; above 8 k-steps each 8 go
+    // to a zeroed partial added to S in fp32
+    float s[NT][4];
+    zero4(s);
+    if constexpr (K8 <= F_KCH) {
+#pragma unroll
+      for (int kk = 0; kk < K8; ++kk) s_step(s, kk);
+    } else {
+      float part[NT][4];
+#pragma unroll
+      for (int kk = 0; kk < K8; ++kk) {
+        if (kk % F_KCH == 0) zero4(part);
+        s_step(part, kk);
+        if (kk % F_KCH == F_KCH - 1 || kk == K8 - 1) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
+        }
+      }
+    }
+
+    // scale, mask, online softmax in the log2 domain
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool valid = dense || key_valid(mg, k0 + 8 * n + 2 * t + j, p.Skv);
+        s[n][j] = valid ? s[n][j] * scale_log2 : NEG_INF;
+        s[n][2 + j] = valid ? s[n][2 + j] * scale_log2 : NEG_INF;
+        mx[0] = fmaxf(mx[0], s[n][j]);
+        mx[1] = fmaxf(mx[1], s[n][2 + j]);
+      }
+    float alpha[2], row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
+        row_sum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + row_sum[r];
+
+    // the next tile's K streams in during this tile's P . V
+    const int next = next_tile(kt + 1);  // its first barrier: every warp is done with K
+    if (next < kt1) load_rows_f32<DP>(Ks, LDQK, kg, p.k_ss, next * BK, BK, p.Skv, p.D);
+    cp_async_commit();
+    cp_async_wait_newest_pending();  // this tile's V
+    __syncthreads();
+
+    // O = O * alpha + P . V, the tile's products of each 8-column tile of O
+    // in a zeroed partial: up to D = 64 all of them at once (each P split
+    // once, 4 registers a column tile), above one column tile at a time (P
+    // split once into 8 registers a k-step)
+    auto add_tile = [&](float (&oc)[4], const float (&acc)[4]) {
+      oc[0] = fmaf(oc[0], alpha[0], acc[0]);
+      oc[1] = fmaf(oc[1], alpha[0], acc[1]);
+      oc[2] = fmaf(oc[2], alpha[1], acc[2]);
+      oc[3] = fmaf(oc[3], alpha[1], acc[3]);
+    };
+    if constexpr (ND <= 8) {
+      float acc[ND][4];
+      zero4(acc);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t phi[4], plo[4];
+        p_split(s[n], phi, plo);
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          const float* vrow = vb + 8 * n * LDV + 8 * nd;
+          mma_3xtf32_int(acc[nd], phi, plo, vrow[0], vrow[LDV]);
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) add_tile(o[nd], acc[nd]);
+    } else {
+      uint32_t phi[NT][4], plo[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) p_split(s[n], phi[n], plo[n]);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float* vrow = vb + 8 * n * LDV + 8 * nd;
+          mma_3xtf32_int(acc, phi[n], plo[n], vrow[0], vrow[LDV]);
+        }
+        add_tile(o[nd], acc);
+      }
+    }
+    __syncthreads();  // every warp is done with V
+    if (next < kt1) load_rows_f32<DP>(Vs, LDV, vg, p.v_ss, next * BK, BK, p.Skv, p.D);
+    cp_async_commit();
+    kt = next;
+  }
+  cp_async_wait_all();  // Q, where the range had no valid key
+
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  long long o_ss = p.o_ss;
+  float* lse_out = p.lse + static_cast<long long>(bh) * p.Sq;
+  if (p.n_split > 1) {  // this split's partial result
+    const long long part_i = static_cast<long long>(blockIdx.z) * p.B * p.H + bh;
+    og = p.part_o + part_i * p.Sq * p.D;
+    o_ss = p.D;
+    lse_out = p.part_lse + part_i * p.Sq;
+  }
+  float l_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_row[r] = quad_sum(l[r]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + g + 8 * r;
+    if (row >= p.Sq) continue;
+    const bool seen_valid = m[r] > NEG_INF * 0.5f;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const int col = 8 * nd + 2 * t;
+      if (col < p.D)
+        *reinterpret_cast<float2*>(og + row * o_ss + col) =
+            seen_valid ? make_float2(o[nd][2 * r] / l_row[r], o[nd][2 * r + 1] / l_row[r])
+                       : make_float2(0.f, 0.f);
+    }
+    if (t == 0) lse_out[row] = seen_valid ? (m[r] + log2f(l_row[r])) * LN2 : NEG_INF;
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(F_THREADS, F32Tile<DP>::MIN_CTAS)
+    flash_fwd_tf32_kernel(const Params p) {
+  flash_tf32_body<DP>(p);
+}
+
+// K2's fp32 attention: the same body under K2's name
+template <int DP>
+__global__ void __launch_bounds__(F_THREADS, F32Tile<DP>::MIN_CTAS)
+    flash_rope_tf32_kernel(const Params p) {
+  flash_tf32_body<DP>(p);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 (K1 at D <= 128 and 256, K2 on the rotated K): warp-specialised wgmma
+// fed by TMA
 // ---------------------------------------------------------------------------
 //
 // A CTA is three warpgroups. One warp of the first keeps TMA loads in flight
-// (40 registers, setmaxnreg); the other two consume (232), each owning 64 of
-// the CTA's 128 query rows. Q arrives once; K and V tiles of 128 keys stream
-// through two rings, one of K tiles and one of V tiles (3 stages each at
-// D > 64, 6 below), each stage with its own full/empty mbarrier pair, so a K
-// stage is free again as soon as its S is done; tiles arrive as 128-byte
-// swizzled boxes of 64 head-dim columns whose columns past D TMA fills with
-// zeros. Beside each K stage the producer writes the tile's first key and
-// its valid keys as four 32-bit words (from the mask where one is given,
-// else from Skv: no mask bytes are read), and whether all 128 are valid; a
-// tile with no valid key is skipped, which is exact (see the top note). Per
-// tile and warpgroup:
-//   S = Q K^T      wgmma m64n128k16, both operands K-major from shared
-//                  memory, over the head dim padded to DP, the next multiple
-//                  of 16 (72 -> 80, 56 -> 64), not of 64;
-//   O += P V       wgmma m64nDVk16, P from registers (S's accumulator fragment
+// (40 registers, setmaxnreg; 24 at D = 256); the other two consume (232; 240
+// at D = 256), each owning 64 of the CTA's 128 query rows. Q arrives once; K and V tiles stream through two
+// rings, one of K tiles and one of V tiles (3 stages each at D = 72-128, 6
+// up to D = 64, 2 at D = 256), each stage with its own full/empty mbarrier
+// pair, so a K stage is free again as soon as its S is done; tiles arrive as
+// 128-byte swizzled boxes of 64 head-dim columns whose columns past D TMA
+// fills with zeros. A stage holds 128 keys up to D = 128 and 64 at D = 256,
+// where a 128-key K or V tile is 64 KB and two stages of each would not fit
+// beside the 64 KB Q tile (Q, two K and two V stages: 194 KB). Beside each K
+// stage the producer writes the tile's first key and its valid keys as one
+// 32-bit word per 32 keys (from the mask where one is given, else from Skv:
+// no mask bytes are read), and whether all are valid; a tile with no valid
+// key is skipped. Per tile and warpgroup:
+//   S = Q K^T      wgmma m64n128k16 (m64n64k16 at D = 256), both operands
+//                  K-major from shared memory, over the head dim padded to
+//                  DP, the next multiple of 16 (72 -> 80, 56 -> 64);
+//   O += P V       wgmma m64nNk16, P from registers (S's accumulator fragment
 //                  rounded to bf16 is the A fragment) and V as the MN-major
-//                  B operand, N = DV = D at D = 56, 72 and multiples of 16
-//                  (one descriptor spans both 64-column swizzle atoms: its
-//                  leading offset is the box stride), else D padded to 16.
+//                  B operand: N = D at D = 56, 72 and multiples of 16 up to
+//                  128 (one descriptor spans both 64-column swizzle atoms: its
+//                  leading offset is the box stride), else D padded to 16; at
+//                  D = 256 two products of N = 128, each over two atoms.
+// At D = 256 O takes 128 fp32 registers a thread, S 32 and P 16.
 // The softmax of one warpgroup runs while the other's products do
 // (FlashAttention-3's ping-pong): two named barriers hand the tensor cores
 // from one warpgroup to the other, and each turn issues S of tile i and then
@@ -492,7 +589,6 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 constexpr int WG_THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int WG_BQ = 128;       // query rows per CTA, 64 per consumer warpgroup
-constexpr int WG_BK = 128;       // keys per stage
 constexpr int BOX_ROW = 128;     // bytes of one swizzled box row: 64 bf16 columns
 constexpr int SMEM_LIMIT = 232448;
 constexpr int BARS_BYTES = 512;  // mbarriers, then each K stage's first key, key words, density
@@ -501,11 +597,13 @@ constexpr int BAR_TURN = 1;      // named barriers 1 and 2: the consumer warpgro
 
 template <int DV>
 struct FwdWg {
+  static constexpr int BK = DV > 128 ? 64 : 128;  // keys per stage
   static constexpr int DP = (DV + 15) / 16 * 16;  // depth of Q . K^T
   static constexpr int NB = (DP + 63) / 64;       // 64-column boxes of a row
   static constexpr int KSTEPS = DP / 16;
+  static constexpr int NPV = DV > 128 ? 2 : 1;    // P . V products per k-step, N = DV / NPV
   static constexpr int Q_BOX = WG_BQ * BOX_ROW;
-  static constexpr int KV_BOX = WG_BK * BOX_ROW;
+  static constexpr int KV_BOX = BK * BOX_ROW;
   static constexpr int Q_BYTES = NB * Q_BOX;
   static constexpr int TILE = NB * KV_BOX;  // one K or V tile
   static constexpr int FIXED = Q_BYTES + 1024 + BARS_BYTES;  // + alignment slack
@@ -513,7 +611,13 @@ struct FwdWg {
                                     ? (SMEM_LIMIT - FIXED) / (2 * TILE)
                                     : MAX_STAGES;
   static constexpr int SMEM = FIXED + 2 * STAGES * TILE;
-  static_assert(STAGES >= 2, "K1 needs two stages in each ring");
+  // registers (setmaxnreg) of the producer warpgroup and of each consumer:
+  // at D = 256 O alone is 128 a thread, so the consumers take 240 and the
+  // producer 24 (FlashAttention-3's split), else 232 and 40
+  static constexpr int PRODUCER_REGS = DV > 128 ? 24 : 40;
+  static constexpr int CONSUMER_REGS = DV > 128 ? 240 : 232;
+  static_assert(STAGES >= 2, "the bf16 forward needs two stages in each ring");
+  static_assert(BK == 64 || BK == 128, "S is one m64n64 or m64n128 product a k-step");
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -523,14 +627,14 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 template <int DV>
-__global__ void __launch_bounds__(WG_THREADS, 1)
-    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                           const __grid_constant__ CUtensorMap tm_k,
-                           const __grid_constant__ CUtensorMap tm_v, const Params p) {
+__device__ __forceinline__ void fwd_wgmma_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                               const CUtensorMap& tm_v, const Params& p) {
   using S = FwdWg<DV>;
-  constexpr int NB = S::NB, ST = S::STAGES;
-  constexpr int NX = WG_BK / 2;   // S accumulator registers: 16 n8 chunks of 4
-  constexpr int PK = WG_BK / 16;  // k16 steps of P . V
+  constexpr int NB = S::NB, ST = S::STAGES, BK = S::BK, NPV = S::NPV;
+  constexpr int NW = DV / NPV;   // columns of one P . V product
+  constexpr int NX = BK / 2;     // S accumulator registers: BK/8 n8 chunks of 4
+  constexpr int PK = BK / 16;    // k16 steps of P . V
+  constexpr int WORDS = BK / 32;
   extern __shared__ uint8_t fwd_smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(fwd_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -543,7 +647,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const uint32_t k_full = q_bar + 8, k_empty = k_full + 8 * MAX_STAGES;
   const uint32_t v_full = k_empty + 8 * MAX_STAGES, v_empty = v_full + 8 * MAX_STAGES;
   // beside each K stage: the tile's first key (-1: the end), its valid keys
-  // as four 32-bit words, and whether all 128 are valid
+  // as up to four 32-bit words, and whether all are valid
   volatile int* tile_s = reinterpret_cast<volatile int*>(bars + 8 + 32 * MAX_STAGES);
   volatile uint32_t* words_s =
       reinterpret_cast<volatile uint32_t*>(bars + 8 + 36 * MAX_STAGES);  // [ST][4]
@@ -566,9 +670,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // producer: warp 0 walks the kv tiles, skipping those with no valid key;
-    // its lane 0 issues every TMA load, K then V of each tile
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    // producer: warp 0 walks this CTA's kv tiles, skipping those with no
+    // valid key; its lane 0 issues every TMA load, K then V of each tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::PRODUCER_REGS));
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
     if (lane == 0) {
@@ -576,26 +680,27 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       for (int c = 0; c < NB; ++c)
         tma_load_4d(smem_u32(Qs + c * S::Q_BOX), &tm_q, q_bar, 64 * c, q0, h, b);
     }
-    const int n_tiles = (p.Skv + WG_BK - 1) / WG_BK;
+    int kt0, kt1;
+    kv_range(p, (p.Skv + BK - 1) / BK, kt0, kt1);
     int i = 0;
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int k0 = kt * WG_BK;
-      uint32_t w[4];
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int k0 = kt * BK;
+      uint32_t w[WORDS];
       bool any = false, dense = true;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < WORDS; ++j) {
         w[j] = __ballot_sync(0xffffffffu, key_valid(mg, k0 + 32 * j + lane, p.Skv));
         any = any || w[j] != 0u;
         dense = dense && w[j] == 0xffffffffu;
       }
       // a tile with no valid key is skipped, but one tile always goes: the
       // consumers' first turn has a tile (all masked: its rows end at 0)
-      if (!any && (i > 0 || kt + 1 < n_tiles)) continue;
+      if (!any && (i > 0 || kt + 1 < kt1)) continue;
       const int s = i % ST, parity = ((i / ST) & 1) ^ 1;
       if (lane == 0) {
         mbar_wait(k_empty + 8 * s, parity);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) words_s[4 * s + j] = w[j];
+        for (int j = 0; j < WORDS; ++j) words_s[4 * s + j] = w[j];
         dense_s[s] = dense;
         tile_s[s] = k0;
         mbar_expect_tx(k_full + 8 * s, S::TILE);
@@ -620,7 +725,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 
   // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::CONSUMER_REGS));
   const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int my_turn = BAR_TURN + wg, other_turn = BAR_TURN + 1 - wg;
@@ -628,9 +733,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const uint32_t qa = smem_u32(Qs) + wg * 64 * BOX_ROW;
   const float scale_log2 = p.scale * LOG2E;
 
-  float o[DV / 2];
+  float o[NPV][NW / 2];
 #pragma unroll
-  for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
+  for (int c = 0; c < NPV; ++c)
+#pragma unroll
+    for (int e = 0; e < NW / 2; ++e) o[c][e] = 0.f;
   float x[NX];  // S, then P in fp32: chunk i holds rows g, g + 8 x keys 8i + 2t, +1
 #pragma unroll
   for (int e = 0; e < NX; ++e) x[e] = 0.f;
@@ -645,29 +752,44 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const uint32_t kb = smem_u32(k_ring + s * S::TILE);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < S::KSTEPS; ++j)
-      wgmma_ss_n128(x, smem_desc(qa + (j / 4) * S::Q_BOX) + 2 * (j % 4),
-                    smem_desc(kb + (j / 4) * S::KV_BOX) + 2 * (j % 4), j > 0);
+    for (int j = 0; j < S::KSTEPS; ++j) {
+      const uint64_t da = smem_desc(qa + (j / 4) * S::Q_BOX) + 2 * (j % 4);
+      const uint64_t db = smem_desc(kb + (j / 4) * S::KV_BOX) + 2 * (j % 4);
+      if constexpr (BK == 128)
+        wgmma_ss_n128(x, da, db, j > 0);
+      else
+        wgmma_ss_n64(x, da, db, j > 0);
+    }
     wgmma_commit();
   };
   auto issue_pv = [&](int s) {  // O = O * alpha + P . V of the tile in V stage s
 #pragma unroll
-    for (int e = 0; e < DV / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+    for (int c = 0; c < NPV; ++c)
+#pragma unroll
+      for (int e = 0; e < NW / 2; ++e) o[c][e] *= alpha[(e >> 1) & 1];
     const uint32_t vb = smem_u32(v_ring + s * S::TILE);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < PK; ++j)
-      wgmma_rs_tb<DV>(o, pf[j], smem_desc_mn_atoms(vb + j * 16 * BOX_ROW, S::KV_BOX));
+    for (int c = 0; c < NPV; ++c)
+#pragma unroll
+      for (int j = 0; j < PK; ++j)
+        wgmma_rs_tb<NW>(o[c], pf[j],
+                        smem_desc_mn_atoms(vb + c * (NW / 64) * S::KV_BOX + j * 16 * BOX_ROW,
+                                           S::KV_BOX));
     wgmma_commit();
+  };
+  auto fence_o = [&]() {
+#pragma unroll
+    for (int c = 0; c < NPV; ++c) fence_regs(o[c]);
   };
   // this lane's view of a K stage's valid keys: bit 8 (i % 4) + (e & 1) of
   // wt[i / 4] is key 8i + 2t + (e & 1), read before the stage is released
   bool dense;
-  uint32_t wt[4];
+  uint32_t wt[WORDS];
   auto read_keys = [&](int s) {
     dense = dense_s[s];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wt[j] = words_s[4 * s + j] >> (2 * t);
+    for (int j = 0; j < WORDS; ++j) wt[j] = words_s[4 * s + j] >> (2 * t);
   };
   auto release = [&](uint32_t empty) {
     if (lane == 0) mbar_arrive(empty);
@@ -743,7 +865,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     release(k_empty + 8 * s);
     softmax();
     wgmma_wait<0>();  // the previous tile's P . V: its V stage and pf are free
-    fence_regs(o);
+    fence_o();
     fence_regs(pf);
     release(v_empty + 8 * prev);
     to_a_frag<PK>(pf, x);
@@ -756,12 +878,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   issue_pv(prev);
   if (wg == 0) named_arrive(other_turn);
   wgmma_wait<0>();
-  fence_regs(o);
+  fence_o();
 
   float l_row[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) l_row[r] = quad_sum(l[r]);
+  const bool split = p.n_split > 1;
+  const long long part_i = static_cast<long long>(blockIdx.z) * p.B * p.H + bh;
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  float* po = p.part_o + part_i * p.Sq * p.D;  // used when the kv axis is split
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + 64 * wg + 16 * warp + g + 8 * r;
@@ -769,34 +894,49 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const bool seen_valid = m[r] > NEG_INF * 0.5f;
     const float inv_l = seen_valid ? 1.f / l_row[r] : 0.f;
 #pragma unroll
-    for (int i = 0; i < DV / 8; ++i) {
-      const int col = 8 * i + 2 * t;
-      if (col < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(og + row * p.o_ss + col) =
-            __floats2bfloat162_rn(o[4 * i + 2 * r] * inv_l, o[4 * i + 2 * r + 1] * inv_l);
+    for (int c = 0; c < NPV; ++c)
+#pragma unroll
+      for (int i8 = 0; i8 < NW / 8; ++i8) {
+        const int col = NW * c + 8 * i8 + 2 * t;
+        if (col >= p.D) continue;
+        const float v0 = o[c][4 * i8 + 2 * r] * inv_l, v1 = o[c][4 * i8 + 2 * r + 1] * inv_l;
+        if (split)
+          *reinterpret_cast<float2*>(po + static_cast<long long>(row) * p.D + col) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(og + row * p.o_ss + col) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+    if (t == 0) {
+      const float lse = seen_valid ? (m[r] + log2f(l_row[r])) * LN2 : NEG_INF;
+      if (split)
+        p.part_lse[part_i * p.Sq + row] = lse;
+      else
+        p.lse[static_cast<long long>(bh) * p.Sq + row] = lse;
     }
-    if (t == 0)
-      p.lse[(long long)bh * p.Sq + row] =
-          seen_valid ? (m[r] + log2f(l_row[r])) * LN2 : NEG_INF;
   }
 }
 
-// ---------------------------------------------------------------------------
-// K2 bf16 (ROPE = true) and K1 bf16 at D = 256 (ROPE = false): mma.sync at
-// head dims up to 256, K2 rotating K in shared memory
-// ---------------------------------------------------------------------------
-//
-// At D = 256 a warp's [16][256] fp32 accumulator alone takes 128 registers
-// per thread, so Q leaves the registers for shared memory (one ldmatrix per
-// k-step) and the kv tile shrinks to 32 keys (S takes 16 registers).
-// Q [64][264] + {K, V} x 2 stages [32][264] = 101,376 bytes: two CTAs per SM.
-
-constexpr int RP_BK = 32;  // keys per kv tile
-
-template <int DP>
-constexpr int smem_bytes_rope_bf16() {
-  return (TC_BQ + 4 * RP_BK) * tc_ld(DP) * static_cast<int>(sizeof(__nv_bfloat16));
+template <int DV>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  fwd_wgmma_body<DV>(tm_q, tm_k, tm_v, p);
 }
+
+// K2's bf16 attention: the same body under K2's name
+template <int DV>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_rope_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  fwd_wgmma_body<DV>(tm_q, tm_k, tm_v, p);
+}
+
+// ---------------------------------------------------------------------------
+// K2, part one: the rotation, once per call
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float rot_lo(float x1, float x2, float c, float s) {
   return __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s));  // no FMA: the plain version's rounding
@@ -806,195 +946,50 @@ __device__ __forceinline__ float rot_hi(float x1, float x2, float c, float s) {
   return __fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c));
 }
 
-template <int DP, bool ROPE>
-__global__ void __launch_bounds__(TC_WARPS * 32, 2) flash_wide_bf16_kernel(const Params p) {
-  constexpr int LDK = tc_ld(DP);
-  constexpr int KS = DP / 16;      // k-steps of Q . K^T
-  constexpr int ND = DP / 8;       // 8-column slices of the output
-  constexpr int NT = RP_BK / 8;    // 8-key slices of S
-  constexpr int HALF = DP / 2;
-  constexpr int CHUNKS = DP / 8;   // 16-byte chunks per row
-  constexpr int TILE = RP_BK * LDK;
-  extern __shared__ __align__(16) __nv_bfloat16 rp_smem[];
-  __nv_bfloat16* Qs = rp_smem;             // [TC_BQ][LDK]
-  __nv_bfloat16* Ks = Qs + TC_BQ * LDK;    // [2][RP_BK][LDK]
-  __nv_bfloat16* Vs = Ks + 2 * TILE;       // [2][RP_BK][LDK]
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f32(float& dst, float x) { dst = x; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16& dst, float x) {
+  dst = __float2bfloat16_rn(x);
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, lane in the quad
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int q_tile = blockIdx.x * TC_BQ;
-  const int q0 = q_tile + warp * 16;
+constexpr int ROT_THREADS = 256;
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* cg = static_cast<const __nv_bfloat16*>(p.cos);
-  const __nv_bfloat16* sg = static_cast<const __nv_bfloat16*>(p.sin);
-  const uint8_t* mg = p.mask ? p.mask + b * p.mask_sb : nullptr;
+template <typename T>
+struct alignas(16) Chunk {  // 16 bytes of a row
+  T x[16 / sizeof(T)];
+};
 
-  // the CTA's Q tile (rows past Sq zero-filled) rides in the first copy group
-  for (int idx = threadIdx.x; idx < TC_BQ * CHUNKS; idx += blockDim.x) {
-    const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
-    const bool in = q_tile + r < p.Sq;
-    const long long row = in ? q_tile + r : 0;
-    cp_async_16(Qs + r * LDK + c, qg + row * p.q_ss + c, in);
-  }
-  auto load_tile = [&](int tile, int stage) {
-    const int k0 = tile * RP_BK;
-    for (int idx = threadIdx.x; idx < RP_BK * CHUNKS; idx += blockDim.x) {
-      const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
-      const bool in = k0 + r < p.Skv;  // rows past Skv are zero-filled
-      const long long row = in ? k0 + r : 0;
-      cp_async_16(Ks + stage * TILE + r * LDK + c, kg + row * p.k_ss + c, in);
-      cp_async_16(Vs + stage * TILE + r * LDK + c, vg + row * p.v_ss + c, in);
+// kr [B*H, Skv, D] (contiguous) = k rotated by the [Skv, D/2] tables. A
+// thread takes one 16-byte chunk of a table row (columns d .. d + 16 bytes)
+// and rotates the chunk pair (d, d + D/2) of that key for every (b, h): each
+// table byte and each K byte is read once, each kr byte written once.
+template <typename T>
+__global__ void __launch_bounds__(ROT_THREADS) flash_rope_rotate_kernel(const Params p, T* kr) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const int half = p.D / 2, chunks = half / VEC;
+  const long long idx = static_cast<long long>(blockIdx.x) * ROT_THREADS + threadIdx.x;
+  if (idx >= static_cast<long long>(p.Skv) * chunks) return;
+  const int row = static_cast<int>(idx / chunks), d = static_cast<int>(idx % chunks) * VEC;
+  const long long trow = static_cast<long long>(row) * half + d;
+  const Chunk<T> c = *reinterpret_cast<const Chunk<T>*>(static_cast<const T*>(p.cos) + trow);
+  const Chunk<T> s = *reinterpret_cast<const Chunk<T>*>(static_cast<const T*>(p.sin) + trow);
+  for (int bh = 0; bh < p.B * p.H; ++bh) {
+    const int b = bh / p.H, h = bh % p.H;
+    const T* src = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh + row * p.k_ss;
+    const Chunk<T> x1 = *reinterpret_cast<const Chunk<T>*>(src + d);
+    const Chunk<T> x2 = *reinterpret_cast<const Chunk<T>*>(src + half + d);
+    Chunk<T> lo, hi;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float a1 = to_f32(x1.x[e]), a2 = to_f32(x2.x[e]);
+      const float ce = to_f32(c.x[e]), se = to_f32(s.x[e]);
+      from_f32(lo.x[e], rot_lo(a1, a2, ce, se));
+      from_f32(hi.x[e], rot_hi(a1, a2, ce, se));
     }
-  };
-  const int n_tiles = (p.Skv + RP_BK - 1) / RP_BK;
-  const int per_split = (n_tiles + p.n_split - 1) / p.n_split;
-  const int t_begin = blockIdx.z * per_split;
-  const int t_end = min(n_tiles, t_begin + per_split);
-  if (t_begin < t_end) load_tile(t_begin, 0);
-  cp_async_commit();
-
-  const float scale_log2 = p.scale * LOG2E;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  // ldmatrix rows of this warp's Q (A operand: rows 0..15, d-columns +0 / +8)
-  const __nv_bfloat16* qfrag = Qs + (warp * 16 + (lane & 15)) * LDK + 8 * (lane >> 4);
-
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int stage = (tile - t_begin) & 1;
-    if (tile + 1 < t_end) load_tile(tile + 1, stage ^ 1);
-    cp_async_commit();  // possibly empty: keeps "all but the newest group" = this tile
-    cp_async_wait_newest_pending();
-    const int k0 = tile * RP_BK;
-    // the barrier after which this tile's copies are visible to all warps;
-    // a tile with no valid key is skipped (exact, as a masked tile is in K1)
-    if (!__syncthreads_or(threadIdx.x < RP_BK && key_valid(mg, k0 + threadIdx.x, p.Skv)))
-      continue;
-    __nv_bfloat16* ks_tile = Ks + stage * TILE;
-    const __nv_bfloat16* vs_tile = Vs + stage * TILE;
-
-    if constexpr (ROPE) {
-      // rotate the K tile in place, two channel pairs per step, in fp32 from
-      // the bf16 inputs and rounded once to bf16
-      for (int idx = threadIdx.x; idx < RP_BK * (HALF / 2); idx += blockDim.x) {
-        const int r = idx / (HALF / 2), d = (idx % (HALF / 2)) * 2;
-        if (k0 + r >= p.Skv) continue;  // zero-filled rows stay zero
-        const long long trow = static_cast<long long>(k0 + r) * HALF + d;
-        __nv_bfloat162* lo = reinterpret_cast<__nv_bfloat162*>(ks_tile + r * LDK + d);
-        __nv_bfloat162* hi = reinterpret_cast<__nv_bfloat162*>(ks_tile + r * LDK + HALF + d);
-        const float2 x1 = __bfloat1622float2(*lo), x2 = __bfloat1622float2(*hi);
-        const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cg + trow));
-        const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sg + trow));
-        *lo = __floats2bfloat162_rn(rot_lo(x1.x, x2.x, c.x, s.x), rot_lo(x1.y, x2.y, c.y, s.y));
-        *hi = __floats2bfloat162_rn(rot_hi(x1.x, x2.x, c.x, s.x), rot_hi(x1.y, x2.y, c.y, s.y));
-      }
-      __syncthreads();
-    }
-
-    // S = Q . K^T: [16 rows][32 keys] per warp, fp32
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const __nv_bfloat16* kfrag =
-        ks_tile + ((lane & 7) + 8 * (lane >> 4)) * LDK + 8 * ((lane >> 3) & 1);
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4];
-      ldmatrix_x4(qa, qfrag + 16 * ks);
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, kfrag + 8 * nt * LDK + 16 * ks);
-        mma_bf16(s[nt], qa, kb[0], kb[1]);
-        mma_bf16(s[nt + 1], qa, kb[2], kb[3]);
-      }
-    }
-
-    // scale, mask, online softmax (K1's)
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool valid = key_valid(mg, k0 + 8 * nt + 2 * t + j, p.Skv);
-        s[nt][j] = valid ? s[nt][j] * scale_log2 : NEG_INF;
-        s[nt][2 + j] = valid ? s[nt][2 + j] * scale_log2 : NEG_INF;
-        mx[0] = fmaxf(mx[0], s[nt][j]);
-        mx[1] = fmaxf(mx[1], s[nt][2 + j]);
-      }
-    float alpha[2], row_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[nt][j] = exp2f(s[nt][j] - m[j >> 1]);
-        row_sum[j >> 1] += s[nt][j];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(row_sum[i]);
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      o[nd][0] *= alpha[0];
-      o[nd][1] *= alpha[0];
-      o[nd][2] *= alpha[1];
-      o[nd][3] *= alpha[1];
-    }
-
-    // O += P . V, P re-packed to bf16 in registers
-#pragma unroll
-    for (int kk = 0; kk < RP_BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vrow = vs_tile + (16 * kk + (lane & 15)) * LDK + 8 * (lane >> 4);
-#pragma unroll
-      for (int nd = 0; nd < ND; nd += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vrow + 8 * nd);
-        mma_bf16(o[nd], pa, vb[0], vb[1]);
-        mma_bf16(o[nd + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  cp_async_wait_all();  // a split with no tile still has its Q copy in flight
-
-  const long long part = static_cast<long long>(blockIdx.z) * p.B * p.H + bh;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-  float* po = p.part_o + part * p.Sq * DP;  // used when the kv axis is split
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + g + 8 * i;
-    if (row >= p.Sq) continue;
-    const bool seen_valid = m[i] > NEG_INF * 0.5f;
-    const float inv_l = seen_valid ? 1.f / l[i] : 0.f;
-    const float lse = seen_valid ? (m[i] + log2f(l[i])) * LN2 : NEG_INF;
-    if (p.n_split > 1) {
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<float2*>(po + row * DP + 8 * nd + 2 * t) =
-            make_float2(o[nd][2 * i] * inv_l, o[nd][2 * i + 1] * inv_l);
-      if (t == 0) p.part_lse[part * p.Sq + row] = lse;
-    } else {
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<__nv_bfloat162*>(og + row * p.o_ss + 8 * nd + 2 * t) =
-            __floats2bfloat162_rn(o[nd][2 * i] * inv_l, o[nd][2 * i + 1] * inv_l);
-      if (t == 0) p.lse[(long long)bh * p.Sq + row] = lse;
-    }
+    T* dst = kr + (static_cast<long long>(bh) * p.Skv + row) * p.D;
+    *reinterpret_cast<Chunk<T>*>(dst + d) = lo;
+    *reinterpret_cast<Chunk<T>*>(dst + half + d) = hi;
   }
 }
 
@@ -1214,7 +1209,7 @@ __global__ void __launch_bounds__(KP_THREADS, 1) flash_kvproj_bf16_kernel(const 
     }
     __syncthreads();  // the K and V tiles are complete
 
-    // S = Q . K^T: [16 rows][32 keys] per warp, fp32 (K2's)
+    // S = Q . K^T: [16 rows][32 keys] per warp, fp32
     float s[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
@@ -1315,7 +1310,7 @@ __global__ void __launch_bounds__(KP_THREADS, 1) flash_kvproj_bf16_kernel(const 
   }
 }
 
-// fp32: K2's FMA scheme at 128 query rows x 32 keys. Thread (ty, tx) owns
+// fp32: FMAs on the CUDA cores at 128 query rows x 32 keys. Thread (ty, tx) owns
 // query rows 4ty..4ty+3, keys 4tx..4tx+3 of S and output columns tx + 8c.
 template <int DM>
 __global__ void __launch_bounds__(KP_THREADS, 1) flash_kvproj_f32_kernel(const Params p) {
@@ -1520,12 +1515,14 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* dst, float x) {
   *dst = __float2bfloat16_rn(x);
 }
 
-// Merges the kv splits of K2, K4 and K1 at D = 256: out = sum_s
-// exp(lse_s - lse) * out_s with lse = log sum_s exp(lse_s); a split that saw
-// no valid key has lse_s = -1e30 and weight 0; a row with none at all gets 0
-// and -1e30. One CTA per (query row, b*h), one thread per output column.
+// Merges the kv splits: out = sum_s exp(lse_s - lse) * out_s with lse = log
+// sum_s exp(lse_s); a split that saw no valid key has lse_s = -1e30 and
+// weight 0; a row with none at all gets 0 and -1e30. One CTA per (query row,
+// b*h), one thread per output column. Each caller launches it under its own
+// name (flash_fwd_ K1, flash_rope_ K2, flash_kvproj_ K4), so a profile puts
+// it with the kernel whose splits it merges.
 template <typename T>
-__global__ void __launch_bounds__(128) flash_combine_kernel(const Params p) {
+__device__ __forceinline__ void combine_body(const Params& p) {
   const int row = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
   const long long split_stride = static_cast<long long>(p.B) * p.H * p.Sq;
@@ -1547,6 +1544,27 @@ __global__ void __launch_bounds__(128) flash_combine_kernel(const Params p) {
       seen_valid ? m + logf(l) : NEG_INF;
 }
 
+template <typename T>
+__global__ void __launch_bounds__(128) flash_fwd_combine_kernel(const Params p) {
+  combine_body<T>(p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128) flash_rope_combine_kernel(const Params p) {
+  combine_body<T>(p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128) flash_kvproj_combine_kernel(const Params p) {
+  combine_body<T>(p);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+enum class Caller { K1, K2, K4 };
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int smem, int rows_per_cta, int threads, const Params& p,
                    cudaStream_t stream) {
@@ -1557,103 +1575,119 @@ cudaError_t launch(Kernel kernel, int smem, int rows_per_cta, int threads, const
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_f32_dp(const Params& p, cudaStream_t stream) {
-  return launch(flash_fwd_f32_kernel<DP>, smem_bytes_f32<DP>(), BQ, THREADS, p, stream);
-}
-
-// K1 bf16 at D <= 128: the tensor maps of q, k and v, then the kernel
-template <int DV>
-cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, p.q, p.B, p.H, p.Sq, p.D, p.q_sb, p.q_sh, p.q_ss, WG_BQ) ||
-      !make_map(&mk, p.k, p.B, p.H, p.Skv, p.D, p.k_sb, p.k_sh, p.k_ss, WG_BK) ||
-      !make_map(&mv, p.v, p.B, p.H, p.Skv, p.D, p.v_sb, p.v_sh, p.v_ss, WG_BK))
-    return cudaErrorInvalidValue;
-  constexpr int smem = FwdWg<DV>::SMEM;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + WG_BQ - 1) / WG_BQ, p.B * p.H);
-  flash_fwd_wgmma_kernel<DV><<<grid, WG_THREADS, smem, stream>>>(mq, mk, mv, p);
-  return cudaGetLastError();
-}
-
-// P . V runs at N = D where D is 56, 72 (hiera-b+'s and hiera-L's global
-// blocks) or a multiple of 16; other D at D padded to 16
-cudaError_t dispatch_wgmma(const Params& p, cudaStream_t stream) {
-  switch (p.D) {
-    case 56: return launch_wgmma<56>(p, stream);
-    case 72: return launch_wgmma<72>(p, stream);
-    default: break;
-  }
-  switch ((p.D + 15) / 16) {
-    case 1: return launch_wgmma<16>(p, stream);
-    case 2: return launch_wgmma<32>(p, stream);
-    case 3: return launch_wgmma<48>(p, stream);
-    case 4: return launch_wgmma<64>(p, stream);
-    case 5: return launch_wgmma<80>(p, stream);
-    case 6: return launch_wgmma<96>(p, stream);
-    case 7: return launch_wgmma<112>(p, stream);
-    case 8: return launch_wgmma<128>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// After a kv-split launch (K1 at D = 256, K2, K4): the combine kernel on the
-// same stream.
+// After a kv-split launch: the caller's combine kernel on the same stream.
+template <Caller C>
 cudaError_t launch_combine(cudaError_t err, bool bf16, const Params& p, cudaStream_t stream) {
   if (err != cudaSuccess || p.n_split == 1) return err;
   const dim3 grid(p.Sq, p.B * p.H);
-  if (bf16)
-    flash_combine_kernel<__nv_bfloat16><<<grid, 128, 0, stream>>>(p);
-  else
-    flash_combine_kernel<float><<<grid, 128, 0, stream>>>(p);
+  if constexpr (C == Caller::K1) {
+    if (bf16)
+      flash_fwd_combine_kernel<__nv_bfloat16><<<grid, 128, 0, stream>>>(p);
+    else
+      flash_fwd_combine_kernel<float><<<grid, 128, 0, stream>>>(p);
+  } else if constexpr (C == Caller::K2) {
+    if (bf16)
+      flash_rope_combine_kernel<__nv_bfloat16><<<grid, 128, 0, stream>>>(p);
+    else
+      flash_rope_combine_kernel<float><<<grid, 128, 0, stream>>>(p);
+  } else {
+    if (bf16)
+      flash_kvproj_combine_kernel<__nv_bfloat16><<<grid, 128, 0, stream>>>(p);
+    else
+      flash_kvproj_combine_kernel<float><<<grid, 128, 0, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
-// K1 at D = 256: K2's kernels without the rotation, kv split as K2's.
-cudaError_t launch_k1_wide(bool bf16, const Params& p, cudaStream_t stream) {
-  return launch_combine(
-      bf16 ? launch(flash_wide_bf16_kernel<256, false>, smem_bytes_rope_bf16<256>(), TC_BQ,
-                    TC_WARPS * 32, p, stream)
-           : launch(flash_fwd_f32_kernel<256>, smem_bytes_f32<256>(), BQ, THREADS, p, stream),
-      bf16, p, stream);
+// K1's kernels or, for K2, the same bodies under K2's names
+template <int DV, Caller C>
+constexpr auto wgmma_kernel() {
+  if constexpr (C == Caller::K1)
+    return &flash_fwd_wgmma_kernel<DV>;
+  else
+    return &flash_rope_wgmma_kernel<DV>;
 }
 
-cudaError_t dispatch(bool bf16, const Params& p, cudaStream_t stream) {
-  if (p.D == 256) return launch_k1_wide(bf16, p, stream);
-  if (bf16) return dispatch_wgmma(p, stream);
-  switch ((p.D + 15) / 16) {
-    case 1: return launch_f32_dp<16>(p, stream);
-    case 2: return launch_f32_dp<32>(p, stream);
-    case 3: return launch_f32_dp<48>(p, stream);
-    case 4: return launch_f32_dp<64>(p, stream);
-    case 5: return launch_f32_dp<80>(p, stream);
-    case 6: return launch_f32_dp<96>(p, stream);
-    case 7: return launch_f32_dp<112>(p, stream);
-    case 8: return launch_f32_dp<128>(p, stream);
-    default: return cudaErrorInvalidValue;
+template <int DP, Caller C>
+constexpr auto tf32_kernel() {
+  if constexpr (C == Caller::K1)
+    return &flash_fwd_tf32_kernel<DP>;
+  else
+    return &flash_rope_tf32_kernel<DP>;
+}
+
+// The bf16 attention at one width: the tensor maps of q, k and v, the kernel
+// under the caller's name, then the combine where the kv axis is split.
+template <int DV, Caller C>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  using S = FwdWg<DV>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, p.q, p.B, p.H, p.Sq, p.D, p.q_sb, p.q_sh, p.q_ss, WG_BQ) ||
+      !make_map(&mk, p.k, p.B, p.H, p.Skv, p.D, p.k_sb, p.k_sh, p.k_ss, S::BK) ||
+      !make_map(&mv, p.v, p.B, p.H, p.Skv, p.D, p.v_sb, p.v_sh, p.v_ss, S::BK))
+    return cudaErrorInvalidValue;
+  constexpr auto kernel = wgmma_kernel<DV, C>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + WG_BQ - 1) / WG_BQ, p.B * p.H, p.n_split);
+  kernel<<<grid, WG_THREADS, S::SMEM, stream>>>(mq, mk, mv, p);
+  return launch_combine<C>(cudaGetLastError(), true, p, stream);
+}
+
+template <int DP, Caller C>
+cudaError_t launch_tf32(const Params& p, cudaStream_t stream) {
+  constexpr auto kernel = tf32_kernel<DP, C>();
+  return launch_combine<C>(launch(kernel, F32Tile<DP>::SMEM, F_BQ, F_THREADS, p, stream), false, p,
+                           stream);
+}
+
+// The widths each dtype is built at: bf16 runs P . V at N = D for D = 56, 72
+// (hiera-b+'s and hiera-L's global blocks), multiples of 16 up to 128 and
+// 256, other D padded to 16; fp32 pads D up to the next of these.
+int wgmma_width(int D) {
+  if (D == 56 || D == 72 || D == 256) return D;
+  return D <= 128 ? (D + 15) / 16 * 16 : -1;
+}
+
+int tf32_width(int D) {
+  constexpr int widths[] = {16, 32, 48, 56, 64, 72, 80, 96, 112, 128, 256};
+  for (const int w : widths)
+    if (D <= w) return w;
+  return -1;
+}
+
+// f(the width constant) for the kernel of (bf16, D); -1 for an unsupported D
+template <typename F>
+auto by_width(bool bf16, int D, F&& f) -> decltype(f(std::integral_constant<int, 256>())) {
+  using std::integral_constant;
+  switch (bf16 ? wgmma_width(D) : tf32_width(D)) {
+    case 16: return f(integral_constant<int, 16>());
+    case 32: return f(integral_constant<int, 32>());
+    case 48: return f(integral_constant<int, 48>());
+    case 56: return f(integral_constant<int, 56>());
+    case 64: return f(integral_constant<int, 64>());
+    case 72: return f(integral_constant<int, 72>());
+    case 80: return f(integral_constant<int, 80>());
+    case 96: return f(integral_constant<int, 96>());
+    case 112: return f(integral_constant<int, 112>());
+    case 128: return f(integral_constant<int, 128>());
+    case 256: return f(integral_constant<int, 256>());
+    default: return f(integral_constant<int, -1>());
   }
 }
 
-template <int DP>
-cudaError_t launch_rope_dp(bool bf16, const Params& p, cudaStream_t stream) {
-  return launch_combine(
-      bf16 ? launch(flash_wide_bf16_kernel<DP, true>, smem_bytes_rope_bf16<DP>(), TC_BQ,
-                    TC_WARPS * 32, p, stream)
-           : launch(flash_rope_f32_kernel<DP>, smem_bytes_f32<DP>(), BQ, THREADS, p, stream),
-      bf16, p, stream);
-}
-
-template <int DM>
-cudaError_t launch_kvproj_dm(bool bf16, const Params& p, cudaStream_t stream) {
-  return launch_combine(
-      bf16 ? launch(flash_kvproj_bf16_kernel<DM>, smem_bytes_kvproj_bf16<DM>(), KP_BQ,
-                    KP_THREADS, p, stream)
-           : launch(flash_kvproj_f32_kernel<DM>, smem_bytes_kvproj_f32<DM>(), KP_BQ,
-                    KP_THREADS, p, stream),
-      bf16, p, stream);
+// K1 (C = K1) or K2's attention on the rotated K (C = K2: D = 64, 128, 256)
+template <Caller C>
+cudaError_t dispatch(bool bf16, const Params& p, cudaStream_t stream) {
+  return by_width(bf16, p.D, [&](auto w) -> cudaError_t {
+    constexpr int W = decltype(w)::value;
+    if constexpr (W < 0 || (C == Caller::K2 && W != 64 && W != 128 && W != 256)) {
+      return cudaErrorInvalidValue;
+    } else {
+      return bf16 ? launch_wgmma<W, C>(p, stream) : launch_tf32<W, C>(p, stream);
+    }
+  });
 }
 
 // Resident CTAs per SM of a kernel at its shared memory (1 if unknown).
@@ -1667,17 +1701,27 @@ int ctas_per_sm(Kernel kernel, int smem, int threads) {
   return n > 0 ? n : 1;
 }
 
-template <int DP>
-int rope_ctas_per_sm(bool bf16) {
-  return bf16 ? ctas_per_sm(flash_wide_bf16_kernel<DP, true>, smem_bytes_rope_bf16<DP>(),
-                            TC_WARPS * 32)
-              : ctas_per_sm(flash_rope_f32_kernel<DP>, smem_bytes_f32<DP>(), THREADS);
-}
+// K1's and K2's launch geometry for (bf16, D): query rows per CTA, keys per
+// kv tile, kv tiles in flight (bf16: stages of each of the K and V rings;
+// fp32: one K and one V buffer) and resident CTAs per SM; rows 0 for an
+// unsupported D.
+struct Geometry {
+  int rows, keys, stages, per_sm;
+};
 
-int k1_wide_ctas_per_sm(bool bf16) {
-  return bf16 ? ctas_per_sm(flash_wide_bf16_kernel<256, false>, smem_bytes_rope_bf16<256>(),
-                            TC_WARPS * 32)
-              : ctas_per_sm(flash_fwd_f32_kernel<256>, smem_bytes_f32<256>(), THREADS);
+Geometry geometry(bool bf16, int D) {
+  return by_width(bf16, D, [&](auto w) -> Geometry {
+    constexpr int W = decltype(w)::value;
+    if constexpr (W < 0) {
+      return Geometry{0, 0, 0, 1};
+    } else {
+      if (bf16)
+        return Geometry{WG_BQ, FwdWg<W>::BK, FwdWg<W>::STAGES,
+                        ctas_per_sm(flash_fwd_wgmma_kernel<W>, FwdWg<W>::SMEM, WG_THREADS)};
+      return Geometry{F_BQ, F32Tile<W>::BK, 1,
+                      ctas_per_sm(flash_fwd_tf32_kernel<W>, F32Tile<W>::SMEM, F_THREADS)};
+    }
+  });
 }
 
 template <int DM>
@@ -1700,13 +1744,14 @@ int kv_splits(int per_sm, int rows, int tile, int B, int H, int Sq, int Skv) {
   return static_cast<int>(n < 1 ? 1 : n);
 }
 
-cudaError_t dispatch_rope(bool bf16, const Params& p, cudaStream_t stream) {
-  switch (p.D) {
-    case 64: return launch_rope_dp<64>(bf16, p, stream);
-    case 128: return launch_rope_dp<128>(bf16, p, stream);
-    case 256: return launch_rope_dp<256>(bf16, p, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int DM>
+cudaError_t launch_kvproj_dm(bool bf16, const Params& p, cudaStream_t stream) {
+  return launch_combine<Caller::K4>(
+      bf16 ? launch(flash_kvproj_bf16_kernel<DM>, smem_bytes_kvproj_bf16<DM>(), KP_BQ,
+                    KP_THREADS, p, stream)
+           : launch(flash_kvproj_f32_kernel<DM>, smem_bytes_kvproj_f32<DM>(), KP_BQ,
+                    KP_THREADS, p, stream),
+      bf16, p, stream);
 }
 
 cudaError_t dispatch_kvproj(bool bf16, const Params& p, cudaStream_t stream) {
@@ -1717,17 +1762,27 @@ cudaError_t dispatch_kvproj(bool bf16, const Params& p, cudaStream_t stream) {
   }
 }
 
-int run(bool rope, const void* q, const void* k, const void* v, const void* mask,
-        const void* cos, const void* sin, void* part_o, void* part_lse, void* o, void* lse,
-        int dtype, int B, int H, int Sq, int Skv, int D, int n_split, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-        long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-        long long o_sb, long long o_sh, long long o_ss, long long mask_sb, float scale,
-        void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D % 8 != 0 ||
-      static_cast<long long>(B) * H > 65535 || (dtype != 0 && dtype != 1) || n_split < 1 ||
-      n_split > 65535 || (n_split > 1 && (part_o == nullptr || part_lse == nullptr)) ||
-      (rope ? (cos == nullptr || sin == nullptr) : (D != 256 && (D > 128 || n_split != 1))))
-    return static_cast<int>(cudaErrorInvalidValue);
+// K2's rotation: k -> kr [B*H, Skv, D] contiguous, in q's dtype (p.k and its
+// strides; p.cos, p.sin)
+cudaError_t launch_rotate(bool bf16, const Params& p, void* kr, cudaStream_t stream) {
+  const long long chunks = static_cast<long long>(p.Skv) * (p.D / 2) / (bf16 ? 8 : 4);
+  const long long blocks = (chunks + ROT_THREADS - 1) / ROT_THREADS;
+  if (blocks > 2147483647ll) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (bf16)
+    flash_rope_rotate_kernel<__nv_bfloat16><<<grid, ROT_THREADS, 0, stream>>>(
+        p, static_cast<__nv_bfloat16*>(kr));
+  else
+    flash_rope_rotate_kernel<float><<<grid, ROT_THREADS, 0, stream>>>(p, static_cast<float*>(kr));
+  return cudaGetLastError();
+}
+
+Params make_params(const void* q, const void* k, const void* v, const void* mask, const void* cos,
+                   const void* sin, void* part_o, void* part_lse, void* o, void* lse, int B,
+                   int H, int Sq, int Skv, int D, int n_split, long long q_sb, long long q_sh,
+                   long long q_ss, long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                   long long v_sh, long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+                   long long mask_sb, float scale) {
   Params p;
   p.q = q; p.k = k; p.v = v;
   p.mask = static_cast<const uint8_t*>(mask);
@@ -1735,27 +1790,39 @@ int run(bool rope, const void* q, const void* k, const void* v, const void* mask
   p.o = o; p.lse = static_cast<float*>(lse);
   p.n_split = n_split;
   p.part_o = static_cast<float*>(part_o); p.part_lse = static_cast<float*>(part_lse);
-  p.B = B; p.H = H; p.Sq = Sq; p.Skv = Skv; p.D = D;
+  p.wk = p.wv = nullptr;
+  p.bk = p.bv = nullptr;
+  p.B = B; p.H = H; p.Sq = Sq; p.Skv = Skv; p.D = D; p.Dm = 0;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.mask_sb = mask_sb;
   p.scale = scale;
-  p.wk = p.wv = nullptr;
-  p.bk = p.bv = nullptr;
-  p.Dm = 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(rope ? dispatch_rope(dtype == 1, p, st) : dispatch(dtype == 1, p, st));
+  return p;
+}
+
+// The arguments every kernel here needs: positive sizes, D a multiple of 8,
+// a grid within limits, a dtype, and a kv split with scratch and no empty
+// range (at most one split per 128 keys).
+bool valid_args(int dtype, int B, int H, int Sq, int Skv, int D, int n_split, const void* part_o,
+                const void* part_lse) {
+  return B > 0 && H > 0 && Sq > 0 && Skv > 0 && D > 0 && D % 8 == 0 &&
+         static_cast<long long>(B) * H <= 65535 && (dtype == 0 || dtype == 1) &&
+         (n_split == 1 || (n_split > 1 && n_split <= (Skv + 127) / 128 && part_o != nullptr &&
+                           part_lse != nullptr));
 }
 
 }  // namespace
 
-// Both entry points return the cudaError_t of the launch (0 = cudaSuccess).
-// dtype: 0 fp32, 1 bf16.
+// Every entry point returns the cudaError_t of its launches (0 =
+// cudaSuccess). dtype: 0 fp32, 1 bf16. With n_split > 1 the kv axis is split
+// over n_split CTAs per query tile and part_o [n_split, B*H, Sq, D] /
+// part_lse [n_split, B*H, Sq] (fp32, allocated by the caller) hold the
+// partial results until the combine kernel, launched right after on the same
+// stream, merges them.
 
-// K1: D a multiple of 8 up to 128 (n_split 1), or D = 256, where the kv
-// axis may be split as K2's (part_o / part_lse as below).
+// K1: D a multiple of 8 up to 128, or 256.
 extern "C" int sam2_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* mask, void* part_o,
     void* part_lse, void* o, void* lse, int dtype, int B, int H, int Sq, int Skv, int D,
@@ -1765,73 +1832,78 @@ extern "C" int sam2_flash_attention_fwd(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     long long mask_sb, float scale, void* stream) {
-  return run(false, q, k, v, mask, nullptr, nullptr, part_o, part_lse, o, lse, dtype, B, H, Sq,
-             Skv, D, n_split, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
-             o_ss, mask_sb, scale, stream);
+  if (!valid_args(dtype, B, H, Sq, Skv, D, n_split, part_o, part_lse))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(q, k, v, mask, nullptr, nullptr, part_o, part_lse, o, lse, B, H, Sq,
+                               Skv, D, n_split, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                               v_ss, o_sb, o_sh, o_ss, mask_sb, scale);
+  return static_cast<int>(dispatch<Caller::K1>(dtype == 1, p, static_cast<cudaStream_t>(stream)));
 }
 
-// K1's kv split for these shapes on the current device: 1 up to D = 128,
-// K2's rule at D = 256; -1 for an unsupported D.
+// K1's kv split for these shapes on the current device, and K2's (K2 runs
+// K1's body): the most splits that keep the grid in one wave of resident
+// CTAs, at least 8 kv tiles each; -1 for an unsupported D.
 extern "C" int sam2_flash_attention_splits(int dtype, int B, int H, int Sq, int Skv, int D) {
-  const bool bf16 = dtype == 1;
-  if (D != 256) return D > 0 && D <= 128 && D % 8 == 0 ? 1 : -1;
-  return kv_splits(k1_wide_ctas_per_sm(bf16), bf16 ? TC_BQ : BQ, bf16 ? RP_BK : BK, B, H, Sq,
-                   Skv);
+  const Geometry geo = geometry(dtype == 1, D);
+  if (geo.rows == 0) return -1;
+  return kv_splits(geo.per_sm, geo.rows, geo.keys, B, H, Sq, Skv);
 }
 
-// K1's tiling for a head dim: out[0] query rows per CTA, out[1] keys per kv
-// tile, out[2] stages of the kv ring (bf16 at D <= 128: stages of each of the K
+// K1's and K2's tiling for a head dim: out[0] query rows per CTA, out[1]
+// keys per kv tile, out[2] kv tiles in flight (bf16: stages of each of the K
 // and V rings).
 extern "C" void sam2_flash_attention_tiling(int dtype, int D, int* out) {
-  if (dtype == 1 && D <= 128) {
-    out[0] = WG_BQ;
-    out[1] = WG_BK;
-    out[2] = D <= 64 ? FwdWg<64>::STAGES : FwdWg<128>::STAGES;
-  } else if (dtype == 1) {
-    out[0] = TC_BQ;
-    out[1] = RP_BK;
-    out[2] = 2;
-  } else {
-    out[0] = BQ;
-    out[1] = BK;
-    out[2] = 1;
-  }
+  const Geometry geo = geometry(dtype == 1, D);
+  out[0] = geo.rows;
+  out[1] = geo.keys;
+  out[2] = geo.stages;
 }
 
-// K2: K1 with K rotated in the kernel; D in {64, 128, 256}; cos/sin [Skv, D/2]
-// in q's dtype, contiguous. With n_split > 1 the kv axis is split over
-// n_split CTAs per query tile and part_o [n_split, B*H, Sq, D] / part_lse
-// [n_split, B*H, Sq] (fp32, allocated by the caller) hold the partial results
-// until the combine kernel, launched right after on the same stream, merges
-// them.
+// K2's rotation alone: kr [B*H, Skv, D] (contiguous, k's dtype) = k [B, H,
+// Skv, D] (strides k_s*, unit stride along D, rows 16-byte aligned) rotated
+// by cos/sin [Skv, D/2] (k's dtype, contiguous); D a multiple of 16 (bf16)
+// or 8 (fp32).
+extern "C" int sam2_flash_attention_rope_rotate(const void* k, const void* cos, const void* sin,
+                                                void* kr, int dtype, int B, int H, int Skv, int D,
+                                                long long k_sb, long long k_sh, long long k_ss,
+                                                void* stream) {
+  if (B <= 0 || H <= 0 || Skv <= 0 || D <= 0 || D % (dtype == 1 ? 16 : 8) != 0 ||
+      (dtype != 0 && dtype != 1) || cos == nullptr || sin == nullptr || kr == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(nullptr, k, nullptr, nullptr, cos, sin, nullptr, nullptr, nullptr,
+                               nullptr, B, H, 0, Skv, D, 1, 0, 0, 0, k_sb, k_sh, k_ss, 0, 0, 0, 0,
+                               0, 0, 0, 1.f);
+  return static_cast<int>(launch_rotate(dtype == 1, p, kr, static_cast<cudaStream_t>(stream)));
+}
+
+// K2: the rotation of k into kr (contiguous [B*H, Skv, D] scratch in q's
+// dtype, allocated by the caller), then K1's attention body on kr under K2's
+// kernel names; D in {64, 128, 256}; cos/sin [Skv, D/2] in q's dtype,
+// contiguous.
 extern "C" int sam2_flash_attention_rope_fwd(
     const void* q, const void* k, const void* v, const void* mask, const void* cos,
-    const void* sin, void* part_o, void* part_lse, void* o, void* lse, int dtype, int B, int H,
-    int Sq, int Skv, int D, int n_split,
+    const void* sin, void* kr, void* part_o, void* part_lse, void* o, void* lse, int dtype, int B,
+    int H, int Sq, int Skv, int D, int n_split,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     long long mask_sb, float scale, void* stream) {
-  return run(true, q, k, v, mask, cos, sin, part_o, part_lse, o, lse, dtype, B, H, Sq, Skv, D,
-             n_split, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-             mask_sb, scale, stream);
-}
-
-// K2's kv split for these shapes on the current device: the most splits
-// that keep the grid in one wave of resident CTAs, at least 8 kv tiles each.
-// Returns >= 1, or -1 for an unsupported D.
-extern "C" int sam2_flash_attention_rope_splits(int dtype, int B, int H, int Sq, int Skv,
-                                                int D) {
+  if (!valid_args(dtype, B, H, Sq, Skv, D, n_split, part_o, part_lse) ||
+      (D != 64 && D != 128 && D != 256) || cos == nullptr || sin == nullptr || kr == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(q, k, v, mask, cos, sin, part_o, part_lse, o, lse, B, H, Sq, Skv, D,
+                         n_split, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
+                         o_ss, mask_sb, scale);
   const bool bf16 = dtype == 1;
-  int per_sm;
-  switch (D) {
-    case 64: per_sm = rope_ctas_per_sm<64>(bf16); break;
-    case 128: per_sm = rope_ctas_per_sm<128>(bf16); break;
-    case 256: per_sm = rope_ctas_per_sm<256>(bf16); break;
-    default: return -1;
-  }
-  return kv_splits(per_sm, bf16 ? TC_BQ : BQ, bf16 ? RP_BK : BK, B, H, Sq, Skv);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_rotate(bf16, p, kr, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.k = kr;
+  p.k_ss = D;
+  p.k_sh = static_cast<long long>(Skv) * D;
+  p.k_sb = p.k_sh * H;
+  return static_cast<int>(dispatch<Caller::K2>(bf16, p, st));
 }
 
 // K4: K2 with the K/V projections fused in; one head, D = 256, Dm in
@@ -1840,7 +1912,7 @@ extern "C" int sam2_flash_attention_rope_splits(int dtype, int B, int H, int Sq,
 // 16-byte aligned, fp32 rows 16-byte aligned); wk, wv [D, Dm] contiguous in
 // q's dtype; bk, bv [D] fp32; cos/sin [Skv, D/2] in q's dtype, contiguous;
 // out [B, Sq, D] with batch / row strides, lse [B, Sq]. The kv split and its
-// scratch are as K2's (part_o [n_split, B, Sq, D], part_lse [n_split, B, Sq]).
+// scratch are as K1's (part_o [n_split, B, Sq, D], part_lse [n_split, B, Sq]).
 extern "C" int sam2_flash_attention_kvproj_fwd(
     const void* q, const void* mem_k, const void* mem_v, const void* wk, const void* bk,
     const void* wv, const void* bv, const void* mask, const void* cos, const void* sin,
@@ -1854,26 +1926,16 @@ extern "C" int sam2_flash_attention_kvproj_fwd(
       (n_split > 1 && (part_o == nullptr || part_lse == nullptr)) || wk == nullptr ||
       wv == nullptr || bk == nullptr || bv == nullptr || cos == nullptr || sin == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.q = q; p.k = mem_k; p.v = mem_v;
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.cos = cos; p.sin = sin;
-  p.o = o; p.lse = static_cast<float*>(lse);
-  p.n_split = n_split;
-  p.part_o = static_cast<float*>(part_o); p.part_lse = static_cast<float*>(part_lse);
+  Params p = make_params(q, mem_k, mem_v, mask, cos, sin, part_o, part_lse, o, lse, B, 1, Sq, Skv,
+                         D, n_split, q_sb, 0, q_ss, mk_sb, 0, mk_ss, mv_sb, 0, mv_ss, o_sb, 0,
+                         o_ss, mask_sb, scale);
   p.wk = wk; p.wv = wv;
   p.bk = static_cast<const float*>(bk); p.bv = static_cast<const float*>(bv);
-  p.B = B; p.H = 1; p.Sq = Sq; p.Skv = Skv; p.D = D; p.Dm = Dm;
-  p.q_sb = q_sb; p.q_sh = 0; p.q_ss = q_ss;
-  p.k_sb = mk_sb; p.k_sh = 0; p.k_ss = mk_ss;
-  p.v_sb = mv_sb; p.v_sh = 0; p.v_ss = mv_ss;
-  p.o_sb = o_sb; p.o_sh = 0; p.o_ss = o_ss;
-  p.mask_sb = mask_sb;
-  p.scale = scale;
+  p.Dm = Dm;
   return static_cast<int>(dispatch_kvproj(dtype == 1, p, static_cast<cudaStream_t>(stream)));
 }
 
-// K4's kv split for these shapes on the current device (K2's rule); -1 for
+// K4's kv split for these shapes on the current device (K1's rule); -1 for
 // an unsupported D or Dm.
 extern "C" int sam2_flash_attention_kvproj_splits(int dtype, int B, int Sq, int Skv, int D,
                                                   int Dm) {

@@ -421,6 +421,27 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[
   mma_tf32(c, ahi, b0h, b1h);
 }
 
+// The split of the forward kernels (K1, K2, K5) in two integer operations:
+// hi = a rounded to TF32 (to nearest, ties away, as cvt.rna does), lo = a - hi
+// exactly. lo is not rounded again: the tensor cores read its top 10 mantissa
+// bits, so |a - hi - lo_tf32| < 2^-10 |lo| <= 2^-21 |a|, where split_tf32
+// reaches 2^-22 at two more conversions.
+__device__ __forceinline__ void split_tf32_int(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// c += a . b in three TF32 products on split_tf32_int's split
+__device__ __forceinline__ void mma_3xtf32_int(float (&c)[4], const uint32_t (&ahi)[4],
+                                               const uint32_t (&alo)[4], float b0, float b1) {
+  uint32_t b0h, b0l, b1h, b1l;
+  split_tf32_int(b0, b0h, b0l);
+  split_tf32_int(b1, b1h, b1l);
+  mma_tf32(c, alo, b0h, b1h);
+  mma_tf32(c, ahi, b0l, b1l);
+  mma_tf32(c, ahi, b0h, b1h);
+}
+
 // cuTensorMapEncodeTiled, looked up through cudaGetDriverEntryPoint (no -lcuda)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

@@ -57,7 +57,7 @@
 //    that is added to the rescaled output in fp32, as K3 needed over 28,704
 //    keys, so the error does not grow with the window. 55 KB of shared
 //    memory and at most 128 registers a thread at D = 72: four CTAs an SM.
-//    The operand split takes two integer operations (split_k5), not two
+//    The operand split takes two integer operations (split_tf32_int), not two
 //    conversions: with it and the fourth CTA, stage 3 ran in 0.076 ms, not
 //    0.140 (on an H100 80GB HBM3 at 700 W).
 // wgmma's tf32 form takes K-major operands only (V in P . V is MN-major), so
@@ -71,8 +71,10 @@
 
 namespace {
 
+using hopper::mma_3xtf32_int;
 using hopper::mma_tf32;
 using hopper::pack_bf16;
+using hopper::split_tf32_int;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int WARPS = 4;
@@ -359,27 +361,6 @@ __global__ void __launch_bounds__(THREADS) window_attn_bf16_kernel(const Params 
 constexpr int F_KT = 32;         // keys per kv tile
 constexpr int F_MAX_STAGES = 2;  // kv tiles in flight per pair group
 
-// a = hi + lo for the TF32 products: hi = a rounded to TF32 (to nearest,
-// ties away, as cvt.rna does) with two integer operations, lo = a - hi
-// exactly. lo is not rounded again: the tensor cores read its top 10
-// mantissa bits, so |a - hi - lo_tf32| < 2^-10 |lo| <= 2^-21 |a|, where
-// hopper.cuh's split_tf32 (K3's) reaches 2^-22 at two more conversions.
-__device__ __forceinline__ void split_k5(float a, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(a - __uint_as_float(hi));
-}
-
-// c += a . b in three TF32 products, the small ones first
-__device__ __forceinline__ void mma_3x_k5(float (&c)[4], const uint32_t (&ahi)[4],
-                                          const uint32_t (&alo)[4], float b0, float b1) {
-  uint32_t b0h, b0l, b1h, b1l;
-  split_k5(b0, b0h, b0l);
-  split_k5(b1, b1h, b1l);
-  mma_tf32(c, alo, b0h, b1h);
-  mma_tf32(c, ahi, b0l, b1l);
-  mma_tf32(c, ahi, b0h, b1h);
-}
-
 __host__ __device__ constexpr int ldk_f32(int dp) { return dp % 16 == 8 ? dp : dp + 8; }
 __host__ __device__ constexpr int ldv_f32(int dp) { return dp + 4; }
 
@@ -477,16 +458,16 @@ __global__ void __launch_bounds__(THREADS, 4) window_attn_f32_kernel(const Param
       const float2 q0 = *reinterpret_cast<const float2*>(qs + g * LDK + 8 * kk + 2 * t);
       const float2 q1 = *reinterpret_cast<const float2*>(qs + (g + 8) * LDK + 8 * kk + 2 * t);
       uint32_t ahi[4], alo[4];
-      split_k5(q0.x, ahi[0], alo[0]);
-      split_k5(q1.x, ahi[1], alo[1]);
-      split_k5(q0.y, ahi[2], alo[2]);
-      split_k5(q1.y, ahi[3], alo[3]);
+      split_tf32_int(q0.x, ahi[0], alo[0]);
+      split_tf32_int(q1.x, ahi[1], alo[1]);
+      split_tf32_int(q0.y, ahi[2], alo[2]);
+      split_tf32_int(q1.y, ahi[3], alo[3]);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
         if (k0 + 8 * n < p.Skv) {
           const float2 kb =
               *reinterpret_cast<const float2*>(ks + (8 * n + g) * LDK + 8 * kk + 2 * t);
-          mma_3x_k5(s[n], ahi, alo, kb.x, kb.y);
+          mma_3xtf32_int(s[n], ahi, alo, kb.x, kb.y);
         }
     }
 
@@ -516,10 +497,10 @@ __global__ void __launch_bounds__(THREADS, 4) window_attn_f32_kernel(const Param
         pr[e] = exp2f(s[n][e] - m[e >> 1]);
         row_sum[e >> 1] += pr[e];
       }
-      split_k5(pr[0], phi[n][0], plo[n][0]);
-      split_k5(pr[2], phi[n][1], plo[n][1]);
-      split_k5(pr[1], phi[n][2], plo[n][2]);
-      split_k5(pr[3], phi[n][3], plo[n][3]);
+      split_tf32_int(pr[0], phi[n][0], plo[n][0]);
+      split_tf32_int(pr[2], phi[n][1], plo[n][1]);
+      split_tf32_int(pr[1], phi[n][2], plo[n][2]);
+      split_tf32_int(pr[3], phi[n][3], plo[n][3]);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + row_sum[i];
@@ -534,7 +515,7 @@ __global__ void __launch_bounds__(THREADS, 4) window_attn_f32_kernel(const Param
       for (int n = 0; n < NT; ++n)
         if (k0 + 8 * n < p.Skv) {
           const float* vrow = vs + (8 * n + 2 * t) * LDV + 8 * nd + g;
-          mma_3x_k5(part, phi[n], plo[n], vrow[0], vrow[LDV]);
+          mma_3xtf32_int(part, phi[n], plo[n], vrow[0], vrow[LDV]);
         }
       o[nd][0] = fmaf(o[nd][0], alpha[0], part[0]);
       o[nd][1] = fmaf(o[nd][1], alpha[0], part[1]);

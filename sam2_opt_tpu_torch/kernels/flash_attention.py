@@ -4,7 +4,8 @@ autograd Functions that join them.
 - K1, `flash_attention`: the port of
   `sam2_opt_tpu/kernels/flash_attention.py::_kernel`;
 - K2, `flash_attention_rope`: the port of `::_kernel_rope`, K1 with K
-  rotated inside the kernel (split-layout axial RoPE);
+  rotated in the split layout (axial RoPE): a rotation kernel, once per
+  call, then K1's attention body (`rope_rotate` runs the rotation alone);
 - K3, `flash_attention_bwd` (K3a `flash_attention_bwd_dkdv`, K3b
   `flash_attention_bwd_dq`): the port of `::_bwd_dkdv_kernel` and
   `::_bwd_dq_kernel`, the backward of K1, K2 and K4;
@@ -98,27 +99,26 @@ def _library(symbol, n_ptrs, n_ints):
 
 
 @lru_cache(maxsize=64)
-def _kv_splits(symbol: str, device_index: int, dtype: int, B: int, H: int, Sq: int, Skv: int,
+def _kv_splits(device_index: int, dtype: int, B: int, H: int, Sq: int, Skv: int,
                D: int) -> int:
-    """The kv split of K1 (`sam2_flash_attention_splits`) or K2
-    (`sam2_flash_attention_rope_splits`) for a shape on a device, as the
-    kernel's library chooses it (from its CTAs' occupancy); asked once per
-    shape."""
-    fn = getattr(_build.load("flash_attention"), symbol)
+    """The kv split of K1, and of K2 (which runs K1's body), for a shape on a
+    device, as the kernel's library chooses it (from its CTAs' occupancy);
+    asked once per shape."""
+    fn = _build.load("flash_attention").sam2_flash_attention_splits
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 6
         fn.restype = ctypes.c_int
     with torch.cuda.device(device_index):
         n_split = fn(dtype, B, H, Sq, Skv, D)
     if n_split < 1:
-        raise ValueError(f"{symbol}: no kv split for D = {D}")
+        raise ValueError(f"flash attention: no kv split for D = {D}")
     return n_split
 
 
 def flash_attention_tiling(dtype, B, H, Sq, Skv, D):
-    """K1's launch geometry for a shape on the current device, as its
-    library reports it: query rows per CTA, keys per kv tile, kv tiles in
-    flight in shared memory, the kv split and the CTAs of the grid (every
+    """K1's (and K2's) launch geometry for a shape on the current device, as
+    its library reports it: query rows per CTA, keys per kv tile, kv tiles
+    in flight in shared memory, the kv split and the CTAs of the grid (every
     split counted). For logs; a CUDA card builds the library."""
     fn = _build.load("flash_attention").sam2_flash_attention_tiling
     if fn.argtypes is None:
@@ -127,8 +127,7 @@ def flash_attention_tiling(dtype, B, H, Sq, Skv, D):
     out = (ctypes.c_int * 3)()
     fn(_DTYPES[dtype], D, out)
     rows, keys, stages = out
-    n_split = _kv_splits("sam2_flash_attention_splits", torch.cuda.current_device(),
-                         _DTYPES[dtype], B, H, Sq, Skv, D)
+    n_split = _kv_splits(torch.cuda.current_device(), _DTYPES[dtype], B, H, Sq, Skv, D)
     return dict(rows=rows, keys=keys, stages=stages, n_split=n_split,
                 ctas=-(-Sq // rows) * B * H * n_split)
 
@@ -143,6 +142,15 @@ def _split_scratch(q, n_split):
             torch.empty((n_split, B * H, Sq), dtype=torch.float32, device=q.device))
 
 
+def _rows_aligned(t):
+    """Unit stride along the last axis and 16-byte aligned rows: the kernels
+    copy rows in 16-byte chunks."""
+    per_chunk = 16 // t.element_size()
+    strides = [st for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(st % per_chunk == 0
+                                                                for st in strides)
+
+
 def _check_cuda(q, k, v, kv_mask, head_dims, what):
     B, H, Sq, D = q.shape
     if D not in head_dims:
@@ -152,10 +160,9 @@ def _check_cuda(q, k, v, kv_mask, head_dims, what):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit stride along the head dim")
-        # the bf16 kernels copy rows in 16-byte chunks
-        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(st % 8 for st in strides)):
-            raise ValueError(f"bf16 {name} rows must be 16-byte aligned (strides multiples of 8)")
+        if not _rows_aligned(t):
+            raise ValueError(f"{q.dtype} {name} rows must be 16-byte aligned (strides multiples "
+                             f"of {16 // t.element_size()})")
     if kv_mask is not None and kv_mask.stride(-1) != 1:
         raise ValueError("kv_mask must have unit stride along the key axis")
 
@@ -189,11 +196,12 @@ def flash_attention(q, k, v, kv_mask=None):
     and v (backward: K3), lse is not.
 
     CUDA tensors launch the kernel (fp32 or bf16, D a multiple of 8 up to
-    128, or 256; bf16 rows 16-byte aligned); `out` is a [B,H,Sq,D] view of a
+    128, or 256; rows 16-byte aligned); `out` is a [B,H,Sq,D] view of a
     [B,Sq,H,D] buffer, so the caller's merge of heads back into channels
-    costs no copy. At D = 256 (memory attention with the rotation fusion
-    off) the kernel is K2's without the rotation, and splits the kv axis as
-    K2 does.
+    costs no copy. Where one CTA per 128 query rows would leave SMs idle
+    (memory attention at D = 256 with the rotation fusion off), the kernel
+    splits the kv axis and a second kernel on the same stream merges the
+    splits through their LSEs (fp32 scratch allocated here).
     """
     _check(q, k, v, kv_mask)
     return _FlashAttention.apply(q, k, v, kv_mask)
@@ -206,8 +214,7 @@ def _flash_forward(q, k, v, kv_mask):
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, k, v, kv_mask, (*range(8, 129, 8), 256), "flash_attention")
     B, H, Sq, D = q.shape
-    n_split = _kv_splits("sam2_flash_attention_splits", q.device.index, _DTYPES[q.dtype], B, H,
-                         Sq, k.shape[2], D)
+    n_split = _kv_splits(q.device.index, _DTYPES[q.dtype], B, H, Sq, k.shape[2], D)
     out, lse = _launch(_library("sam2_flash_attention_fwd", 2, 1), q, k, v, kv_mask,
                        _split_scratch(q, n_split), (n_split,), "flash_attention")
     flash_attention.launches += 1
@@ -250,11 +257,10 @@ def flash_attention_rope(q, k, v, cos_k, sin_k, kv_mask=None):
     q, k and v (backward: K3 on the rotated K, dK rotated back), lse and the
     tables are not.
 
-    CUDA tensors launch the kernel, which rotates each K tile as it arrives
-    (fp32 or bf16, D in 64/128/256, contiguous tables); `out` is laid out as
-    K1's. Where one CTA per 64 query rows would leave SMs idle, the kernel
-    splits the kv axis and a second kernel on the same stream merges the
-    splits through their LSEs (fp32 scratch allocated here)."""
+    CUDA tensors launch the rotation kernel, which writes the rotated K
+    once to scratch allocated here, then K1's attention body on it (fp32 or
+    bf16, D in 64/128/256, contiguous tables), with K1's kv split and merge;
+    `out` is laid out as K1's. One launch on the count per call."""
     _check(q, k, v, kv_mask)
     D, Skv = q.shape[-1], k.shape[2]
     for name, t in (("cos_k", cos_k), ("sin_k", sin_k)):
@@ -271,19 +277,64 @@ def _flash_rope_forward(q, k, v, cos_k, sin_k, kv_mask):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, k, v, kv_mask, (64, 128, 256), "flash_attention_rope")
-    if not (cos_k.is_contiguous() and sin_k.is_contiguous()):
-        raise ValueError("cos_k and sin_k must be contiguous")
+    _check_tables(cos_k, sin_k)
     B, H, Sq, D = q.shape
-    n_split = _kv_splits("sam2_flash_attention_rope_splits", q.device.index, _DTYPES[q.dtype], B,
-                         H, Sq, k.shape[2], D)
-    out, lse = _launch(_library("sam2_flash_attention_rope_fwd", 4, 1), q, k, v, kv_mask,
-                       (cos_k, sin_k, *_split_scratch(q, n_split)), (n_split,),
+    n_split = _kv_splits(q.device.index, _DTYPES[q.dtype], B, H, Sq, k.shape[2], D)
+    kr = torch.empty(k.shape, dtype=k.dtype, device=k.device)  # the rotated K, contiguous
+    out, lse = _launch(_library("sam2_flash_attention_rope_fwd", 5, 1), q, k, v, kv_mask,
+                       (cos_k, sin_k, kr, *_split_scratch(q, n_split)), (n_split,),
                        "flash_attention_rope")
     flash_attention_rope.launches += 1
     return out, lse
 
 
 flash_attention_rope.launches = 0
+
+
+def _check_tables(cos_k, sin_k):
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (cos_k, sin_k)):
+        raise ValueError("cos_k and sin_k must be contiguous and 16-byte aligned")
+
+
+def rope_rotate(k, cos_k, sin_k):
+    """K2's rotation alone: k [B,H,Skv,D] rotated in the split layout by
+    cos_k/sin_k [Skv, D/2] (k's dtype), in fp32 with one rounding per
+    operation and one to k's dtype, as `flash_attention_rope_ref` rotates.
+    Returns a contiguous tensor like k. CUDA tensors launch the rotation
+    kernel K2 runs before its attention (rows of k 16-byte aligned, D a
+    multiple of 16 in bf16 and of 8 in fp32, tables contiguous); CPU tensors
+    run `apply_rotary_split`."""
+    if k.dim() != 4 or tuple(cos_k.shape) != (k.shape[2], k.shape[3] // 2) or k.shape[3] % 2:
+        raise ValueError(f"k must be [B, H, Skv, D] and the tables [Skv, D/2], got "
+                         f"{tuple(k.shape)}, {tuple(cos_k.shape)}")
+    if sin_k.shape != cos_k.shape or k.dtype not in _DTYPES or any(
+            t.dtype != k.dtype or t.device != k.device for t in (cos_k, sin_k)):
+        raise ValueError("cos_k and sin_k must match k's dtype (float32 or bfloat16) and device")
+    if k.device.type == "cpu":
+        return apply_rotary_split(k.float(), cos_k.float(), sin_k.float()).to(k.dtype)
+    if k.device.type != "cuda":
+        raise ValueError(f"unsupported device {k.device}")
+    if not _rows_aligned(k):
+        raise ValueError("k rows must be 16-byte aligned")
+    _check_tables(cos_k, sin_k)
+    B, H, Skv, D = k.shape
+    kr = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    fn = _build.load("flash_attention").sam2_flash_attention_rope_rotate
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 4 + [i] * 5 + [ll] * 3 + [p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(k.device):
+        stream = torch.cuda.current_stream(k.device).cuda_stream
+        err = fn(k.data_ptr(), cos_k.data_ptr(), sin_k.data_ptr(), kr.data_ptr(), _DTYPES[k.dtype],
+                 B, H, Skv, D, *k.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"rope_rotate kernel launch failed: cudaError {err}")
+    rope_rotate.launches += 1
+    return kr
+
+
+rope_rotate.launches = 0
 
 
 class _FlashAttentionRope(torch.autograd.Function):
@@ -396,13 +447,9 @@ def _kv_proj_splits(device_index: int, dtype: int, B: int, Sq: int, Skv: int, D:
 
 
 def _aligned_rows(t):
-    """t with unit stride along its last axis and 16-byte aligned rows (the
-    kernel reads rows in 16-byte chunks); a contiguous copy otherwise."""
-    per_chunk = 16 // t.element_size()
-    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
-            st % per_chunk == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
+    """t if its rows are 16-byte aligned (`_rows_aligned`), else a
+    contiguous copy."""
+    return t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
 
 
 def _kv_proj_forward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):

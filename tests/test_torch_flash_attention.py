@@ -23,6 +23,7 @@ from sam2_opt_tpu_torch.kernels.flash_attention import (
     flash_attention_ref,
     flash_attention_rope,
     flash_attention_rope_ref,
+    rope_rotate,
 )
 from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
 
@@ -123,20 +124,35 @@ BF16_CASES = [
     (2, 2, 300, 300, 72, "random+empty row"), (2, 2, 300, 520, 56, "tiles+empty row"),
     (1, 2, 1, 300, 72, None), (2, 1, 1, 1, 56, None), (8, 8, 4096, 4096, 56, None),
 ]
+# fp32 (three-pass TF32): 128 query rows a CTA, 64 keys a tile up to D = 64
+# and 32 above, one below and one above each; D from 8 to 256 (8 and 120
+# padded to 16 and 128 in shared memory); whole 64-key tiles masked; a batch
+# row with no valid key; small grids whose kv axis splits
+FP32_CASES = [
+    (1, 2, 127, 63, 8, None), (1, 2, 129, 65, 8, "random"), (2, 2, 127, 65, 56, "block+empty row"),
+    (1, 2, 129, 63, 56, None), (1, 2, 127, 33, 72, "random"), (1, 2, 129, 31, 72, None),
+    (2, 1, 129, 33, 120, "random+empty row"), (1, 1, 127, 31, 120, None),
+    (1, 2, 127, 65, 128, "block"), (1, 2, 129, 31, 128, "random"),
+    (1, 1, 127, 33, 256, "random"), (2, 1, 129, 31, 256, "block+empty row"),
+    (1, 1, 1, 300, 256, None), (1, 1, 65, 8200, 256, "block"),
+]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,Sq,Skv,D,mask,dtype",
                          [c + (dt,) for c in GPU_CASES for dt in (torch.bfloat16, torch.float32)]
-                         + [c + (torch.bfloat16,) for c in BF16_CASES])
+                         + [c + (torch.bfloat16,) for c in BF16_CASES]
+                         + [c + (torch.float32,) for c in FP32_CASES])
 def test_cuda_kernel_matches_ref(B, H, Sq, Skv, D, mask, dtype):
-    """fp32: the kernel runs true fp32 FMAs, rtol 1e-5 + atol 1e-5. bf16:
-    inputs rounded to bf16 for both, P rounded to bf16 against the running
-    (kernel) or final (plain) row max, the output rounded to bf16: one ulp is
-    at most 2^-7 of |out|, so rtol 1e-2 + atol 1e-3 (sound runs at the
-    hiera-L shape differ by at most 9.8e-4, where |out| is typically 0.02).
+    """fp32: the kernel runs three TF32 products per fp32 product (about
+    2^-21 of each), each tile's into a zeroed partial, rtol 1e-5 + atol
+    1e-5. bf16: inputs rounded to bf16 for both, P rounded to bf16 against
+    the running (kernel) or final (plain) row max, the output rounded to
+    bf16: one ulp is at most 2^-7 of |out|, so rtol 1e-2 + atol 1e-3 (sound
+    runs at the hiera-L shape differ by at most 9.8e-4, where |out| is
+    typically 0.02).
     D = 256 is memory attention under SAM2_TPU_FUSED_ROPE=0, up to its
-    cross shape (K2's kernel without the rotation, the kv axis split).
+    cross shape (the body K2 runs on the rotated K, the kv axis split).
     Fully masked rows give 0 and lse -1e30."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -239,15 +255,29 @@ def test_rope_wrapper_runs_ref_on_cpu_and_validates():
         flash_attention_rope(q, k, v, cos.double(), sin.double(), m)
 
 
+# K2 on the card: D = 256 runs 128 query rows a CTA and 64 keys a stage in
+# bf16 (32 keys a tile in fp32), so Sq 127/129 and Skv 63/65 sit one below
+# and one above each tile; whole 64-key tiles masked; a batch row with no
+# valid key; B = 2; identity rows at the end; the cross shape (28,736 keys,
+# which tests fp32's per-tile partials); D = 64 and 128 through the D <= 128
+# bodies
+ROPE_CUDA_CASES = ROPE_CASES + [
+    (1, 1000, 1500, 256, 16, "random+empty row"), (2, 130, 70, 64, 0, "random"),
+    (1, 65, 4100, 128, 100, None), (1, 64, 8192, 256, 64, "random"),
+    (1, 127, 63, 256, 8, None), (1, 129, 65, 256, 8, "random"),
+    (2, 129, 63, 256, 0, "random+empty row"), (1, 127, 65, 256, 16, "block"),
+    (2, 300, 400, 256, 64, "block+empty row"), (1, 4096, 7 * 4096 + 64, 256, 64, "random"),
+    (1, 200, 300, 64, 8, "block"), (1, 129, 127, 128, 8, "random"),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,Skv,D,n_identity,mask", ROPE_CASES + [
-    (1, 1000, 1500, 256, 16, "random+empty row"), (2, 130, 70, 64, 0, "random"),
-    (1, 65, 4100, 128, 100, None), (1, 64, 8192, 256, 64, "random")])
+@pytest.mark.parametrize("B,Sq,Skv,D,n_identity,mask", ROPE_CUDA_CASES)
 def test_cuda_rope_kernel_matches_ref(B, Sq, Skv, D, n_identity, mask, dtype):
     """K2 against its plain version on the card, both rotating K in fp32
     from the same inputs with one rounding; the long-kv cases split the kv
-    axis over many CTAs and merge the splits (32 splits at Skv = 8192).
+    axis over many CTAs and merge the splits.
     fp32: rtol 1e-5 + atol 1e-5.
     bf16: each side rounds P to bf16 (2^-9 relative) against another row max
     (running or final) and rounds out (2^-9 relative), so per element
@@ -278,6 +308,45 @@ def test_cuda_rope_kernel_matches_ref(B, Sq, Skv, D, n_identity, mask, dtype):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     if mask == "random+empty row":
         assert not out[-1].any() and bool((lse[-1] == -1e30).all())
+
+
+def test_rope_rotate_runs_plain_on_cpu_and_validates():
+    """On CPU tensors K2's rotation alone is the plain rotation; the counter
+    does not move; mismatched tables are refused."""
+    _, k, _, cos, sin, _ = map(lambda x: None if x is None else torch.from_numpy(x),
+                               _rope_inputs(2, 8, 96, 64, 16, None))
+    before = rope_rotate.launches
+    kr = rope_rotate(k, cos, sin)
+    assert torch.equal(kr, apply_rotary_split(k, cos, sin))
+    assert rope_rotate.launches == before
+    with pytest.raises(ValueError):
+        rope_rotate(k, cos[:-1], sin[:-1])
+    with pytest.raises(ValueError):
+        rope_rotate(k, cos.double(), sin.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Skv,D,n_identity", [
+    (1, 1, 7 * 4096 + 64, 256, 64), (2, 1, 4096, 256, 0), (2, 3, 130, 128, 8), (1, 2, 65, 64, 1)])
+def test_cuda_rope_rotate_matches_plain_bitwise(B, H, Skv, D, n_identity, dtype):
+    """K2's rotation kernel alone equals the plain rotation (fp32 from the
+    inputs, one rounding per operation, one to k's dtype) bit for bit, on k
+    as a strided head-major view of a [B, Skv, H, D] projection; one launch
+    on its count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, _, _, cos, sin, _ = _rope_inputs(1, 8, Skv, D, n_identity, None)
+    rng = np.random.default_rng(5)
+    k = torch.from_numpy(rng.standard_normal((B, Skv, H, D)).astype(np.float32))
+    k = k.cuda().to(dtype).transpose(1, 2)
+    cos, sin = (torch.from_numpy(x).cuda().to(dtype) for x in (cos, sin))
+    before = rope_rotate.launches
+    kr = rope_rotate(k, cos, sin)
+    torch.cuda.synchronize()
+    assert rope_rotate.launches == before + 1
+    assert kr.is_contiguous() and kr.shape == k.shape
+    assert torch.equal(kr, apply_rotary_split(k.float(), cos.float(), sin.float()).to(dtype))
 
 
 # K3: the backward. The plain version against the JAX package's Pallas flash
