@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --kernel-times   # build, then the kernel times of
-                                           # phases 7 (K1, K2) and 14 (K5-K8) and
-                                           # K1 at D = 256 only
+                                           # phases 7 (K1, K2), 14 (K5-K8) and 15
+                                           # (K4), K1 at D = 256 and K9/K10 only
 
 `--kernel-times` times whichever `sam2_opt_tpu_torch` it imports, so a copy
 of this script in another checkout's root times that checkout's kernels:
@@ -144,8 +144,17 @@ is a rotation kernel run once per call and then K1's body on the rotated K
 stages; fp32, also K1's at every D: three-pass TF32 on mma.sync): phase 4
 holds the rotation alone bit for bit against the plain rotation, phases 7
 and 15 time K2, its rotation and K1 at D = 256 from CUDA graph replays, and
-K1's and K2's fp32 bounds count their products at 495/3 TFLOP/s. The build
-log keeps ptxas' lines on registers, spills and wgmma serialisation.
+K1's and K2's fp32 bounds count their products at 495/3 TFLOP/s. Since
+slice 10, K4 (phase 15) is a projection kernel run once per call (K and V
+projected, K rotated, into scratch) and then K1's body under K4's names:
+phase 15 first holds the projection kernel alone bit for bit against its
+plain version on inputs whose sums are exact, and times K4, the unfused
+route, the composite yardstick and the projection kernel from CUDA graph
+replays; K4's fp32 bound counts its attention at 495/3 TFLOP/s. The bf16
+window kernel (K5-K7, K9, K10) holds a window's K and V in shared memory
+(phases 11, 14, 18). `--kernel-times` also times K4 and K9/K10 (from CUDA
+graph replays, `phase_k9_k10_times`). The build log keeps ptxas' lines on
+registers, spills and wgmma serialisation.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -1842,22 +1851,40 @@ ROPE_OFF_FRAME_LAUNCHES = (11, 0, 0)
 
 def k4_bound_ms(B, Sq, Skv, D, Dm, dtype, valid_keys=None):
     """Least time for K4's work on these inputs: per object the attention's
-    4*Sq*valid*D operations, each valid key projected once (2*2*Dm*D) and
-    rotated (3 per K element); q, the memory tokens, weights, biases, tables
-    and mask read once, out and lse written once."""
+    4*Sq*valid*D operations and each valid key's projections (2*2*Dm*D) at
+    `attention_flops_rate` (since slice 10 both run on the tensor cores, in
+    fp32 as three TF32 products per product), and its rotation (3 per K
+    element) on the CUDA cores' fp32 rate, as `k2_bound_ms` counts it; q,
+    the memory tokens, weights, biases, tables and mask read once, out and
+    lse written once."""
     valid = B * Skv if valid_keys is None else valid_keys
-    flops = 4.0 * Sq * valid * D + 4.0 * valid * Dm * D + 3.0 * valid * D
+    t_ops = ((4.0 * Sq * valid * D + 4.0 * valid * Dm * D) / attention_flops_rate(dtype)
+             + 3.0 * valid * D / PEAK_FLOPS[torch.float32])
     itemsize = torch.finfo(dtype).bits // 8
     nbytes = (itemsize * (2 * B * Sq * D + 2 * B * Skv * Dm + 2 * D * Dm + Skv * D)
               + 4 * 2 * D + B * Skv + 4 * B * Sq)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k4_project_bound_ms(B, Skv, D, Dm, dtype):
+    """Least time for K4's first kernel: the memory tokens, weights, biases
+    and tables read once, kr and vp written once; a key's 2*2*Dm*D product
+    operations at `attention_flops_rate` and 3*D rotation operations on the
+    CUDA cores' fp32 rate, as `k4_bound_ms` counts them (it is bound by
+    bytes)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * (2 * B * Skv * Dm + 2 * D * Dm + Skv * D + 2 * B * Skv * D) + 4 * 2 * D
+    t_ops = B * Skv * (4.0 * Dm * D / attention_flops_rate(dtype)
+                       + 3.0 * D / PEAK_FLOPS[torch.float32])
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def k4_executed_gflop(B, Sq, Skv, D, Dm):
-    """What the kernel executes: the attention plus, per 128-row query tile,
-    the projection of every kv tile it reads."""
-    return (4.0 * B * Sq * Skv * D + B * math.ceil(Sq / 128) * 4.0 * Skv * Dm * D) / 1e9
+    """What K4 executes: the attention plus the projection of every key once
+    per call (since slice 10; before, once per 128-row query tile)."""
+    return (4.0 * B * Sq * Skv * D + 4.0 * B * Skv * Dm * D) / 1e9
 
 
 def k4_params(gen, dtype, bias):
@@ -1893,11 +1920,41 @@ def k4_cases(dtype, bias=0.5):
             *k4_params(gen, dtype, bias), c[:1500].contiguous(), s[:1500].contiguous(), kv_mask])
 
 
+def k4_project_exact_case(B, Skv, Dm, dtype, gen):
+    """Inputs on which K4's first kernel must equal its plain version bit
+    for bit: the memory in multiples of 2^-3, the weights of 2^-4 and the
+    biases of 2^-6, all small, so every product and partial sum is exact in
+    fp32 and the sums agree in any order; the real tables. The memory is
+    given as strided views of one [B, Skv, 2, Dm] tensor."""
+    from sam2_opt_tpu_torch.models.memory_attention import _rope_half_tables
+
+    grid = lambda shape, step: (torch.randint(-4, 5, shape, device="cuda", generator=gen)  # noqa: E731
+                                .float() * step).to(dtype)
+    mem = grid((B, Skv, 2, Dm), 2.0 ** -3)
+    c, s = _rope_half_tables(K2_D, 64, 64, 10000.0, K2_SLOTS, 4 * K2_PTRS, torch.device("cuda"),
+                             dtype)
+    return (mem[:, :, 0], grid((K2_D, Dm), 2.0 ** -4), grid((K2_D,), 2.0 ** -6).float(),
+            mem[:, :, 1], grid((K2_D, Dm), 2.0 ** -4), grid((K2_D,), 2.0 ** -6).float(),
+            c[:Skv].contiguous(), s[:Skv].contiguous())
+
+
 @phase
-def phase_k4(kv_proj, kv_proj_ref):
+def phase_k4(kv_proj, kv_proj_ref, kv_proj_rotate, kv_proj_rotate_ref):
     """K4 against its plain version on the card; returns the largest error.
     The negative control holds the kernel to the plain version without bk:
-    the check must fail."""
+    the check must fail. First K4's projection kernel alone, bit for bit
+    against its plain version on exact inputs (`k4_project_exact_case`), at
+    the cross shape and a ragged one."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, Skv in ((1, K4_CROSS[2]), (2, 129)):
+            args = k4_project_exact_case(B, Skv, K4_DM, dtype, gen)
+            got, want = kv_proj_rotate(*args), kv_proj_rotate_ref(*args)
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(got, want)]
+            log(f"K4 projection kernel {dtype} B={B} Skv={Skv} Dm={K4_DM}: kr, vp bit for bit "
+                f"equal to the plain version: {same}")
+            check(all(same), "K4's projection kernel differs from its plain version")
     max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for label, args in k4_cases(dtype):
@@ -1983,11 +2040,14 @@ def phase_k4_grads(kv_proj, kv_proj_ref):
 
 
 @phase
-def phase_k4_times(kv_proj, kv_proj_ref):
+def phase_k4_times(kv_proj, kv_proj_ref, kv_proj_rotate=None):
     """K4 at the cross shape, every key valid (the steady state), cold L2,
     beside its bound, its plain version, the unfused route it replaces (two
     F.linear + K2) and the composite yardstick (two F.linear + rotation +
-    F.scaled_dot_product_attention, which the port never calls)."""
+    F.scaled_dot_product_attention, which the port never calls); device
+    times from CUDA graph replays (`graph_ms`, since slice 10). With
+    `kv_proj_rotate` (since slice 10; absent from an older checkout), its
+    projection kernel alone beside that kernel's bound."""
     from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention_rope
     from sam2_opt_tpu_torch.ops.posenc import apply_rotary_split
 
@@ -2009,20 +2069,27 @@ def phase_k4_times(kv_proj, kv_proj_ref):
             return F.scaled_dot_product_attention(q, kr[:, None], F.linear(mv, wv, bv)[:, None],
                                                   attn_mask=attn_mask)
 
-        ms = cuda_ms(lambda: kv_proj(q, mk, mv, wk, bk, wv, bv, c, s, mask), reps=5, flush=flush)
-        plain_ms = cuda_ms(lambda: kv_proj_ref(q, mk, mv, wk, bk, wv, bv, c, s, mask), reps=3,
-                           warmup=1, flush=flush)
-        unfused_ms = cuda_ms(unfused, reps=5, flush=flush)
-        library_ms = cuda_ms(library, reps=5, flush=flush)
+        ms = graph_ms(lambda: kv_proj(q, mk, mv, wk, bk, wv, bv, c, s, mask), flush=flush)
+        plain_ms = graph_ms(lambda: kv_proj_ref(q, mk, mv, wk, bk, wv, bv, c, s, mask), reps=3,
+                            flush=flush)
+        unfused_ms = graph_ms(unfused, flush=flush)
+        library_ms = graph_ms(library, flush=flush)
         bound_ms, bound_by = k4_bound_ms(B, Sq, Skv, D, Dm, dtype)
         executed = k4_executed_gflop(B, Sq, Skv, D, Dm)
+        rows[dtype] = dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        project = ""
+        if kv_proj_rotate is not None:
+            p_ms = graph_ms(lambda: kv_proj_rotate(mk, wk, bk, mv, wv, bv, c, s), flush=flush)
+            p_bound, p_by = k4_project_bound_ms(B, Skv, D, Dm, dtype)
+            rows[dtype]["projection"] = dict(ms=p_ms, bound_ms=p_bound, bound_by=p_by)
+            project = (f"; its projection kernel alone {p_ms:.4f} ms, bound {p_bound:.4f} ms "
+                       f"({p_by}), {p_bound / p_ms:.1%} of bound")
         log(f"K4 {dtype} {K4_CROSS}: {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused route "
             f"(2 F.linear + K2) {unfused_ms:.4f} ms, 2 F.linear + rotation + "
             f"F.scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}), {bound_ms / ms:.1%} of bound; executes {executed:.1f} GFLOP "
-            f"({executed / ms:.1f} TFLOP/s)")
-        rows[dtype] = dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+            f"({executed / ms:.1f} TFLOP/s){project}")
         del args, q, mk, mv
         torch.cuda.empty_cache()
     return rows
@@ -2300,6 +2367,45 @@ def phase_k9_k10():
 
 
 @phase
+def phase_k9_k10_times():
+    """K9 and K10 at the bench tool's four shapes (bf16), cold L2, from CUDA
+    graph replays: K9, K10's whole wrapper (copies in and out) and its
+    kernel alone, beside F.scaled_dot_product_attention on [N, heads, S, d]
+    views and the bound. For `--kernel-times` (phase 18 takes its times
+    from the bench tool's own rows)."""
+    from sam2_opt_tpu_torch.kernels.window_attention import (
+        launch_3d,
+        window_attention_3d,
+        window_attention_heads,
+    )
+    from sam2_opt_tpu_torch.tools.bench_window_flash import SHAPES
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    rows = {}
+    for label, N, S, H, D in SHAPES:
+        q, k, v = (torch.randn(N, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        flat = [x.transpose(1, 2).reshape(N * H, S, D) for x in (q, k, v)]
+        out = torch.empty_like(flat[0])
+        bound_ms, bound_by = window_bound_ms(N, H, S, S, D, torch.bfloat16)
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(t(q), t(k), t(v)), flush=flush)
+        for key, fn in (("K9", lambda: window_attention_heads(q, k, v)),
+                        ("K10", lambda: window_attention_3d(q, k, v)),
+                        ("K10 kernel alone", lambda: launch_3d(*flat, out))):
+            ms = graph_ms(fn, flush=flush)
+            rows[(key, torch.bfloat16, (N, S, H, D))] = dict(
+                ms=ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"K9/K10 bf16 {label} {(N, S, H, D)}: " + ", ".join(
+            f"{key} {rows[(key, torch.bfloat16, (N, S, H, D))]['ms']:.4f} ms"
+            for key in ("K9", "K10", "K10 kernel alone"))
+            + f"; F.scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+    return rows
+
+
+@phase
 def phase_bench_tool(counters):
     """The ported bench tool's entry point on the card (its main path): one
     JSON row per shape, both kernels within the bound; returns (rows,
@@ -2459,13 +2565,16 @@ def main(argv):
                 if "registers" in line or "spill" in line or "wgmma" in line]
         log(f"  {lib}: {len(regs) // 2} kernels; " + "; ".join(sorted(set(regs))))
 
-    # K2's rotation alone (since slice 9; absent from an older checkout,
-    # which --kernel-times may time)
+    # K2's rotation alone (since slice 9) and K4's projection kernel alone
+    # (since slice 10), absent from an older checkout, which --kernel-times
+    # may time
     rope_rotate = getattr(flash_module, "rope_rotate", None)
+    kv_proj_rotate = getattr(flash_module, "kv_proj_rotate", None)
     if argv == ["--kernel-times"]:
         # the kernel times alone (K1; K5-K8 at the window and MLP shapes; K2,
-        # its rotation and K1 at D = 256 at memory attention's shapes), for
-        # a comparison of two checkouts of the package in one call
+        # its rotation and K1 at D = 256 at memory attention's shapes; K4 at
+        # the cross shape; K9 and K10 at the bench tool's shapes), for a
+        # comparison of two checkouts of the package in one call
         label = lambda key: " ".join(str(k).replace("torch.", "") for k in key)  # noqa: E731
         k1 = phase_k1_times(flash_attention, flash_attention_ref, tiling=False)
         rows = phase_route_kernel_times()
@@ -2474,11 +2583,14 @@ def main(argv):
              "K1 D=256": (flash_attention, flash_attention_ref)}, rope_rotate=rope_rotate,
             plain=False)
         memory_rows = {(key, *shape): row for key, by in memory.items() for shape, row in by.items()}
-        log(json.dumps({"kernel_times": {label(k): v for k, v in {**k1, **rows,
-                                                                  **memory_rows}.items()},
-                        "card": smi[0]}))
+        k4 = phase_k4_times(flash_attention_kv_proj, flash_attention_kv_proj_ref, kv_proj_rotate)
+        k4_rows = {("K4", dt, K4_CROSS): row for dt, row in k4.items()}
+        tool = phase_k9_k10_times()
+        log(json.dumps({"kernel_times": {label(k): v for k, v in {
+            **k1, **rows, **memory_rows, **k4_rows, **tool}.items()}, "card": smi[0]}))
         return 0
     check(rope_rotate is not None, "this checkout has no rope_rotate")
+    check(kv_proj_rotate is not None, "this checkout has no kv_proj_rotate")
 
     k1_err = phase_k1(flash_attention, flash_attention_ref)
     k2_err = phase_k2(flash_attention_rope, flash_attention_rope_ref, rope_rotate)
@@ -2511,9 +2623,10 @@ def main(argv):
     cli_loss = phase_train_cli()
 
     # slice 5
-    k4_err = phase_k4(flash_attention_kv_proj, flash_attention_kv_proj_ref)
+    k4_err = phase_k4(flash_attention_kv_proj, flash_attention_kv_proj_ref, kv_proj_rotate,
+                      flash_module.kv_proj_rotate_ref)
     k4_grads = phase_k4_grads(flash_attention_kv_proj, flash_attention_kv_proj_ref)
-    k4 = phase_k4_times(flash_attention_kv_proj, flash_attention_kv_proj_ref)
+    k4 = phase_k4_times(flash_attention_kv_proj, flash_attention_kv_proj_ref, kv_proj_rotate)
     k1_wide_err, k1_wide = phase_k1_wide(flash_attention, flash_attention_ref)
     route_video_launches, route_video_times = phase_route_video(
         {"K1": flash_attention, "K2": flash_attention_rope, "K4": flash_attention_kv_proj})
@@ -2628,6 +2741,7 @@ def main(argv):
         "shape": list(K4_CROSS),
         "dtype": "bfloat16",
         "library": "2 F.linear + rotation + F.scaled_dot_product_attention",
+        "unfused_route": "2 F.linear + K2 (unfused_ms)",
         "fp32": k4[torch.float32],
         "training_launches": k4_train_launches,
     }, {

@@ -77,38 +77,33 @@
 //
 // K4 (sam2_flash_attention_kvproj_fwd) replaces ::_kernel_rope_kvproj: K2
 // with the memory cross-attention's K and V projections (mem_dim Dm = 64 ->
-// D = 256) fused in. The kv stream is read Dm wide; each kv tile is
-// projected on the SM,
+// D = 256) fused in:
 //   kp = round(mem_k . Wk^T + bk),  vp = round(mem_v . Wv^T + bv)
-// (fp32 sums, the bias added in fp32, one rounding to q's dtype), kp is
-// rotated as K2 rotates K, and the tile goes through K1's masked flash
-// softmax; the projected K/V never reach device memory. Weights are
-// nn.Linear [D, Dm] in q's dtype, biases fp32 [D]. Bound at the cross shape
-// (B = 1, 4096 queries, 28,736 keys): 4*4096*28736*256 + 2*2*28736*64*256 =
-// 122.4 GFLOP (0.124 ms bf16, 1.83 ms fp32 on the CUDA cores), compute-bound.
-// Each query tile re-projects every kv tile it reads, so the executed work is
-// 120.5 GFLOP of attention plus (Sq / rows per CTA) x 1.88 GFLOP of
-// projections. Design:
-//  - 128 query rows per CTA (8 warps), so the projections add half the
-//    attention's work (60 GFLOP at 32 query tiles), not all of it;
-//  - bf16: mma.sync m16n8k16 with fp32 accumulation, 16 query rows a warp, S
-//    re-packed in registers as the A operand of P V, operands through
-//    ldmatrix. Wk and Wv (2 x 36 KB) stay resident in shared memory for the
-//    CTA's life; the raw 32-key memory tiles stream through a 2-stage
-//    cp.async ring. Each warp projects K for its 16 channels d of the first
-//    half and the 16 channels d + D/2 of the second, so one thread holds
-//    both halves of a rotation pair in its accumulators and rotates in
-//    registers; V for its 32 channels. Q [128][264], Wk, Wv, K, V tiles and
-//    the ring: 196 KB, one CTA per SM;
-//  - fp32: FMAs on the CUDA cores at 128 rows x 32 keys per CTA (Q, K, P^T
-//    and V in shared memory, 223 KB); each thread projects 2 channels of K
-//    (a rotation pair) or V for the 32 keys, reading the weight rows through
-//    L1/L2 (they do not fit beside the fp32 Q tile);
-//  - K1's exact skip of kv tiles without a valid key, its -1e30 masking, the
-//    identity rows for the pointer tokens (cos = 1, sin = 0) and the kv
-//    split over blockIdx.z with the LSE combine. Keys past Skv are masked,
-//    not padded: the TPU kernel's lane padding (Dm and D to 128, Skv to the
-//    block) has no counterpart here.
+// (fp32 sums, the bias added in fp32, one rounding to q's dtype), kp rotated
+// as K2 rotates K (from the rounded kp, as the JAX kernel orders it,
+// :177-178), then K1's masked flash softmax with the row lse. Weights are
+// nn.Linear [D, Dm] in q's dtype, biases [D] in fp32. Bound at the cross
+// shape (B = 1, 4096 queries, 28,736 keys): 4*4096*28736*256 = 120.5 GFLOP
+// of attention and 1.9 GFLOP of projections, all on the tensor cores,
+// compute-bound (0.124 ms in bf16; 0.742 ms in fp32, where the products run
+// as three TF32 products each, at 495/3 TFLOP/s).
+// K4 projects once per call, in a kernel of its own launched first
+// (flash_kvproj_project_*: K and V projected, K rotated, into contiguous
+// [B, Skv, 256] scratch the wrapper allocates), then runs K1's attention
+// body on (q, kr, vp) under K4's own kernel names (flash_kvproj_wgmma_kernel,
+// flash_kvproj_tf32_kernel, flash_kvproj_combine_kernel) with K1's kv split.
+// Projecting inside the attention, as the TPU kernel does, repeats the
+// projections once per query tile (32 times at the cross shape, 60 GFLOP at
+// 128-row tiles) and keeps TMA from feeding wgmma; the projection kernel is
+// bound by bytes instead (the memory, the tables, kr and vp: 51.5 MB in
+// bf16, 15 us at 3.35 TB/s), and kr and vp (29 MB in bf16) then sit in the
+// 50 MB L2 while the attention reads them. bf16 projects on mma.sync
+// m16n8k16, fp32 as three-pass TF32 on mma.sync m16n8k8 (their section
+// below). On an H100 80GB HBM3 at 700 W (chip_smoke.py, cold L2, CUDA graph
+// replays) K4 takes 0.347 ms in bf16 and 2.71 ms in fp32 at the cross shape
+// (the kernel it replaced, which projected per query tile: 1.58 / 9.26),
+// the projection kernel 0.031 / 0.062 ms of it, against 0.361 / 2.74 for
+// the unfused route (two F.linear + K2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,6 +115,7 @@
 
 namespace {
 
+using hopper::ex2;
 using hopper::fence_regs;
 using hopper::make_map;
 using hopper::mbar_arrive;
@@ -161,8 +157,8 @@ struct Params {
   int n_split;          // 1: no split
   float* part_o;        // [n_split, B*H, Sq, D]
   float* part_lse;      // [n_split, B*H, Sq]
-  // K4: k / v are the Dm-wide memory tokens, projected in the kernel by
-  // wk / wv [D, Dm] (q's dtype, contiguous) plus bk / bv [D] (fp32)
+  // K4: k / v are the Dm-wide memory tokens, projected by wk / wv [D, Dm]
+  // (q's dtype, contiguous) plus bk / bv [D] (fp32)
   const void* wk;
   const void* wv;
   const float* bk;
@@ -188,12 +184,8 @@ __device__ __forceinline__ void kv_range(const Params& p, int n_tiles, int& kt0,
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync helpers (K4's bf16 route; the quad reductions of every route)
+// mma.sync helpers (K4's bf16 projections; the quad reductions of every route)
 // ---------------------------------------------------------------------------
-
-// Row stride (in bf16) of the K/V tiles: DP + 8 makes it an odd multiple of
-// 16 bytes, so the 8 rows one fragment load touches hit distinct banks.
-__host__ __device__ constexpr int tc_ld(int dp) { return dp + 8; }
 
 // c += a . b for one 16x8x16 tile: a row-major [16][16], b column-major [16][8]
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -205,18 +197,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// four 8x8 bf16 matrices from shared memory, transposed: the B operand of
-// P . V for two 8-column slices of the head dim, from V stored [key][d]
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* src) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(src));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// four 8x8 bf16 matrices from shared memory: the B operand of Q . K^T for
-// two 8-key slices and one 16-wide k-step, from K stored [key][d]
+// four 8x8 bf16 matrices from shared memory: the A operand of one 16 x 16
+// tile of a row-major [row][k] matrix
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* src) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(src));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -620,12 +602,6 @@ struct FwdWg {
   static_assert(BK == 64 || BK == 128, "S is one m64n64 or m64n128 product a k-step");
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int DV>
 __device__ __forceinline__ void fwd_wgmma_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                                const CUtensorMap& tm_v, const Params& p) {
@@ -994,520 +970,381 @@ __global__ void __launch_bounds__(ROT_THREADS) flash_rope_rotate_kernel(const Pa
 }
 
 // ---------------------------------------------------------------------------
-// K4: K2 with the memory K/V projections fused in (one head, D = 256)
+// K4, part one: the K/V projections and K's rotation, once per call
 // ---------------------------------------------------------------------------
+//
+// kr = rotate(round(mem_k . Wk^T + bk)) and vp = round(mem_v . Wv^T + bv) for
+// every (b, key), into contiguous [B, Skv, 256] scratch in q's dtype that the
+// wrapper allocates: fp32 sums, the bias added in fp32, one rounding to q's
+// dtype, then K2's rotation of the rounded kp (fp32 from it, one rounding per
+// operation, no FMA, one rounding), in the order of the JAX kernel
+// (:173-178) and the plain version. The rows are the B*Skv (b, key) pairs; a
+// CTA walks tiles of them with a stride of the grid, its weights resident.
 
-constexpr int KP_D = 256;                // the memory-attention width (d_model)
-constexpr int KP_WARPS = 8;
-constexpr int KP_THREADS = KP_WARPS * 32;
-constexpr int KP_BQ = 16 * KP_WARPS;     // query rows per CTA (both routes)
-constexpr int KP_BK = 32;                // keys per kv tile (both routes)
-constexpr int KF_LDQ = KP_BQ + 4;        // fp32: row stride of the d-major Q and P^T tiles
-constexpr int KF_LDK = KP_BK + 4;        // fp32: row stride of the d-major K tile
-
-template <int DM>
-constexpr int smem_bytes_kvproj_bf16() {
-  // Q [128][264] + Wk, Wv [256][DM+8] + K, V [32][264] + raw {mem_k, mem_v}
-  // x 2 stages [32][DM+8], bf16; bk, bv [256] fp32
-  return (KP_BQ * tc_ld(KP_D) + 2 * KP_D * (DM + 8) + 2 * KP_BK * tc_ld(KP_D) +
-          4 * KP_BK * (DM + 8)) * static_cast<int>(sizeof(__nv_bfloat16)) +
-         2 * KP_D * static_cast<int>(sizeof(float));
-}
-
-template <int DM>
-constexpr int smem_bytes_kvproj_f32() {
-  // Qt [256][132] + Kt [256][36] (P^T [32][132] after S) + V [32][256] + raw
-  // {mem_k, mem_v} [32][DM] + bk, bv [256], fp32
-  return (KP_D * KF_LDQ + KP_D * KF_LDK + KP_BK * KP_D + 2 * KP_BK * DM + 2 * KP_D) *
-         static_cast<int>(sizeof(float));
-}
+constexpr int KP_D = 256;  // the memory-attention width (d_model)
+constexpr int KP_HALF = KP_D / 2;
+constexpr int KP_THREADS = 256;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// bf16: mma.sync m16n8k16, fp32 accumulators, 32-row tiles. Warp w projects K
+// for channels 16w..16w+15 and their rotation partners 128+16w.. (one thread
+// holds both halves of a rotation pair in its accumulators and rotates in
+// registers) and V for channels 32w..32w+31. The weights arrive once through
+// shared memory (16-byte copies, then ldmatrix into fragments that stay in
+// registers for the CTA's life). Each tile's raw rows and its rows of the
+// cos/sin tables stream through a 2-stage cp.async ring, so neither the
+// products nor the rotation wait on device memory (read in the epilogue
+// straight from device memory, the tables were the largest cost); each
+// tile's kr and vp rows are assembled in shared memory and leave as whole
+// 512-byte rows of 16-byte stores (they are contiguous in kr and vp). 92 KB
+// of shared memory: two CTAs an SM. At the cross shape it takes 0.031 ms on
+// an H100 80GB HBM3 at 700 W, against the 0.015 ms its bytes need.
+constexpr int KPB_ROWS = 32;
+constexpr int KPB_LDT = KP_HALF + 8;  // row stride of the staged tables
+constexpr int KPB_LDO = KP_D + 8;     // row stride of the staged kr / vp rows
+
 template <int DM>
-__global__ void __launch_bounds__(KP_THREADS, 1) flash_kvproj_bf16_kernel(const Params p) {
-  constexpr int D = KP_D;
-  constexpr int LDK = tc_ld(D);     // row stride of Q, K and V tiles
-  constexpr int LDM = DM + 8;       // row stride of the weights and raw tiles (odd x 16 bytes)
-  constexpr int KS = D / 16;        // k-steps of Q . K^T
-  constexpr int ND = D / 8;         // 8-column slices of the output
-  constexpr int NT = KP_BK / 8;     // 8-key slices of S
-  constexpr int MKS = DM / 16;      // k-steps of the projections
-  constexpr int HALF = D / 2;
-  constexpr int CHUNKS = D / 8, MCHUNKS = DM / 8;  // 16-byte chunks per row
-  constexpr int RAW = KP_BK * LDM;
-  extern __shared__ __align__(16) __nv_bfloat16 kp_smem[];
-  __nv_bfloat16* Qs = kp_smem;                // [KP_BQ][LDK]
-  __nv_bfloat16* Wks = Qs + KP_BQ * LDK;      // [D][LDM]
-  __nv_bfloat16* Wvs = Wks + D * LDM;         // [D][LDM]
-  __nv_bfloat16* Ks = Wvs + D * LDM;          // [KP_BK][LDK] projected, rotated K
-  __nv_bfloat16* Vs = Ks + KP_BK * LDK;       // [KP_BK][LDK] projected V
-  __nv_bfloat16* Ms = Vs + KP_BK * LDK;       // [2 stages][{k, v}][KP_BK][LDM]
-  float* bks = reinterpret_cast<float*>(Ms + 4 * RAW);  // [D]
-  float* bvs = bks + D;
+struct KpBf16 {
+  static constexpr int LDM = DM + 8;  // an odd multiple of 16 bytes: ldmatrix rows miss no bank
+  static constexpr int RAW = KPB_ROWS * LDM;
+  static constexpr int TAB = KPB_ROWS * KPB_LDT;
+  static constexpr int STAGE = 2 * RAW + 2 * TAB;     // mem_k, mem_v, cos, sin
+  static constexpr int OUT = 2 * KPB_ROWS * KPB_LDO;  // [kr, vp][rows][KPB_LDO]
+  static constexpr int WTS = KP_D * LDM;              // one weight matrix, before the first tile
+  static constexpr int STAGED = OUT > WTS ? OUT : WTS;
+  static constexpr int SMEM = (2 * STAGE + STAGED) * static_cast<int>(sizeof(__nv_bfloat16)) +
+                              2 * KP_D * static_cast<int>(sizeof(float));
+};
 
+template <int DM>
+__global__ void __launch_bounds__(KP_THREADS, 2)
+    flash_kvproj_project_bf16_kernel(const Params p, __nv_bfloat16* kr, __nv_bfloat16* vp) {
+  using S = KpBf16<DM>;
+  constexpr int LDM = S::LDM, MKS = DM / 16, MCH = DM / 8, TCH = KP_HALF / 8, OCH = KP_D / 8;
+  extern __shared__ __align__(16) __nv_bfloat16 kpb_smem[];
+  __nv_bfloat16* ring = kpb_smem;               // [stage][mem_k, mem_v, cos, sin]
+  __nv_bfloat16* staged = ring + 2 * S::STAGE;  // a weight matrix, then each tile's kr and vp rows
+  float* bks = reinterpret_cast<float*>(staged + S::STAGED);  // [KP_D]
+  float* bvs = bks + KP_D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, lane in the quad
-  const int b = blockIdx.y;               // one head: (b, h) = (b, 0)
-  const int q_tile = blockIdx.x * KP_BQ;
-  const int q0 = q_tile + warp * 16;
-
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb;
-  const __nv_bfloat16* mkg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb;
-  const __nv_bfloat16* mvg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb;
-  const __nv_bfloat16* wkg = static_cast<const __nv_bfloat16*>(p.wk);
-  const __nv_bfloat16* wvg = static_cast<const __nv_bfloat16*>(p.wv);
+  const int g = lane >> 2, t = lane & 3;
+  const int rows = p.B * p.Skv;  // < 2^31 (the launch checks)
+  const int n_tiles = (rows + KPB_ROWS - 1) / KPB_ROWS;
+  const __nv_bfloat16* mk = static_cast<const __nv_bfloat16*>(p.k);
+  const __nv_bfloat16* mv = static_cast<const __nv_bfloat16*>(p.v);
   const __nv_bfloat16* cg = static_cast<const __nv_bfloat16*>(p.cos);
   const __nv_bfloat16* sg = static_cast<const __nv_bfloat16*>(p.sin);
-  const uint8_t* mg = p.mask ? p.mask + b * p.mask_sb : nullptr;
 
-  // the Q tile (rows past Sq zero-filled) and both weight matrices ride in
-  // the first copy group; the biases are plain stores, visible after the
-  // first barrier of the loop
-  for (int idx = threadIdx.x; idx < KP_BQ * CHUNKS; idx += blockDim.x) {
-    const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
-    const bool in = q_tile + r < p.Sq;
-    const long long row = in ? q_tile + r : 0;
-    cp_async_16(Qs + r * LDK + c, qg + row * p.q_ss + c, in);
-  }
-  for (int idx = threadIdx.x; idx < D * MCHUNKS; idx += blockDim.x) {
-    const int r = idx / MCHUNKS, c = (idx % MCHUNKS) * 8;
-    cp_async_16(Wks + r * LDM + c, wkg + r * DM + c, true);
-    cp_async_16(Wvs + r * LDM + c, wvg + r * DM + c, true);
-  }
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    bks[i] = p.bk[i];
-    bvs[i] = p.bv[i];
-  }
-  auto load_raw = [&](int tile, int stage) {
-    const int k0 = tile * KP_BK;
-    for (int idx = threadIdx.x; idx < KP_BK * MCHUNKS; idx += blockDim.x) {
-      const int r = idx / MCHUNKS, c = (idx % MCHUNKS) * 8;
-      const bool in = k0 + r < p.Skv;  // rows past Skv are zero-filled
-      const long long row = in ? k0 + r : 0;
-      cp_async_16(Ms + 2 * stage * RAW + r * LDM + c, mkg + row * p.k_ss + c, in);
-      cp_async_16(Ms + (2 * stage + 1) * RAW + r * LDM + c, mvg + row * p.v_ss + c, in);
+  auto load_weights = [&](const void* w) {
+    for (int idx = threadIdx.x; idx < KP_D * MCH; idx += KP_THREADS) {
+      const int r = idx / MCH, c = (idx % MCH) * 8;
+      cp_async_16(staged + r * LDM + c, static_cast<const __nv_bfloat16*>(w) + r * DM + c, true);
     }
+    cp_async_commit();
   };
-  const int n_tiles = (p.Skv + KP_BK - 1) / KP_BK;
-  const int per_split = (n_tiles + p.n_split - 1) / p.n_split;
-  const int t_begin = blockIdx.z * per_split;
-  const int t_end = min(n_tiles, t_begin + per_split);
-  if (t_begin < t_end) load_raw(t_begin, 0);
-  cp_async_commit();
-
-  const float scale_log2 = p.scale * LOG2E;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[ND][4];
+  // the B fragments (W [channel][k] is B column-major) of two 16-channel
+  // groups from rows ch0.. and ch1.. of the staged matrix: n-tiles 0-1, 2-3
+  auto fragments = [&](uint32_t (&f)[MKS][4][2], int ch0, int ch1) {
+    const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  // ldmatrix lane offsets: an A operand (16 rows x 16) and a pair of B
-  // operands (two 8-row slices x 16) from row-major [row][k] tiles
-  const int a_off = (lane & 15) * LDM + 8 * (lane >> 4);
-  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
-  const __nv_bfloat16* qfrag = Qs + (warp * 16 + (lane & 15)) * LDK + 8 * (lane >> 4);
+    for (int ks = 0; ks < MKS; ++ks)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        uint32_t r[4];
+        ldmatrix_x4(r, staged + ((q == 0 ? ch0 : ch1) + b_row) * LDM + 16 * ks + b_col);
+        f[ks][2 * q][0] = r[0], f[ks][2 * q][1] = r[1];
+        f[ks][2 * q + 1][0] = r[2], f[ks][2 * q + 1][1] = r[3];
+      }
+  };
+  auto load = [&](int tile, int stage) {  // rows past B*Skv are zero-filled
+    __nv_bfloat16* dst = ring + stage * S::STAGE;
+    for (int idx = threadIdx.x; idx < KPB_ROWS * MCH; idx += KP_THREADS) {
+      const int r = idx / MCH, c = (idx % MCH) * 8;
+      const int row = tile * KPB_ROWS + r;
+      const bool in = row < rows;
+      const int b = in ? row / p.Skv : 0, key = in ? row % p.Skv : 0;
+      cp_async_16(dst + r * LDM + c, mk + b * p.k_sb + key * p.k_ss + c, in);
+      cp_async_16(dst + S::RAW + r * LDM + c, mv + b * p.v_sb + key * p.v_ss + c, in);
+    }
+    for (int idx = threadIdx.x; idx < KPB_ROWS * TCH; idx += KP_THREADS) {
+      const int r = idx / TCH, c = (idx % TCH) * 8;
+      const int row = tile * KPB_ROWS + r;
+      const bool in = row < rows;
+      const long long at = static_cast<long long>(in ? row % p.Skv : 0) * KP_HALF + c;
+      cp_async_16(dst + 2 * S::RAW + r * KPB_LDT + c, cg + at, in);
+      cp_async_16(dst + 2 * S::RAW + S::TAB + r * KPB_LDT + c, sg + at, in);
+    }
+    cp_async_commit();
+  };
 
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int stage = (tile - t_begin) & 1;
-    // the other stage was last read by the previous tile's projection,
-    // which every warp finished before that tile's second barrier
-    if (tile + 1 < t_end) load_raw(tile + 1, stage ^ 1);
-    cp_async_commit();  // possibly empty: keeps "all but the newest group" = this tile
+  // copy groups: Wk, then Wv, then the first tile, then one per tile
+  for (int i = threadIdx.x; i < KP_D; i += KP_THREADS)
+    bks[i] = p.bk[i], bvs[i] = p.bv[i];
+  uint32_t fk[MKS][4][2], fv[MKS][4][2];
+  load_weights(p.wk);
+  cp_async_wait_all();
+  __syncthreads();
+  fragments(fk, 16 * warp, KP_HALF + 16 * warp);  // K n-tile j: 16w + 8j, 128 + 16w + 8(j - 2)
+  __syncthreads();
+  load_weights(p.wv);
+  int tile = blockIdx.x;
+  if (tile < n_tiles) load(tile, 0);
+  else cp_async_commit();
+  cp_async_wait_newest_pending();  // Wv
+  __syncthreads();
+  fragments(fv, 32 * warp, 32 * warp + 16);  // V n-tile j: 32w + 8j
+
+  const int a_off = (lane & 15) * LDM + 8 * (lane >> 4);  // ldmatrix: an A operand, 16 x 16
+  __nv_bfloat16* ok = staged;                       // [KPB_ROWS][KPB_LDO]
+  __nv_bfloat16* ov = staged + KPB_ROWS * KPB_LDO;
+  const int grid = gridDim.x;
+  for (int it = 0; tile < n_tiles; tile += grid, ++it) {
+    // the other stage was last read by the previous tile, and every warp is
+    // done with the staged weights or the previous tile's rows: both before
+    // the previous barrier
+    if (tile + grid < n_tiles) load(tile + grid, (it + 1) & 1);
+    else cp_async_commit();  // empty: keeps "all but the newest group" = this tile
     cp_async_wait_newest_pending();
-    const int k0 = tile * KP_BK;
-    // the barrier after which this tile's copies are visible and every warp
-    // is done reading the previous K and V tiles; a tile with no valid key
-    // is skipped (exact, as in K2)
-    if (!__syncthreads_or(threadIdx.x < KP_BK && key_valid(mg, k0 + threadIdx.x, p.Skv)))
-      continue;
-    const __nv_bfloat16* mk_s = Ms + 2 * stage * RAW;
-    const __nv_bfloat16* mv_s = mk_s + RAW;
-
-    {  // K = rotate(round(mem_k . Wk^T + bk)): this warp's channels
-       // 16w..16w+15 (n-tiles 0, 1) and their rotation partners D/2 + 16w..
-       // (n-tiles 2, 3), all 32 keys (two 16-key m-tiles)
-      float acc[2][4][4];
+    __syncthreads();
+    const __nv_bfloat16* mk_s = ring + (it & 1) * S::STAGE;
+    const __nv_bfloat16* mv_s = mk_s + S::RAW;
+    const __nv_bfloat16* c_s = mk_s + 2 * S::RAW;
+    const __nv_bfloat16* s_s = c_s + S::TAB;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < KPB_ROWS / 16; ++mt) {
+      float acc[4][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < MKS; ++ks) {
-        uint32_t blo[4], bhi[4];
-        ldmatrix_x4(blo, Wks + (16 * warp + b_row) * LDM + 16 * ks + b_col);
-        ldmatrix_x4(bhi, Wks + (HALF + 16 * warp + b_row) * LDM + 16 * ks + b_col);
+        uint32_t a[4];
+        ldmatrix_x4(a, mk_s + 16 * mt * LDM + a_off + 16 * ks);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          uint32_t a[4];
-          ldmatrix_x4(a, mk_s + 16 * mt * LDM + a_off + 16 * ks);
-          mma_bf16(acc[mt][0], a, blo[0], blo[1]);
-          mma_bf16(acc[mt][1], a, blo[2], blo[3]);
-          mma_bf16(acc[mt][2], a, bhi[0], bhi[1]);
-          mma_bf16(acc[mt][3], a, bhi[2], bhi[3]);
-        }
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[j], a, fk[ks][j][0], fk[ks][j][1]);
       }
-      // bias in fp32, one rounding to bf16, then K2's rotation (fp32 from
-      // the bf16 values, one rounding); rows past Skv stay zero
+      // K: bias in fp32, one rounding, then the rotation of the rounded
+      // values (fp32, one rounding per operation), one rounding
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * mt + g + 8 * hr;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int key = 16 * mt + g + 8 * hr;
-            const int d = 16 * warp + 8 * j + 2 * t;
-            __nv_bfloat162 lo = __floats2bfloat162_rn(0.f, 0.f), hi = lo;
-            if (k0 + key < p.Skv) {
-              const float k1x = round_bf16(acc[mt][j][2 * hr] + bks[d]);
-              const float k1y = round_bf16(acc[mt][j][2 * hr + 1] + bks[d + 1]);
-              const float k2x = round_bf16(acc[mt][j + 2][2 * hr] + bks[HALF + d]);
-              const float k2y = round_bf16(acc[mt][j + 2][2 * hr + 1] + bks[HALF + d + 1]);
-              const long long trow = static_cast<long long>(k0 + key) * HALF + d;
-              const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cg + trow));
-              const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sg + trow));
-              lo = __floats2bfloat162_rn(rot_lo(k1x, k2x, c.x, s.x), rot_lo(k1y, k2y, c.y, s.y));
-              hi = __floats2bfloat162_rn(rot_hi(k1x, k2x, c.x, s.x), rot_hi(k1y, k2y, c.y, s.y));
-            }
-            *reinterpret_cast<__nv_bfloat162*>(Ks + key * LDK + d) = lo;
-            *reinterpret_cast<__nv_bfloat162*>(Ks + key * LDK + HALF + d) = hi;
-          }
-    }
-    {  // V = round(mem_v . Wv^T + bv): this warp's channels 32w..32w+31
-      float acc[2][4][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < MKS; ++ks) {
-        uint32_t b0[4], b1[4];
-        ldmatrix_x4(b0, Wvs + (32 * warp + b_row) * LDM + 16 * ks + b_col);
-        ldmatrix_x4(b1, Wvs + (32 * warp + 16 + b_row) * LDM + 16 * ks + b_col);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          uint32_t a[4];
-          ldmatrix_x4(a, mv_s + 16 * mt * LDM + a_off + 16 * ks);
-          mma_bf16(acc[mt][0], a, b0[0], b0[1]);
-          mma_bf16(acc[mt][1], a, b0[2], b0[3]);
-          mma_bf16(acc[mt][2], a, b1[0], b1[1]);
-          mma_bf16(acc[mt][3], a, b1[2], b1[3]);
+        for (int j = 0; j < 2; ++j) {
+          const int d = 16 * warp + 8 * j + 2 * t;
+          const float k1x = round_bf16(acc[j][2 * hr] + bks[d]);
+          const float k1y = round_bf16(acc[j][2 * hr + 1] + bks[d + 1]);
+          const float k2x = round_bf16(acc[j + 2][2 * hr] + bks[KP_HALF + d]);
+          const float k2y = round_bf16(acc[j + 2][2 * hr + 1] + bks[KP_HALF + d + 1]);
+          const float2 c =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(c_s + r * KPB_LDT + d));
+          const float2 s =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s_s + r * KPB_LDT + d));
+          *reinterpret_cast<__nv_bfloat162*>(ok + r * KPB_LDO + d) =
+              __floats2bfloat162_rn(rot_lo(k1x, k2x, c.x, s.x), rot_lo(k1y, k2y, c.y, s.y));
+          *reinterpret_cast<__nv_bfloat162*>(ok + r * KPB_LDO + KP_HALF + d) =
+              __floats2bfloat162_rn(rot_hi(k1x, k2x, c.x, s.x), rot_hi(k1y, k2y, c.y, s.y));
         }
       }
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+      for (int ks = 0; ks < MKS; ++ks) {
+        uint32_t a[4];
+        ldmatrix_x4(a, mv_s + 16 * mt * LDM + a_off + 16 * ks);
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int key = 16 * mt + g + 8 * hr;
-            const int ch = 32 * warp + 8 * j + 2 * t;
-            *reinterpret_cast<__nv_bfloat162*>(Vs + key * LDK + ch) = __floats2bfloat162_rn(
-                acc[mt][j][2 * hr] + bvs[ch], acc[mt][j][2 * hr + 1] + bvs[ch + 1]);
-          }
-    }
-    __syncthreads();  // the K and V tiles are complete
-
-    // S = Q . K^T: [16 rows][32 keys] per warp, fp32
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const __nv_bfloat16* kfrag = Ks + b_row * LDK + b_col;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4];
-      ldmatrix_x4(qa, qfrag + 16 * ks);
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, kfrag + 8 * nt * LDK + 16 * ks);
-        mma_bf16(s[nt], qa, kb[0], kb[1]);
-        mma_bf16(s[nt + 1], qa, kb[2], kb[3]);
-      }
-    }
-
-    // scale, mask, online softmax (K1's)
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool valid = key_valid(mg, k0 + 8 * nt + 2 * t + j, p.Skv);
-        s[nt][j] = valid ? s[nt][j] * scale_log2 : NEG_INF;
-        s[nt][2 + j] = valid ? s[nt][2 + j] * scale_log2 : NEG_INF;
-        mx[0] = fmaxf(mx[0], s[nt][j]);
-        mx[1] = fmaxf(mx[1], s[nt][2 + j]);
-      }
-    float alpha[2], row_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[nt][j] = exp2f(s[nt][j] - m[j >> 1]);
-        row_sum[j >> 1] += s[nt][j];
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[j], a, fv[ks][j][0], fv[ks][j][1]);
       }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(row_sum[i]);
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * mt + g + 8 * hr;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      o[nd][0] *= alpha[0];
-      o[nd][1] *= alpha[0];
-      o[nd][2] *= alpha[1];
-      o[nd][3] *= alpha[1];
-    }
-
-    // O += P . V, P re-packed to bf16 in registers
-#pragma unroll
-    for (int kk = 0; kk < KP_BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vrow = Vs + (16 * kk + (lane & 15)) * LDK + 8 * (lane >> 4);
-#pragma unroll
-      for (int nd = 0; nd < ND; nd += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vrow + 8 * nd);
-        mma_bf16(o[nd], pa, vb[0], vb[1]);
-        mma_bf16(o[nd + 1], pa, vb[2], vb[3]);
+        for (int j = 0; j < 4; ++j) {
+          const int ch = 32 * warp + 8 * j + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(ov + r * KPB_LDO + ch) = __floats2bfloat162_rn(
+              acc[j][2 * hr] + bvs[ch], acc[j][2 * hr + 1] + bvs[ch + 1]);
+        }
       }
     }
-    // no barrier here: the next tile's first barrier comes before its
-    // projection overwrites K and V
-  }
-  cp_async_wait_all();  // a split with no tile still has its Q and weight copies in flight
-
-  const long long part = static_cast<long long>(blockIdx.z) * p.B + b;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb;
-  float* po = p.part_o + part * p.Sq * D;  // used when the kv axis is split
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + g + 8 * i;
-    if (row >= p.Sq) continue;
-    const bool seen_valid = m[i] > NEG_INF * 0.5f;
-    const float inv_l = seen_valid ? 1.f / l[i] : 0.f;
-    const float lse = seen_valid ? (m[i] + log2f(l[i])) * LN2 : NEG_INF;
-    if (p.n_split > 1) {
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<float2*>(po + row * D + 8 * nd + 2 * t) =
-            make_float2(o[nd][2 * i] * inv_l, o[nd][2 * i + 1] * inv_l);
-      if (t == 0) p.part_lse[part * p.Sq + row] = lse;
-    } else {
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<__nv_bfloat162*>(og + row * p.o_ss + 8 * nd + 2 * t) =
-            __floats2bfloat162_rn(o[nd][2 * i] * inv_l, o[nd][2 * i + 1] * inv_l);
-      if (t == 0) p.lse[static_cast<long long>(b) * p.Sq + row] = lse;
+    __syncthreads();  // the tile's rows are staged; every warp is done with this stage
+    // the tile's rows of kr and vp are contiguous: whole rows of 16-byte stores
+    for (int idx = threadIdx.x; idx < KPB_ROWS * OCH; idx += KP_THREADS) {
+      const int r = idx / OCH, c = (idx % OCH) * 8;
+      const int row = tile * KPB_ROWS + r;
+      if (row >= rows) continue;
+      const long long at = static_cast<long long>(row) * KP_D + c;
+      *reinterpret_cast<uint4*>(kr + at) = *reinterpret_cast<const uint4*>(ok + r * KPB_LDO + c);
+      *reinterpret_cast<uint4*>(vp + at) = *reinterpret_cast<const uint4*>(ov + r * KPB_LDO + c);
     }
   }
+  cp_async_wait_all();  // a CTA with no tile still has its (empty) groups open
 }
 
-// fp32: FMAs on the CUDA cores at 128 query rows x 32 keys. Thread (ty, tx) owns
-// query rows 4ty..4ty+3, keys 4tx..4tx+3 of S and output columns tx + 8c.
-template <int DM>
-__global__ void __launch_bounds__(KP_THREADS, 1) flash_kvproj_f32_kernel(const Params p) {
-  constexpr int D = KP_D, HALF = D / 2;
-  constexpr int NC = D / 8;  // output columns per thread
-  extern __shared__ __align__(16) float kf_smem[];
-  float* Qt = kf_smem;               // [D][KF_LDQ]  Q tile, d-major
-  float* Kt = Qt + D * KF_LDQ;       // [D][KF_LDK]  K tile, d-major
-  float* Pt = Kt;                    // [KP_BK][KF_LDQ]  P^T, reuses the K tile
-  float* Vs = Kt + D * KF_LDK;       // [KP_BK][D]  V tile, row-major
-  float* Mk = Vs + KP_BK * D;        // [KP_BK][DM] raw memory tokens
-  float* Mv = Mk + KP_BK * DM;
-  float* bks = Mv + KP_BK * DM;      // [D]
-  float* bvs = bks + D;
+// fp32: three-pass TF32 on mma.sync m16n8k8 (each fp32 product as three TF32
+// products, about 2^-21 of |a b|, as K1's fp32 body multiplies), 32-row
+// tiles; blockIdx.y picks the matrix (0: K, 1: V), so a CTA holds one weight
+// matrix in shared memory (73.7 KB at Dm = 64) and two CTAs share an SM.
+// Warp w projects the same channels as in bf16 (K: 16w.. and 128 + 16w..,
+// V: 32w..); the A (raw rows) and B (weights) fragments take k in the order
+// (2t, 2t + 1) for lane t's slots (t, t + 4), so each is one 8-byte load
+// from rows Dm + 8 floats apart (8 mod 32: a half-warp's reads of 4 rows x
+// 4 lanes hit 32 distinct banks). The raw tiles stream through a 2-stage
+// cp.async ring; a K CTA loads its rows of the cos/sin tables into registers
+// before its products, so the rotation does not wait on device memory. An
+// element's Dm products sum on the tensor cores in one pass (8 k-steps at
+// Dm = 64), and the outputs leave as 8-byte stores, whole 32-byte sectors.
+// (FMAs on the CUDA cores were slower.) At the cross shape it takes 0.062 ms
+// on an H100 80GB HBM3 at 700 W, against the 0.031 ms its bytes need.
+constexpr int KPF_ROWS = 32;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 7, ty = tid >> 3;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * KP_BQ;
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb;
-  const float* mkg = static_cast<const float*>(p.k) + b * p.k_sb;
-  const float* mvg = static_cast<const float*>(p.v) + b * p.v_sb;
+template <int DM>
+struct KpF32 {
+  static constexpr int LD = DM + 8;  // row stride of the weights and raw tiles, in floats
+  static constexpr int RAW = KPF_ROWS * LD;
+  static constexpr int SMEM = (KP_D * LD + 2 * RAW + KP_D) * static_cast<int>(sizeof(float));
+};
+
+template <int DM>
+__global__ void __launch_bounds__(KP_THREADS, 2)
+    flash_kvproj_project_f32_kernel(const Params p, float* kr, float* vp) {
+  using S = KpF32<DM>;
+  constexpr int LD = S::LD, K8 = DM / 8, CH = DM / 4;  // k-steps; 16-byte chunks of a row
+  extern __shared__ __align__(16) float kpf_smem[];
+  float* ws = kpf_smem;             // [KP_D][LD]: this CTA's weight matrix
+  float* ring = ws + KP_D * LD;     // [stage][KPF_ROWS][LD]
+  float* bs = ring + 2 * S::RAW;    // [KP_D]
+  const bool is_k = blockIdx.y == 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rows = p.B * p.Skv;  // < 2^31 (the launch checks)
+  const int n_tiles = (rows + KPF_ROWS - 1) / KPF_ROWS;
+  const float* mem = static_cast<const float*>(is_k ? p.k : p.v);
+  const long long m_sb = is_k ? p.k_sb : p.v_sb, m_ss = is_k ? p.k_ss : p.v_ss;
+  const float* w = static_cast<const float*>(is_k ? p.wk : p.wv);
+  float* out = is_k ? kr : vp;
   const float* cg = static_cast<const float*>(p.cos);
   const float* sg = static_cast<const float*>(p.sin);
-  const uint8_t* mg = p.mask ? p.mask + b * p.mask_sb : nullptr;
 
-  for (int idx = tid; idx < KP_BQ * D; idx += KP_THREADS) {
-    const int r = idx / D, d = idx % D;
-    Qt[d * KF_LDQ + r] = q0 + r < p.Sq ? qg[(q0 + r) * p.q_ss + d] : 0.f;
+  for (int idx = threadIdx.x; idx < KP_D * CH; idx += KP_THREADS) {
+    const int r = idx / CH, c = (idx % CH) * 4;
+    cp_async_16(ws + r * LD + c, w + r * DM + c, true);
   }
-  for (int i = tid; i < D; i += KP_THREADS) {
-    bks[i] = p.bk[i];
-    bvs[i] = p.bv[i];
-  }
-  // projection roles: warps 0-3 project K, warps 4-7 V; thread c of each
-  // half owns channels c and c + D/2 (for K, a rotation pair)
-  const bool proj_k = tid < HALF;
-  const int pc = tid & (HALF - 1);
-  const float* w_lo = static_cast<const float*>(proj_k ? p.wk : p.wv) + pc * DM;
-  const float* w_hi = w_lo + HALF * DM;
-  const float* bias = proj_k ? bks : bvs;
-  const float* raw = proj_k ? Mk : Mv;
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_tiles = (p.Skv + KP_BK - 1) / KP_BK;
-  const int per_split = (n_tiles + p.n_split - 1) / p.n_split;
-  const int t_end = min(n_tiles, (static_cast<int>(blockIdx.z) + 1) * per_split);
-  for (int tile = blockIdx.z * per_split; tile < t_end; ++tile) {
-    const int k0 = tile * KP_BK;
-    // the raw tiles (rows past Skv zero); the previous tile's projection
-    // finished reading them before its second barrier
-    for (int idx = tid; idx < KP_BK * DM / 4; idx += KP_THREADS) {
-      const int r = idx / (DM / 4), c = (idx % (DM / 4)) * 4;
-      const bool in = k0 + r < p.Skv;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(Mk + r * DM + c) =
-          in ? *reinterpret_cast<const float4*>(mkg + (k0 + r) * p.k_ss + c) : zero;
-      *reinterpret_cast<float4*>(Mv + r * DM + c) =
-          in ? *reinterpret_cast<const float4*>(mvg + (k0 + r) * p.v_ss + c) : zero;
+  cp_async_commit();
+  for (int i = threadIdx.x; i < KP_D; i += KP_THREADS) bs[i] = (is_k ? p.bk : p.bv)[i];
+  auto load = [&](int tile, int stage) {  // rows past B*Skv are zero-filled
+    float* dst = ring + stage * S::RAW;
+    for (int idx = threadIdx.x; idx < KPF_ROWS * CH; idx += KP_THREADS) {
+      const int r = idx / CH, c = (idx % CH) * 4;
+      const int row = tile * KPF_ROWS + r;
+      const bool in = row < rows;
+      const int b = in ? row / p.Skv : 0, key = in ? row % p.Skv : 0;
+      cp_async_16(dst + r * LD + c, mem + b * m_sb + key * m_ss + c, in);
     }
-    // the barrier after which the raw tiles are visible and the previous
-    // tile's P^T and V reads are done; a tile with no valid key is skipped
-    if (!__syncthreads_or(tid < KP_BK && key_valid(mg, k0 + tid, p.Skv))) continue;
+    cp_async_commit();
+  };
+  int tile = blockIdx.x;
+  if (tile < n_tiles) load(tile, 0);
+  else cp_async_commit();
 
-    // projections, 16 keys at a time: fp32 sums in order of the input
-    // channel, the bias added in fp32; K rotated as K2 rotates it
-#pragma unroll 1
-    for (int kh = 0; kh < KP_BK; kh += 16) {
-      float a_lo[16], a_hi[16];
-#pragma unroll
-      for (int r = 0; r < 16; ++r) a_lo[r] = a_hi[r] = 0.f;
-#pragma unroll 2
-      for (int j = 0; j < DM; j += 4) {
-        const float4 wl = __ldg(reinterpret_cast<const float4*>(w_lo + j));
-        const float4 wh = __ldg(reinterpret_cast<const float4*>(w_hi + j));
-#pragma unroll
-        for (int r = 0; r < 16; ++r) {
-          const float4 x = *reinterpret_cast<const float4*>(raw + (kh + r) * DM + j);
-          a_lo[r] = fmaf(x.w, wl.w, fmaf(x.z, wl.z, fmaf(x.y, wl.y, fmaf(x.x, wl.x, a_lo[r]))));
-          a_hi[r] = fmaf(x.w, wh.w, fmaf(x.z, wh.z, fmaf(x.y, wh.y, fmaf(x.x, wh.x, a_hi[r]))));
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const int key = kh + r;
-        const float k1 = a_lo[r] + bias[pc], k2 = a_hi[r] + bias[pc + HALF];
-        if (proj_k) {
-          float lo = 0.f, hi = 0.f;
-          if (k0 + key < p.Skv) {
-            const long long trow = static_cast<long long>(k0 + key) * HALF + pc;
-            const float c = cg[trow], s = sg[trow];
-            lo = rot_lo(k1, k2, c, s);
-            hi = rot_hi(k1, k2, c, s);
-          }
-          Kt[pc * KF_LDK + key] = lo;
-          Kt[(pc + HALF) * KF_LDK + key] = hi;
-        } else {
-          Vs[key * D + pc] = k1;
-          Vs[key * D + pc + HALF] = k2;
-        }
-      }
-    }
-    __syncthreads();  // the K and V tiles are complete
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * KF_LDQ + ty * 4]);
-      const float4 kb = *reinterpret_cast<const float4*>(&Kt[d * KF_LDK + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {kb.x, kb.y, kb.z, kb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-
-    bool valid[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) valid[j] = key_valid(mg, k0 + tx * 4 + j, p.Skv);
-    __syncthreads();  // every thread is done reading Kt before P^T overwrites it
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = valid[j] ? s[i][j] * p.scale : NEG_INF;
-      float m_cur = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      // the 8 lanes sharing a query row are one aligned group of the warp
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, off));
-      const float m_new = fmaxf(m[i], m_cur);
-      const float alpha = expf(m[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        row_sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      l[i] = l[i] * alpha + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Pt[(tx * 4 + j) * KF_LDQ + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+  // channel base of n-tile j: K 16w + 8j (j < 2), 128 + 16w + 8(j - 2); V 32w + 8j
+  const auto chan = [&](int j) {
+    return is_k ? (j < 2 ? 0 : KP_HALF) + 16 * warp + 8 * (j & 1) : 32 * warp + 8 * j;
+  };
+  const int grid = gridDim.x;
+  for (int it = 0; tile < n_tiles; tile += grid, ++it) {
+    if (tile + grid < n_tiles) load(tile + grid, (it + 1) & 1);
+    else cp_async_commit();  // empty: keeps "all but the newest group" = this tile
+    cp_async_wait_newest_pending();
     __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < KP_BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&Pt[kk * KF_LDQ + ty * 4]);
+    // a K CTA's rows of the tables: rows 16mt + g + 8hr, columns d = 16w + 8j + 2t
+    float2 tc[2][2][2], ts[2][2][2];  // [mt][hr][j]
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = Vs[kk * D + tx + 8 * c];
-        acc[0][c] = fmaf(a.x, vv, acc[0][c]);
-        acc[1][c] = fmaf(a.y, vv, acc[1][c]);
-        acc[2][c] = fmaf(a.z, vv, acc[2][c]);
-        acc[3][c] = fmaf(a.w, vv, acc[3][c]);
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = tile * KPF_ROWS + 16 * mt + g + 8 * hr;
+        const long long at = static_cast<long long>(row < rows ? row % p.Skv : 0) * KP_HALF;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          tc[mt][hr][j] = ts[mt][hr][j] = make_float2(0.f, 0.f);
+          if (is_k) {
+            const int d = 16 * warp + 8 * j + 2 * t;
+            tc[mt][hr][j] = *reinterpret_cast<const float2*>(cg + at + d);
+            ts[mt][hr][j] = *reinterpret_cast<const float2*>(sg + at + d);
+          }
+        }
+      }
+    const float* xs = ring + (it & 1) * S::RAW;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float acc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < K8; ++kk) {
+        const float* xa = xs + (16 * mt + g) * LD + 8 * kk + 2 * t;
+        const float2 x0 = *reinterpret_cast<const float2*>(xa);
+        const float2 x1 = *reinterpret_cast<const float2*>(xa + 8 * LD);
+        uint32_t ahi[4], alo[4];
+        split_tf32_int(x0.x, ahi[0], alo[0]);
+        split_tf32_int(x1.x, ahi[1], alo[1]);
+        split_tf32_int(x0.y, ahi[2], alo[2]);
+        split_tf32_int(x1.y, ahi[3], alo[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 b =
+              *reinterpret_cast<const float2*>(ws + (chan(j) + g) * LD + 8 * kk + 2 * t);
+          mma_3xtf32_int(acc[j], ahi, alo, b.x, b.y);
+        }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = tile * KPF_ROWS + 16 * mt + g + 8 * hr;
+        if (row >= rows) continue;
+        float* dst = out + static_cast<long long>(row) * KP_D;
+        if (is_k) {
+          // bias in fp32 (kp in q's dtype, fp32: no rounding), then the rotation
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int d = 16 * warp + 8 * j + 2 * t;
+            const float k1x = acc[j][2 * hr] + bs[d], k1y = acc[j][2 * hr + 1] + bs[d + 1];
+            const float k2x = acc[j + 2][2 * hr] + bs[KP_HALF + d];
+            const float k2y = acc[j + 2][2 * hr + 1] + bs[KP_HALF + d + 1];
+            const float2 c = tc[mt][hr][j], s = ts[mt][hr][j];
+            *reinterpret_cast<float2*>(dst + d) =
+                make_float2(rot_lo(k1x, k2x, c.x, s.x), rot_lo(k1y, k2y, c.y, s.y));
+            *reinterpret_cast<float2*>(dst + KP_HALF + d) =
+                make_float2(rot_hi(k1x, k2x, c.x, s.x), rot_hi(k1y, k2y, c.y, s.y));
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int ch = chan(j) + 2 * t;
+            *reinterpret_cast<float2*>(dst + ch) =
+                make_float2(acc[j][2 * hr] + bs[ch], acc[j][2 * hr + 1] + bs[ch + 1]);
+          }
+        }
       }
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
+  cp_async_wait_all();  // a CTA with no tile still has its weight copies in flight
+}
 
-  float* og = static_cast<float*>(p.o) + b * p.o_sb;
-  long long o_ss = p.o_ss;
-  float* lse_out = p.lse + static_cast<long long>(b) * p.Sq;
-  if (p.n_split > 1) {  // this split's partial result
-    const long long part = static_cast<long long>(blockIdx.z) * p.B + b;
-    og = p.part_o + part * p.Sq * D;
-    o_ss = D;
-    lse_out = p.part_lse + part * p.Sq;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= p.Sq) continue;
-    const bool seen_valid = m[i] > NEG_INF * 0.5f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) og[row * o_ss + tx + 8 * c] = seen_valid ? acc[i][c] / l[i] : 0.f;
-    if (tx == 0) lse_out[row] = seen_valid ? m[i] + logf(l[i]) : NEG_INF;
-  }
+// K4, part two: K1's attention bodies on (q, kr, vp) under K4's names
+template <int DV>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_kvproj_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  fwd_wgmma_body<DV>(tm_q, tm_k, tm_v, p);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(F_THREADS, F32Tile<DP>::MIN_CTAS)
+    flash_kvproj_tf32_kernel(const Params p) {
+  flash_tf32_body<DP>(p);
 }
 
 __device__ __forceinline__ void store_out(float* dst, float x) { *dst = x; }
@@ -1599,21 +1436,25 @@ cudaError_t launch_combine(cudaError_t err, bool bf16, const Params& p, cudaStre
   return cudaGetLastError();
 }
 
-// K1's kernels or, for K2, the same bodies under K2's names
+// K1's kernels or, for K2 and K4, the same bodies under their own names
 template <int DV, Caller C>
 constexpr auto wgmma_kernel() {
   if constexpr (C == Caller::K1)
     return &flash_fwd_wgmma_kernel<DV>;
-  else
+  else if constexpr (C == Caller::K2)
     return &flash_rope_wgmma_kernel<DV>;
+  else
+    return &flash_kvproj_wgmma_kernel<DV>;
 }
 
 template <int DP, Caller C>
 constexpr auto tf32_kernel() {
   if constexpr (C == Caller::K1)
     return &flash_fwd_tf32_kernel<DP>;
-  else
+  else if constexpr (C == Caller::K2)
     return &flash_rope_tf32_kernel<DP>;
+  else
+    return &flash_kvproj_tf32_kernel<DP>;
 }
 
 // The bf16 attention at one width: the tensor maps of q, k and v, the kernel
@@ -1677,12 +1518,14 @@ auto by_width(bool bf16, int D, F&& f) -> decltype(f(std::integral_constant<int,
   }
 }
 
-// K1 (C = K1) or K2's attention on the rotated K (C = K2: D = 64, 128, 256)
+// K1 (C = K1), K2's attention on the rotated K (C = K2: D = 64, 128, 256) or
+// K4's on the projected, rotated K and the projected V (C = K4: D = 256)
 template <Caller C>
 cudaError_t dispatch(bool bf16, const Params& p, cudaStream_t stream) {
   return by_width(bf16, p.D, [&](auto w) -> cudaError_t {
     constexpr int W = decltype(w)::value;
-    if constexpr (W < 0 || (C == Caller::K2 && W != 64 && W != 128 && W != 256)) {
+    if constexpr (W < 0 || (C == Caller::K2 && W != 64 && W != 128 && W != 256) ||
+                  (C == Caller::K4 && W != KP_D)) {
       return cudaErrorInvalidValue;
     } else {
       return bf16 ? launch_wgmma<W, C>(p, stream) : launch_tf32<W, C>(p, stream);
@@ -1724,42 +1567,24 @@ Geometry geometry(bool bf16, int D) {
   });
 }
 
-template <int DM>
-int kvproj_ctas_per_sm(bool bf16) {
-  return bf16 ? ctas_per_sm(flash_kvproj_bf16_kernel<DM>, smem_bytes_kvproj_bf16<DM>(), KP_THREADS)
-              : ctas_per_sm(flash_kvproj_f32_kernel<DM>, smem_bytes_kvproj_f32<DM>(), KP_THREADS);
+// SMs of the current device (1 if unknown)
+int sm_count() {
+  int dev = 0, n_sm = 1;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 1;
+  return n_sm;
 }
 
 // The most kv splits that keep the grid in one wave of resident CTAs
 // (`per_sm` of them on each SM), at least 8 kv tiles each.
 int kv_splits(int per_sm, int rows, int tile, int B, int H, int Sq, int Skv) {
-  int dev = 0, n_sm = 1;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 1;
+  const int n_sm = sm_count();
   const long long ctas = static_cast<long long>((Sq + rows - 1) / rows) * B * H;
   const long long n_tiles = (Skv + tile - 1) / tile;
   long long n = static_cast<long long>(per_sm) * n_sm / ctas;
   if (n > n_tiles / 8) n = n_tiles / 8;
   return static_cast<int>(n < 1 ? 1 : n);
-}
-
-template <int DM>
-cudaError_t launch_kvproj_dm(bool bf16, const Params& p, cudaStream_t stream) {
-  return launch_combine<Caller::K4>(
-      bf16 ? launch(flash_kvproj_bf16_kernel<DM>, smem_bytes_kvproj_bf16<DM>(), KP_BQ,
-                    KP_THREADS, p, stream)
-           : launch(flash_kvproj_f32_kernel<DM>, smem_bytes_kvproj_f32<DM>(), KP_BQ,
-                    KP_THREADS, p, stream),
-      bf16, p, stream);
-}
-
-cudaError_t dispatch_kvproj(bool bf16, const Params& p, cudaStream_t stream) {
-  switch (p.Dm) {
-    case 32: return launch_kvproj_dm<32>(bf16, p, stream);
-    case 64: return launch_kvproj_dm<64>(bf16, p, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // K2's rotation: k -> kr [B*H, Skv, D] contiguous, in q's dtype (p.k and its
@@ -1775,6 +1600,45 @@ cudaError_t launch_rotate(bool bf16, const Params& p, void* kr, cudaStream_t str
   else
     flash_rope_rotate_kernel<float><<<grid, ROT_THREADS, 0, stream>>>(p, static_cast<float*>(kr));
   return cudaGetLastError();
+}
+
+// K4's projections and rotation: p.k, p.v (mem_k, mem_v) -> kr, vp [B, Skv,
+// 256] contiguous in q's dtype; a grid of resident CTAs walks the row tiles
+template <int DM>
+cudaError_t launch_project_dm(bool bf16, const Params& p, void* kr, void* vp,
+                              cudaStream_t stream) {
+  const long long rows = static_cast<long long>(p.B) * p.Skv;
+  if (rows > 2147483647ll) return cudaErrorInvalidValue;
+  const int n_sm = sm_count();
+  if (bf16) {
+    constexpr auto kernel = &flash_kvproj_project_bf16_kernel<DM>;
+    constexpr int smem = KpBf16<DM>::SMEM;
+    const long long tiles = (rows + KPB_ROWS - 1) / KPB_ROWS;
+    const int grid = static_cast<int>(tiles < 2ll * n_sm ? tiles : 2ll * n_sm);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, KP_THREADS, smem, stream>>>(p, static_cast<__nv_bfloat16*>(kr),
+                                               static_cast<__nv_bfloat16*>(vp));
+  } else {  // blockIdx.y: K, V
+    constexpr auto kernel = &flash_kvproj_project_f32_kernel<DM>;
+    constexpr int smem = KpF32<DM>::SMEM;
+    const long long tiles = (rows + KPF_ROWS - 1) / KPF_ROWS;
+    const dim3 grid(static_cast<unsigned>(tiles < n_sm ? tiles : n_sm), 2);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, KP_THREADS, smem, stream>>>(p, static_cast<float*>(kr), static_cast<float*>(vp));
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_project(bool bf16, const Params& p, void* kr, void* vp, cudaStream_t stream) {
+  switch (p.Dm) {
+    case 32: return launch_project_dm<32>(bf16, p, kr, vp, stream);
+    case 64: return launch_project_dm<64>(bf16, p, kr, vp, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* mask, const void* cos,
@@ -1840,9 +1704,10 @@ extern "C" int sam2_flash_attention_fwd(
   return static_cast<int>(dispatch<Caller::K1>(dtype == 1, p, static_cast<cudaStream_t>(stream)));
 }
 
-// K1's kv split for these shapes on the current device, and K2's (K2 runs
-// K1's body): the most splits that keep the grid in one wave of resident
-// CTAs, at least 8 kv tiles each; -1 for an unsupported D.
+// K1's kv split for these shapes on the current device, and K2's and K4's
+// (they run K1's body; K4 with H = 1): the most splits that keep the grid
+// in one wave of resident CTAs, at least 8 kv tiles each; -1 for an
+// unsupported D.
 extern "C" int sam2_flash_attention_splits(int dtype, int B, int H, int Sq, int Skv, int D) {
   const Geometry geo = geometry(dtype == 1, D);
   if (geo.rows == 0) return -1;
@@ -1906,25 +1771,48 @@ extern "C" int sam2_flash_attention_rope_fwd(
   return static_cast<int>(dispatch<Caller::K2>(bf16, p, st));
 }
 
-// K4: K2 with the K/V projections fused in; one head, D = 256, Dm in
-// {32, 64}. q [B, 1, Sq, D] (rotated) with batch / row strides; mem_k, mem_v
-// [B, Skv, Dm] with batch / row strides (unit stride along Dm; bf16 rows
-// 16-byte aligned, fp32 rows 16-byte aligned); wk, wv [D, Dm] contiguous in
-// q's dtype; bk, bv [D] fp32; cos/sin [Skv, D/2] in q's dtype, contiguous;
-// out [B, Sq, D] with batch / row strides, lse [B, Sq]. The kv split and its
-// scratch are as K1's (part_o [n_split, B, Sq, D], part_lse [n_split, B, Sq]).
+// K4's projections and rotation alone: kr = rotate(round(mem_k . wk^T + bk))
+// and vp = round(mem_v . wv^T + bv), each [B, Skv, D] contiguous in q's dtype
+// (allocated by the caller); D = 256, Dm in {32, 64}; mem_k, mem_v [B, Skv,
+// Dm] with batch / row strides (unit stride along Dm, rows 16-byte aligned);
+// wk, wv [D, Dm] contiguous in q's dtype; bk, bv [D] contiguous in fp32;
+// cos/sin [Skv, D/2] in q's dtype, contiguous.
+extern "C" int sam2_flash_attention_kvproj_project(
+    const void* mem_k, const void* mem_v, const void* wk, const void* bk, const void* wv,
+    const void* bv, const void* cos, const void* sin, void* kr, void* vp, int dtype,
+    int B, int Skv, int D, int Dm, long long mk_sb, long long mk_ss,
+    long long mv_sb, long long mv_ss, void* stream) {
+  if (B <= 0 || Skv <= 0 || D != KP_D || (Dm != 32 && Dm != 64) || (dtype != 0 && dtype != 1) ||
+      wk == nullptr || wv == nullptr || bk == nullptr || bv == nullptr || cos == nullptr ||
+      sin == nullptr || kr == nullptr || vp == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(nullptr, mem_k, mem_v, nullptr, cos, sin, nullptr, nullptr, nullptr,
+                         nullptr, B, 1, 0, Skv, D, 1, 0, 0, 0, mk_sb, 0, mk_ss, mv_sb, 0, mv_ss, 0,
+                         0, 0, 0, 1.f);
+  p.wk = wk; p.wv = wv;
+  p.bk = static_cast<const float*>(bk); p.bv = static_cast<const float*>(bv);
+  p.Dm = Dm;
+  return static_cast<int>(launch_project(dtype == 1, p, kr, vp, static_cast<cudaStream_t>(stream)));
+}
+
+// K4: the projections and the rotation into kr and vp (as
+// sam2_flash_attention_kvproj_project), then K1's attention body on (q, kr,
+// vp) under K4's kernel names, with K1's kv split and combine. One head,
+// D = 256, Dm in {32, 64}. q [B, 1, Sq, D] (rotated) with batch / row
+// strides; out [B, Sq, D] with batch / row strides, lse [B, Sq]; the kv split
+// and its scratch as K1's (part_o [n_split, B, Sq, D], part_lse [n_split, B,
+// Sq]); the other arguments as sam2_flash_attention_kvproj_project's.
 extern "C" int sam2_flash_attention_kvproj_fwd(
     const void* q, const void* mem_k, const void* mem_v, const void* wk, const void* bk,
-    const void* wv, const void* bv, const void* mask, const void* cos, const void* sin,
-    void* part_o, void* part_lse, void* o, void* lse, int dtype, int B, int Sq, int Skv, int D,
-    int Dm, int n_split,
+    const void* wv, const void* bv, const void* mask, const void* cos, const void* sin, void* kr,
+    void* vp, void* part_o, void* part_lse, void* o, void* lse, int dtype, int B,
+    int Sq, int Skv, int D, int Dm, int n_split,
     long long q_sb, long long q_ss, long long mk_sb, long long mk_ss,
     long long mv_sb, long long mv_ss, long long o_sb, long long o_ss,
     long long mask_sb, float scale, void* stream) {
-  if (B <= 0 || B > 65535 || Sq <= 0 || Skv <= 0 || D != KP_D || (Dm != 32 && Dm != 64) ||
-      (dtype != 0 && dtype != 1) || n_split < 1 || n_split > 65535 ||
-      (n_split > 1 && (part_o == nullptr || part_lse == nullptr)) || wk == nullptr ||
-      wv == nullptr || bk == nullptr || bv == nullptr || cos == nullptr || sin == nullptr)
+  if (!valid_args(dtype, B, 1, Sq, Skv, D, n_split, part_o, part_lse) || D != KP_D ||
+      (Dm != 32 && Dm != 64) || wk == nullptr || wv == nullptr || bk == nullptr ||
+      bv == nullptr || cos == nullptr || sin == nullptr || kr == nullptr || vp == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(q, mem_k, mem_v, mask, cos, sin, part_o, part_lse, o, lse, B, 1, Sq, Skv,
                          D, n_split, q_sb, 0, q_ss, mk_sb, 0, mk_ss, mv_sb, 0, mv_ss, o_sb, 0,
@@ -1932,20 +1820,14 @@ extern "C" int sam2_flash_attention_kvproj_fwd(
   p.wk = wk; p.wv = wv;
   p.bk = static_cast<const float*>(bk); p.bv = static_cast<const float*>(bv);
   p.Dm = Dm;
-  return static_cast<int>(dispatch_kvproj(dtype == 1, p, static_cast<cudaStream_t>(stream)));
-}
-
-// K4's kv split for these shapes on the current device (K1's rule); -1 for
-// an unsupported D or Dm.
-extern "C" int sam2_flash_attention_kvproj_splits(int dtype, int B, int Sq, int Skv, int D,
-                                                  int Dm) {
   const bool bf16 = dtype == 1;
-  if (D != KP_D) return -1;
-  int per_sm;
-  switch (Dm) {
-    case 32: per_sm = kvproj_ctas_per_sm<32>(bf16); break;
-    case 64: per_sm = kvproj_ctas_per_sm<64>(bf16); break;
-    default: return -1;
-  }
-  return kv_splits(per_sm, KP_BQ, KP_BK, B, 1, Sq, Skv);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_project(bf16, p, kr, vp, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.k = kr;
+  p.v = vp;
+  p.k_ss = p.v_ss = D;
+  p.k_sh = p.v_sh = static_cast<long long>(Skv) * D;
+  p.k_sb = p.v_sb = p.k_sh;
+  return static_cast<int>(dispatch<Caller::K4>(bf16, p, st));
 }

@@ -95,6 +95,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
 }
 
+// 2^x on the SFU (MUFU.EX2), denormal results flushed to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }

@@ -10,7 +10,9 @@ autograd Functions that join them.
   `flash_attention_bwd_dq`): the port of `::_bwd_dkdv_kernel` and
   `::_bwd_dq_kernel`, the backward of K1, K2 and K4;
 - K4, `flash_attention_kv_proj`: the port of `::_kernel_rope_kvproj`, K2 with
-  the memory cross-attention's K/V projections fused in.
+  the memory cross-attention's K/V projections fused in: a kernel that
+  projects the memory and rotates K, once per call, then K1's attention
+  body (`kv_proj_rotate` runs the first kernel alone).
 
 `flash_attention`, `flash_attention_rope` and `flash_attention_kv_proj` are
 differentiable: each runs through a `torch.autograd.Function` (the
@@ -101,9 +103,9 @@ def _library(symbol, n_ptrs, n_ints):
 @lru_cache(maxsize=64)
 def _kv_splits(device_index: int, dtype: int, B: int, H: int, Sq: int, Skv: int,
                D: int) -> int:
-    """The kv split of K1, and of K2 (which runs K1's body), for a shape on a
-    device, as the kernel's library chooses it (from its CTAs' occupancy);
-    asked once per shape."""
+    """The kv split of K1, and of K2 and K4 (which run K1's body), for a
+    shape on a device, as the kernel's library chooses it (from its CTAs'
+    occupancy); asked once per shape."""
     fn = _build.load("flash_attention").sam2_flash_attention_splits
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 6
@@ -372,18 +374,29 @@ def _project(x, w, b, dtype):
     return F.linear(x.float(), w.float(), b.float()).to(dtype)
 
 
+def kv_proj_rotate_ref(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k):
+    """Plain version of K4's first kernel: kp = mem_k . wk^T + bk and vp =
+    mem_v . wv^T + bv in fp32, each rounded once to wk's dtype, then kp
+    rotated in fp32 from that rounding (split layout, `cos_k`/`sin_k`
+    [Skv, D/2]) and rounded once, as `rope_rotate` rotates. mem_k/mem_v
+    [B, Skv, Dm], wk/wv [D, Dm], bk/bv [D]. Returns (kr, vp), each
+    [B, Skv, D]."""
+    kp = _project(mem_k, wk, bk, wk.dtype)
+    kr = apply_rotary_split(kp.float(), cos_k.float(), sin_k.float()).to(wk.dtype)
+    return kr, _project(mem_v, wv, bv, wv.dtype)
+
+
 def flash_attention_kv_proj_ref(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask=None):
-    """Plain K4: K = mem_k . wk^T + bk and V = mem_v . wv^T + bv projected
-    in fp32 and rounded once to q's dtype, then `flash_attention_rope_ref`
-    (K rotated in fp32 from that rounding, rounded once).
+    """Plain K4: `kv_proj_rotate_ref` (K and V projected in fp32 and rounded
+    once to q's dtype, K rotated in fp32 from that rounding and rounded
+    once), then `flash_attention_ref`.
 
     q [B, 1, Sq, D] rotated; mem_k/mem_v [B, Skv, Dm]; wk/wv [D, Dm]
     (`nn.Linear` layout; wk and bk with `split_perm` already applied), bk/bv
     [D]; cos_k/sin_k [Skv, D/2]; kv_mask [B, Skv] bool or None. Returns
     (out [B, 1, Sq, D], lse [B, 1, Sq] fp32)."""
-    kp = _project(mem_k, wk, bk, q.dtype)[:, None]
-    vp = _project(mem_v, wv, bv, q.dtype)[:, None]
-    return flash_attention_rope_ref(q, kp, vp, cos_k, sin_k, kv_mask)
+    kr, vp = kv_proj_rotate_ref(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k)
+    return flash_attention_ref(q, kr[:, None], vp[:, None], kv_mask)
 
 
 def _kv_proj_check(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
@@ -423,33 +436,85 @@ def flash_attention_kv_proj(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_ma
     projections, the projection products in torch), lse and the tables are
     not.
 
-    CUDA tensors launch the kernel (fp32 or bf16, D = 256, Dm in {32, 64};
-    the biases are passed to it in fp32), which reads the memory Dm wide and
-    projects, rotates and attends each kv tile on the SM; it splits the kv
-    axis over the grid as K2 does. CPU tensors run the plain version."""
+    CUDA tensors launch the kernels (fp32 or bf16, D = 256, Dm in {32, 64};
+    the biases are passed in fp32): the first reads the memory Dm wide,
+    projects it and rotates K once into [B, Skv, D] scratch allocated here,
+    then K1's attention body runs on it, with K1's kv split and merge. One
+    launch on the count per call. CPU tensors run the plain version."""
     _kv_proj_check(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
     return _FlashAttentionKVProj.apply(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
-
-
-@lru_cache(maxsize=64)
-def _kv_proj_splits(device_index: int, dtype: int, B: int, Sq: int, Skv: int, D: int,
-                    Dm: int) -> int:
-    """K4's kv split for a shape on a device (K2's rule); asked once per shape."""
-    fn = _build.load("flash_attention").sam2_flash_attention_kvproj_splits
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 6
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device_index):
-        n_split = fn(dtype, B, Sq, Skv, D, Dm)
-    if n_split < 1:
-        raise ValueError(f"flash_attention_kv_proj: no kv split for D = {D}, Dm = {Dm}")
-    return n_split
 
 
 def _aligned_rows(t):
     """t if its rows are 16-byte aligned (`_rows_aligned`), else a
     contiguous copy."""
     return t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def _proj_operands(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k, what):
+    """The projection kernel's operands as it takes them on the card: rows
+    16-byte aligned, weights, tables and biases contiguous, the biases in
+    fp32; plus empty contiguous kr and vp [B, Skv, D] in the weights'
+    dtype."""
+    B, Skv, Dm = mem_k.shape
+    D = wk.shape[0]
+    if D != 256 or Dm not in (32, 64):
+        raise ValueError(f"{what}: D = {D}, Dm = {Dm} unsupported on the card (D = 256, Dm 32 "
+                         "or 64)")
+    mem_k, mem_v = _aligned_rows(mem_k), _aligned_rows(mem_v)
+    wk, wv = _aligned_rows(wk.contiguous()), _aligned_rows(wv.contiguous())
+    cos_k, sin_k = cos_k.contiguous(), sin_k.contiguous()
+    bk, bv = bk.float().contiguous(), bv.float().contiguous()
+    kr, vp = (torch.empty((B, Skv, D), dtype=wk.dtype, device=wk.device) for _ in range(2))
+    return mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k, kr, vp
+
+
+def kv_proj_rotate(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k):
+    """K4's first kernel alone: (kr, vp) as `kv_proj_rotate_ref` computes
+    them, each [B, Skv, D] contiguous. CUDA tensors launch the projection
+    kernel K4 runs before its attention (D = 256, Dm 32 or 64, one dtype
+    for the memory, weights and tables); CPU tensors run the plain
+    version."""
+    if mem_k.dim() != 3 or mem_v.shape != mem_k.shape or wk.dim() != 2 or wv.shape != wk.shape:
+        raise ValueError(f"mem_k/mem_v must be [B, Skv, Dm] and wk/wv [D, Dm], got "
+                         f"{tuple(mem_k.shape)}, {tuple(mem_v.shape)}, {tuple(wk.shape)}, "
+                         f"{tuple(wv.shape)}")
+    B, Skv, Dm = mem_k.shape
+    D = wk.shape[0]
+    for name, t, shape in (("wk", wk, (D, Dm)), ("bk", bk, (D,)), ("bv", bv, (D,)),
+                           ("cos_k", cos_k, (Skv, D // 2)), ("sin_k", sin_k, (Skv, D // 2))):
+        if tuple(t.shape) != shape or t.device != mem_k.device:
+            raise ValueError(f"{name} must be {list(shape)} on mem_k's device, got "
+                             f"{tuple(t.shape)}")
+    if wk.dtype not in _DTYPES or any(t.dtype != wk.dtype
+                                      for t in (mem_k, mem_v, wv, cos_k, sin_k)):
+        raise ValueError("mem_k, mem_v, wk, wv and the tables must share one dtype, "
+                         "float32 or bfloat16")
+    if any(t.device != mem_k.device for t in (mem_v, wv)):
+        raise ValueError("mem_v and wv must be on mem_k's device")
+    if mem_k.device.type == "cpu":
+        return kv_proj_rotate_ref(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k)
+    if mem_k.device.type != "cuda":
+        raise ValueError(f"unsupported device {mem_k.device}")
+    mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k, kr, vp = _proj_operands(
+        mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k, "kv_proj_rotate")
+    fn = _build.load("flash_attention").sam2_flash_attention_kvproj_project
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 10 + [i] * 5 + [ll] * 4 + [p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(mem_k.device):
+        stream = torch.cuda.current_stream(mem_k.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in (mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kr, vp)),
+                 _DTYPES[wk.dtype], B, Skv, D, Dm,
+                 mem_k.stride(0), mem_k.stride(1), mem_v.stride(0), mem_v.stride(1), stream)
+    if err != 0:
+        raise RuntimeError(f"kv_proj_rotate kernel launch failed: cudaError {err}")
+    kv_proj_rotate.launches += 1
+    return kr, vp
+
+
+kv_proj_rotate.launches = 0
 
 
 def _kv_proj_forward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
@@ -459,32 +524,28 @@ def _kv_proj_forward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
         raise ValueError(f"unsupported device {q.device}")
     B, _, Sq, D = q.shape
     Skv, Dm = mem_k.shape[1:]
-    if D != 256 or Dm not in (32, 64):
-        raise ValueError(f"flash_attention_kv_proj: D = {D}, Dm = {Dm} unsupported on the card "
-                         "(D = 256, Dm 32 or 64)")
     if B > 65535:
         raise ValueError(f"B = {B} exceeds the grid limit 65535")
-    q, mem_k, mem_v = _aligned_rows(q), _aligned_rows(mem_k), _aligned_rows(mem_v)
-    wk, wv = _aligned_rows(wk.contiguous()), _aligned_rows(wv.contiguous())
-    cos_k, sin_k = cos_k.contiguous(), sin_k.contiguous()
-    bk32, bv32 = bk.float().contiguous(), bv.float().contiguous()
+    mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k, kr, vp = _proj_operands(
+        mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k, "flash_attention_kv_proj")
+    q = _aligned_rows(q)
     if kv_mask is not None and kv_mask.stride(-1) != 1:
         kv_mask = kv_mask.contiguous()
     dtype = _DTYPES[q.dtype]
-    n_split = _kv_proj_splits(q.device.index, dtype, B, Sq, Skv, D, Dm)
+    n_split = _kv_splits(q.device.index, dtype, B, 1, Sq, Skv, D)  # K1's: K4 runs K1's body
     part_o, part_lse = _split_scratch(q, n_split)
-    out =torch.empty((B, 1, Sq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, 1, Sq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, 1, Sq), dtype=torch.float32, device=q.device)
     fn = _build.load("flash_attention").sam2_flash_attention_kvproj_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 14 + [i] * 7 + [ll] * 9 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 16 + [i] * 7 + [ll] * 9 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(ptr(t) for t in (q, mem_k, mem_v, wk, bk32, wv, bv32, kv_mask, cos_k, sin_k,
-                                    part_o, part_lse, out, lse)),
+        err = fn(*(ptr(t) for t in (q, mem_k, mem_v, wk, bk, wv, bv, kv_mask, cos_k, sin_k,
+                                    kr, vp, part_o, part_lse, out, lse)),
                  dtype, B, Sq, Skv, D, Dm, n_split,
                  q.stride(0), q.stride(2), mem_k.stride(0), mem_k.stride(1),
                  mem_v.stride(0), mem_v.stride(1), out.stride(0), out.stride(2),
@@ -519,10 +580,8 @@ class _FlashAttentionKVProj(torch.autograd.Function):
         q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, out, lse, kv_mask = ctx.saved_tensors
         dt = q.dtype
         c32, s32 = cos_k.float(), sin_k.float()
-        kp = _project(mem_k, wk, bk, dt)
-        kr = apply_rotary_split(kp.float(), c32, s32).to(dt)[:, None]
-        vp = _project(mem_v, wv, bv, dt)[:, None]
-        dq, dkr, dvp = flash_attention_bwd(q, kr, vp, out, lse, dout, kv_mask)
+        kr, vp = kv_proj_rotate_ref(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k)
+        dq, dkr, dvp = flash_attention_bwd(q, kr[:, None], vp[:, None], out, lse, dout, kv_mask)
         dmk, dwk, dbk = _projection_grads(mem_k, wk, bk, apply_rotary_split(dkr[:, 0], c32, -s32))
         dmv, dwv, dbv = _projection_grads(mem_v, wv, bv, dvp[:, 0])
         return dq.to(dt), dmk, dmv, dwk, dbk, dwv, dbv, None, None, None

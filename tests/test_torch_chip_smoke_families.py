@@ -66,3 +66,15 @@ def test_sources_hold_every_kernel_of_k1_and_k2():
                  "flash_rope_combine_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_tf32_kernel",
                  "flash_fwd_combine_kernel"):
         assert name in KERNELS
+
+
+def test_sources_hold_every_kernel_of_k4():
+    """K4 is a projection kernel, then K1's bodies under K4's names; its
+    kernels of before, which projected every kv tile once per query tile,
+    are gone."""
+    for name in ("flash_kvproj_project_bf16_kernel", "flash_kvproj_project_f32_kernel",
+                 "flash_kvproj_wgmma_kernel", "flash_kvproj_tf32_kernel",
+                 "flash_kvproj_combine_kernel"):
+        assert name in KERNELS
+    assert "flash_kvproj_bf16_kernel" not in KERNELS
+    assert "flash_kvproj_f32_kernel" not in KERNELS

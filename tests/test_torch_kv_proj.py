@@ -21,7 +21,10 @@ import torch
 
 from sam2_opt_tpu_torch.kernels.flash_attention import (
     flash_attention_kv_proj,
+    flash_attention_ref,
     flash_attention_kv_proj_ref,
+    kv_proj_rotate,
+    kv_proj_rotate_ref,
 )
 
 torch.set_num_threads(2)
@@ -146,6 +149,38 @@ def test_wrapper_runs_ref_on_cpu_and_validates():
     assert (no_bias - ref).abs().max() > 1e-3
 
 
+def test_kv_proj_rotate_ref_matches_jax_unfused_branch():
+    """K4's first kernel's plain version (`kv_proj_rotate_ref`, what
+    `kv_proj_rotate` runs on CPU tensors) against what the JAX package's
+    unfused branch of `rope_cross_attention` computes before its attention:
+    the K projection rotated by `apply_rotary_split`, and the V projection,
+    fp32 within 1e-5 (the sums run in other orders)."""
+    import jax.numpy as jnp
+
+    from sam2_opt_tpu.ops import posenc as jax_posenc
+
+    x = _inputs(*CASES[1])
+    want_k = jax_posenc.apply_rotary_split(
+        jnp.asarray(x["mem_k"]) @ jnp.asarray(x["wk"]).T + jnp.asarray(x["bk"]),
+        jnp.asarray(x["cos"]), jnp.asarray(x["sin"]))
+    want_v = jnp.asarray(x["mem_v"]) @ jnp.asarray(x["wv"]).T + jnp.asarray(x["bv"])
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    args = (t["mem_k"], t["wk"], t["bk"], t["mem_v"], t["wv"], t["bv"], t["cos"], t["sin"])
+    kr, vp = kv_proj_rotate_ref(*args)
+    np.testing.assert_allclose(kr.numpy(), np.asarray(want_k), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(vp.numpy(), np.asarray(want_v), rtol=0, atol=1e-5)
+    before = kv_proj_rotate.launches
+    got = kv_proj_rotate(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, (kr, vp)))
+    assert kv_proj_rotate.launches == before
+    with pytest.raises(ValueError):
+        kv_proj_rotate(*args[:6], t["cos"][:-1], t["sin"][:-1])
+    with pytest.raises(ValueError):
+        kv_proj_rotate(t["mem_k"].double(), *args[1:])
+    with pytest.raises(ValueError):
+        kv_proj_rotate(t["mem_k"], t["wk"][:, :-1], *args[2:])
+
+
 def test_bf16_close_to_fp32():
     """The plain version in bf16 (inputs, projections and K rounded to bf16)
     stays within 3e-2 of max |out| of the fp32 one."""
@@ -235,19 +270,21 @@ def test_rope_cross_attention_matches_jax(monkeypatch, fused_rope):
 # on the card
 # --------------------------------------------------------------------------- #
 
-# The card's kernel against its plain version. fp32: rtol 1e-5 + atol 1e-5
-# (both run true fp32 FMAs; the projections sum 64 products in other
-# orders). bf16: K2's rtol 1e-2 + atol 1e-3 (an element of K or V, rounded
+# The card's kernels against their plain version. fp32: rtol 1e-5 + atol
+# 1e-5 (the projections sum 64 products in other orders; the attention runs
+# K1's three-pass TF32 products, about 2^-21 of each). bf16: K2's rtol 1e-2 + atol 1e-3 (an element of K or V, rounded
 # from an fp32 projection summed in another order, may land one bf16 ulp
 # from the plain version's; both round P and out as K2 does).
 GPU_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-3)}
 
 
-def _card_inputs(B, Sq, Skv, n_ptr, dtype, seed, bias=0.5):
-    """CUDA tensors at memory attention's widths (D 256, Dm 64): random
-    memory, weights ~ 1/sqrt(fan-in), biases `bias` x N(0, 1), the real tables for
-    (Skv - n_ptr) / 4096 frames of 64 x 64 plus identity rows, a mask with
-    a quarter of the keys masked and batch row B - 1 fully masked if B > 1."""
+def _card_inputs(B, Sq, Skv, n_ptr, dtype, seed, bias=0.5, Dm=64, exact=False):
+    """CUDA tensors at memory attention's widths (D 256, Dm 64 unless given):
+    random memory, weights ~ 1/sqrt(fan-in), biases `bias` x N(0, 1), the
+    real tables for (Skv - n_ptr) / 4096 frames of 64 x 64 plus identity
+    rows, a mask with a quarter of the keys masked and batch row B - 1 fully
+    masked if B > 1. With `exact`, the memory, weights and biases lie on the
+    dyadic grids of `_exact_projection` instead."""
     from sam2_opt_tpu_torch.models.memory_attention import _rope_half_tables
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -258,25 +295,56 @@ def _card_inputs(B, Sq, Skv, n_ptr, dtype, seed, bias=0.5):
     mask = torch.rand(B, Skv, device="cuda", generator=gen) > 0.25
     if B > 1:
         mask[-1] = False
-    return [r(B, 1, Sq, 256), r(B, Skv, 64), r(B, Skv, 64), r(256, 64, scale=0.125),
-            r(256, scale=bias), r(256, 64, scale=0.125), r(256, scale=bias), c, s, mask]
+    w = Dm ** -0.5
+    args = [r(B, 1, Sq, 256), r(B, Skv, Dm), r(B, Skv, Dm), r(256, Dm, scale=w),
+            r(256, scale=bias), r(256, Dm, scale=w), r(256, scale=bias), c, s, mask]
+    if exact:
+        mem_k, wk, bk, mem_v, wv, bv = _exact_projection(B, Skv, Dm, dtype,
+                                                         np.random.default_rng(seed))
+        args[1:7] = [mem_k, mem_v, wk, bk, wv, bv]
+    return args
 
 
-GPU_CASES = [  # B, Sq, Skv, n_ptr
-    (1, 4096, 7 * 4096 + 64, 64),   # the tracked frame's cross shape
-    (2, 4096, 2 * 4096 + 32, 32),   # two objects (training), row 1 fully masked
-    (2, 1000, 1500, 0),             # ragged, row 1 fully masked
-    (1, 130, 70, 6),                # one kv tile more than a whole one
+def _exact_projection(B, Skv, Dm, dtype, rng):
+    """mem_k, wk, bk, mem_v, wv, bv on dyadic grids (the memory in multiples
+    of 2^-3, the weights of 2^-4, the biases of 2^-6, all small), the memory
+    as strided views of one [B, Skv, 2, Dm] tensor: every product and partial
+    sum of the projections is exact in fp32, so any two orders of the sums
+    agree bit for bit."""
+    grid = lambda shape, step: torch.from_numpy(  # noqa: E731
+        rng.integers(-4, 5, shape).astype(np.float32) * step).cuda().to(dtype)
+    mem = grid((B, Skv, 2, Dm), 2.0 ** -3)
+    return (mem[:, :, 0], grid((256, Dm), 2.0 ** -4), grid((256,), 2.0 ** -6),
+            mem[:, :, 1], grid((256, Dm), 2.0 ** -4), grid((256,), 2.0 ** -6))
+
+
+GPU_CASES = [  # B, Sq, Skv, n_ptr, Dm, exact
+    (1, 4096, 7 * 4096 + 64, 64, 64, False),   # the tracked frame's cross shape
+    (2, 4096, 2 * 4096 + 32, 32, 64, False),   # two objects (training), row 1 fully masked
+    (2, 1000, 1500, 0, 64, False),             # ragged, row 1 fully masked
+    (1, 130, 70, 6, 64, False),                # one kv tile more than a whole one
+    # the projection kernel's row tiles (32 rows in both dtypes) across the
+    # batch boundary, both memory widths; row 1 of each B = 2 case fully
+    # masked. With this few keys one key can hold much of a row's weight,
+    # and a K element that the kernel's and the plain version's fp32 sums
+    # round one bf16 ulp apart (both are fp32 sums, in other orders) moves
+    # that row's lse past 1e-5 (7.6e-5 in a first run): these cases take
+    # exact projections (`_exact_projection`), so they hold the kernels'
+    # tiling to the plain version at the unchanged tolerance, and the four
+    # cases above keep random projections, where each key's weight is small
+    (2, 200, 63, 7, 32, True), (2, 200, 65, 1, 64, True), (2, 129, 127, 0, 32, True),
+    (2, 64, 129, 9, 64, True), (1, 300, 129, 4, 32, True),
 ]
+TILE_EDGE_CASES = [case[:5] for case in GPU_CASES if case[5]]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,Skv,n_ptr", GPU_CASES)
-def test_cuda_kernel_matches_ref(B, Sq, Skv, n_ptr, dtype):
+@pytest.mark.parametrize("B,Sq,Skv,n_ptr,Dm,exact", GPU_CASES)
+def test_cuda_kernel_matches_ref(B, Sq, Skv, n_ptr, Dm, exact, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    args = _card_inputs(B, Sq, Skv, n_ptr, dtype, seed=B * Sq + Skv)
+    args = _card_inputs(B, Sq, Skv, n_ptr, dtype, seed=B * Sq + Skv, Dm=Dm, exact=exact)
     before = flash_attention_kv_proj.launches
     out, lse = flash_attention_kv_proj(*args)
     torch.cuda.synchronize()
@@ -285,6 +353,33 @@ def test_cuda_kernel_matches_ref(B, Sq, Skv, n_ptr, dtype):
     rtol, atol = GPU_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    if B > 1:
+        assert not out[-1].any() and bool((lse[-1] == -1e30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,n_ptr,Dm", TILE_EDGE_CASES)
+def test_cuda_kernel_random_tile_edges(B, Sq, Skv, n_ptr, Dm, dtype):
+    """The exact cases' tile-edge shapes on random projections, so the
+    kernel's rounding of kp and vp is covered at the edges too: out against
+    the plain version at GPU_TOL, and lse against the plain attention on the
+    projection kernel's own kr and vp (where the two sides' fp32 sums round
+    one ulp apart, the lse follows kr, not the attention) at 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = _card_inputs(B, Sq, Skv, n_ptr, dtype, seed=B * Sq + Skv + 1, Dm=Dm)
+    before = flash_attention_kv_proj.launches
+    out, lse = flash_attention_kv_proj(*args)
+    torch.cuda.synchronize()
+    assert flash_attention_kv_proj.launches == before + 1
+    ref, _ = flash_attention_kv_proj_ref(*args)
+    rtol, atol = GPU_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+    q, mem_k, mem_v, wk, bk, wv, bv, c, s, mask = args
+    kr, vp = kv_proj_rotate(mem_k, wk, bk, mem_v, wv, bv, c, s)
+    _, want_lse = flash_attention_ref(q, kr[:, None], vp[:, None], mask)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
     if B > 1:
         assert not out[-1].any() and bool((lse[-1] == -1e30).all())
 
@@ -328,6 +423,36 @@ def test_cuda_gradients_match_plain(dtype, bias):
         if err > lim:
             bad.append((name, err, witness_err))
     assert not bad, bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Skv,Dm", [(2, 63, 32), (2, 65, 64), (1, 127, 64), (2, 129, 32),
+                                      (1, 7 * 4096 + 64, 64)])
+def test_cuda_kv_proj_rotate_matches_plain_bitwise(B, Skv, Dm, dtype):
+    """K4's first kernel alone equals `_project` + the plain rotation bit
+    for bit, on memory given as strided views: on `_exact_projection`'s
+    inputs the kernel's and the plain version's sums agree in any order, so
+    every rounding after them (kp to q's dtype, the rotation's products,
+    sums and its last rounding) must land on the same value. One launch on
+    its count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sam2_opt_tpu_torch.models.memory_attention import _rope_half_tables
+
+    mem_k, wk, bk, mem_v, wv, bv = _exact_projection(B, Skv, Dm, dtype,
+                                                     np.random.default_rng(B * Skv + Dm))
+    reps, n_ptr = max((Skv - 64) // 4096, 1), Skv % 4096 if Skv > 4096 else 8
+    c, s = _rope_half_tables(256, 64, 64, 10000.0, reps, n_ptr, torch.device("cuda"), dtype)
+    c, s = c[:Skv].contiguous(), s[:Skv].contiguous()
+    before = kv_proj_rotate.launches
+    kr, vp = kv_proj_rotate(mem_k, wk, bk, mem_v, wv, bv, c, s)
+    torch.cuda.synchronize()
+    assert kv_proj_rotate.launches == before + 1
+    assert kr.is_contiguous() and vp.is_contiguous() and kr.shape == vp.shape == (B, Skv, 256)
+    want_k, want_v = kv_proj_rotate_ref(mem_k, wk, bk, mem_v, wv, bv, c, s)
+    assert torch.equal(kr, want_k)
+    assert torch.equal(vp, want_v)
 
 
 @pytest.mark.gpu

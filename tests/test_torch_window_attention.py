@@ -192,6 +192,23 @@ GPU_CASES = [  # N, Sq, Skv, H, D
     (3, 15, 97, 2, 56), (2, 97, 31, 2, 120), (4, 17, 33, 2, 8),
     # pairs not a multiple of a CTA's: 4 per CTA at 16 rows, 2 at 32
     (5, 16, 16, 1, 72), (3, 32, 32, 1, 56),
+    # the bf16 mma.sync kernel's tiling: a warp per 16 query rows, up to 16
+    # warps a pair (8 above D = 96), the window's K and V resident in shared
+    # memory up to 200 KB a CTA (S = 512 at D = 72), two stages of 128 keys
+    # above; D = 56, 72, 96 and 128 around each
+    (2, 128, 128, 2, 72), (1, 127, 127, 3, 72), (1, 129, 129, 3, 56), (2, 255, 255, 2, 72),
+    (2, 256, 256, 3, 56), (2, 256, 256, 2, 96), (1, 256, 256, 2, 128), (1, 257, 257, 2, 72),
+    (1, 512, 512, 2, 72), (1, 512, 512, 1, 128), (1, 1024, 1024, 1, 96),
+    (1, 1000, 1000, 1, 128), (2, 256, 64, 2, 72), (2, 64, 300, 2, 72), (3, 130, 257, 1, 80),
+    (7, 8, 8, 1, 72), (5, 256, 256, 1, 72),
+    # packed pairs (16 or 32 rows) whose windows do not fit 4 or 2 to a CTA:
+    # resident in fewer pairs a CTA, or streamed in 2 or 1
+    (3, 16, 200, 2, 72), (2, 32, 300, 2, 128), (3, 16, 600, 2, 72), (3, 16, 1024, 2, 56),
+    (5, 16, 1024, 1, 56), (2, 32, 1024, 2, 128),
+    # the bf16 wgmma kernel (more than 64 query rows over up to 256 keys):
+    # up to 4 blocks of 64 rows a CTA, which its two warpgroups take in turn;
+    # a last CTA with fewer blocks, and a warpgroup with none
+    (1, 300, 200, 2, 72), (2, 65, 65, 2, 72), (2, 192, 192, 1, 112), (1, 100, 250, 2, 40),
 ]
 
 
