@@ -26,13 +26,13 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. the image slice: `build_sam2_image_predictor("hiera_l", seed=0)` at full
    width and depth at 1024², `set_image` on a 1500x2000 image and `predict`
    with a point, a box and points plus a box, multimask on and off; fp32 held
-   against the same weights on the CPU (plain path), then `speedup()` to bf16
+   against the same weights on the CPU (plain path), then bf16 (eagerly)
    held to the fp32 masks by mIoU; K1 must launch exactly 3 times per
    `set_image`;
 6. the video slice: `build_sam2_video_predictor("hiera_l", seed=0)` on a
    synthetic 8-frame 720x1280 video (a textured square moving over a
    textured background), points on frame 0, `propagate_in_video` over all
-   frames in fp32 and, after `speedup()`, in bf16: K1 exactly 3 launches per
+   frames in fp32 and in bf16 (eagerly): K1 exactly 3 launches per
    encoded frame, K2 none on the conditioning frame and 8 per tracked frame;
    bf16 held to fp32 by per-frame mask mIoU; fp32 logits of the first 3
    frames held against the same weights on the CPU; a two-object run (points
@@ -127,7 +127,33 @@ Phases (any failure exits non-zero, and no result line is printed):
    launches all three), logits within 1e-3 of their scale of the default
    route's; under `SAM2_TPU_KERNEL_FAST_EXP=1` a bf16 route to K1
    (`ops.flash_or_sdpa`) or K2 (memory attention) raises.
-Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-19; each
+20. `speedup()` as CUDA graphs (slice 11): the hiera-L image predictor of
+   phase 5 (`set_image` and the six prompts) and the 8-frame video of phase
+   6 (`propagate_in_video`), once eagerly and once through graphs, in fp32
+   (`set_runtime_backend("cuda", {"dtype": torch.float32})`, held to fp32
+   eager within 1e-6 of the logits' scale) and in bf16 (`speedup()`, held to
+   bf16 eager by per-image and per-frame mask mIoU >= 0.999, the largest
+   logit difference printed); a second pass replays every graph and must
+   capture none and give the same bits; K1 and K2 counted inside replays
+   from a profiler trace (3 K1 per `set_image`, 3 K1 and 8 K2 per tracked
+   frame); wall (median of CUDA-event timings), busy time, idle share and
+   launches of `set_image` and of a tracked frame, eager and graphs, and
+   each graph's pool bytes. Phases 5-19 run bf16 eagerly
+   (`set_backend`: the model's private `_use_graphs` hook), as they count each
+   wrapper's launches per call, which a replay does not run;
+21. the serving path on graphs: the 8-frame video written as a PNG folder;
+   the demo server (`DemoServer` on 127.0.0.1, port 0) over the hiera-L
+   video predictor after `speedup()`: start a session, a click on frame 0,
+   a streamed propagation, a mask for a second object and its removal,
+   close, every decoded RLE mask equal to the same calls through
+   `InferenceAPI` in-process; two sessions from two threads, one capturing
+   the batched two-object step while the other replays, each equal to its
+   solo run; the automatic mask generator at its defaults (32 points a
+   side, batches of 64) with graphs and eagerly in bf16 (the same records,
+   per-mask IoU >= 0.99); `vos_inference` over the PNG folder with a
+   frame-0 mask and `sav_benchmark` on its output (finite J&F); endpoint
+   latencies, the AMG's and the eval's walls.
+Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-21; each
 phase that sets a switch restores it and logs its wall seconds, which the
 summary line before the kernels line gathers under "phase_seconds". Since slice 6, K8 (phases 12-14) is a
 warp-specialised wgmma/TMA kernel; phase 14 also gives the bound of the
@@ -260,6 +286,16 @@ WINDOW_FP32_TOL = (1e-5, 1e-5)  # (rtol, atol)
 # JAX `_bwd` (fp32 GELU), the plain version's autograd differentiates the
 # bf16 GELU, so they differ by bf16 roundings; K6/K7's in fp32 by sum order
 ROUTE_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max |g|
+
+
+# The bf16 route of phases 5-19 runs eagerly: they count each kernel
+# wrapper's launches per call, and a CUDA graph replay (phase 20, the route
+# `speedup()` takes since slice 11) runs no wrapper.
+def set_backend(target, backend="cuda", dtype=torch.bfloat16):
+    """`target` (a predictor or a SAM2Model) on `backend`; "cuda" runs
+    `dtype` eagerly, through the model's private `_use_graphs` hook."""
+    target.set_runtime_backend(backend, {"dtype": dtype} if backend == "cuda" else None)
+    getattr(target, "model", target)._use_graphs = False
 
 
 def log(*args):
@@ -599,8 +635,8 @@ def phase_video(flash_attention, flash_attention_rope):
     runs, launches = {}, [0, 0]
     for dtype in (torch.float32, torch.bfloat16):
         if dtype == torch.bfloat16:
-            predictor.speedup()
-            check(predictor.model.compute_dtype == torch.bfloat16, "speedup() must switch to bf16")
+            set_backend(predictor)
+            check(predictor.model.compute_dtype == torch.bfloat16, "the cuda backend runs bf16")
         # the main path: counts to 0 just before, read just after
         flash_attention.launches = flash_attention_rope.launches = 0
         state, masks, per_frame = track(predictor, video, T, points, counts=kernels)
@@ -770,8 +806,8 @@ def phase_slice(flash_attention):
           "fp32 on the card disagrees with the CPU")
     del cpu_pred, cpu_state
 
-    predictor.speedup()
-    check(predictor.model.compute_dtype == torch.bfloat16, "speedup() must switch to bf16")
+    set_backend(predictor)
+    check(predictor.model.compute_dtype == torch.bfloat16, "the cuda backend runs bf16")
     predictor.set_image(image)
     torch.cuda.synchronize()
     check(flash_attention.launches == 6,
@@ -847,7 +883,7 @@ def phase_times(predictor, image):
     times = {}
     prompt = PROMPTS["point"]
     for dtype, backend in ((torch.float32, "eager"), (torch.bfloat16, "cuda")):
-        predictor.set_runtime_backend(backend)
+        set_backend(predictor, backend)
         torch.cuda.reset_peak_memory_stats()
         set_ms = cuda_ms(lambda: predictor.set_image(image), reps=5, warmup=2)
         pred_ms = cuda_ms(lambda: predictor.predict(**prompt), reps=10, warmup=2)
@@ -1040,7 +1076,7 @@ def phase_video_times(predictor, video, points, flash_attention_rope,
     cross shapes (`memory_attention_times`)."""
     times = {}
     for dtype, backend in ((torch.float32, "eager"), (torch.bfloat16, "cuda")):
-        predictor.set_runtime_backend(backend)
+        set_backend(predictor, backend)
         times[dtype] = propagation_times(predictor, video, points, str(dtype))
 
     k2 = memory_attention_times({"K2": (flash_attention_rope, flash_attention_rope_ref)},
@@ -1704,7 +1740,8 @@ def phase_routes(predictor, image, default, counters):
     orig_hw = image.shape[:2]
     launches = dict.fromkeys(counters, 0)
     for (setting, dtype), expect in ROUTE_LAUNCHES.items():
-        predictor.set_runtime_backend("cuda" if dtype == torch.bfloat16 else "eager")
+        backend = "cuda" if dtype == torch.bfloat16 else "eager"
+        set_backend(predictor, backend)
         with switches(ROUTES[setting]):
             # the main path: counts to 0 just before, read just after
             for c in counters.values():
@@ -1741,7 +1778,7 @@ def phase_route_times(predictor, image):
     times = {}
     for dtype, backend, settings in ((torch.bfloat16, "cuda", ("default", "W1", "W2")),
                                      (torch.float32, "eager", ("default", "W1"))):
-        predictor.set_runtime_backend(backend)
+        set_backend(predictor, backend)
         name = str(dtype).replace("torch.", "")
         for setting in settings:
             with switches(ROUTES.get(setting, {})):
@@ -1755,7 +1792,7 @@ def phase_route_times(predictor, image):
             key = setting if dtype == torch.bfloat16 else f"{name} {setting}"
             times[key] = dict(set_image_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
                               launches=launches)
-    predictor.set_runtime_backend("cuda")
+    set_backend(predictor)
     return times
 
 
@@ -2161,7 +2198,7 @@ def phase_route_video(counters):
     launches = {route: {**dict.fromkeys(counters, 0), "K1 D=256": 0} for route in routes}
     times = {}
     for dtype, backend in ((torch.float32, "eager"), (torch.bfloat16, "cuda")):
-        predictor.set_runtime_backend(backend)
+        set_backend(predictor, backend)
         predictor.fill_hole_area = 0
         default_state, default_masks, _ = track(predictor, video, K4_VIDEO_FRAMES, points)
         for route, (env, expect) in routes.items():
@@ -2522,6 +2559,436 @@ def phase_switches(counters):
     return launches["default"]
 
 
+# --------------------------------------------------------------------------- #
+# slice 11: speedup() as CUDA graphs, the demo server, the AMG and the VOS eval
+# --------------------------------------------------------------------------- #
+
+# fp32 graphs against fp32 eager: the same kernels on the same inputs
+# (bitwise expected), held within 1e-6 of the logits' scale
+GRAPH_FP32_RTOL = 1e-6
+# bf16 graphs against bf16 eager: per-frame (and per-image) mask mIoU
+GRAPH_BF16_MIOU_MIN = 0.999
+# the main kernel of a K1 and of a K2 call (each call also launches at most a
+# combine kernel, and K2 its rotation), counted in a profiled replay
+GRAPH_KERNELS = {"K1": r"flash_fwd_(wgmma|tf32)_kernel", "K2": r"flash_rope_(wgmma|tf32)_kernel"}
+AMG_IOU_MIN = 0.99
+AMG_OPEN = dict(points_per_side=8, pred_iou_thresh=0.0, stability_score_thresh=0.0,
+                box_nms_thresh=1.0)
+
+
+def replay_kernel_counts(fn):
+    """{K1, K2: main kernels launched by fn()} from a torch.profiler trace
+    (fn replays graphs), with the trace's busy ms and its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts, busy, launches = dict.fromkeys(GRAPH_KERNELS, 0), 0.0, 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy += dev_us / 1e3
+        launches += ev.count
+        for key, pattern in GRAPH_KERNELS.items():
+            if re.search(pattern, ev.key):
+                counts[key] += ev.count
+    return counts, busy, launches
+
+
+def timed_rows(image_predictor, video_predictor, image, state):
+    """Wall (median of CUDA-event timings after a warm-up), device busy
+    time, idle share and kernel launches of one `set_image` and of one
+    tracked frame (frames 1-7 of `state`, whose memory is full) at the
+    predictors' current backend; and the main kernels of K1 and K2 in the
+    two profiled runs."""
+    rows, counts = {}, {}
+    walls = []
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        image_predictor.set_image(image)
+        end.record()
+        end.synchronize()
+        walls.append(start.elapsed_time(end))
+    counts["set_image"], busy, launches = replay_kernel_counts(
+        lambda: image_predictor.set_image(image))
+    wall = float(np.median(walls[1:]))
+    rows["set_image"] = dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                             launches=launches)
+    frame_ms = []
+    frames = video_predictor.propagate_in_video(state, start_frame_idx=1)
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        if next(frames, None) is None:
+            break
+        end.record()
+        end.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+    counts["tracked_frames"], busy, launches = replay_kernel_counts(
+        lambda: list(video_predictor.propagate_in_video(state, start_frame_idx=1)))
+    wall = float(np.median(frame_ms))
+    per = 1.0 / len(frame_ms)
+    rows["tracked_frame"] = dict(wall_ms=wall, busy_ms=busy * per,
+                                 idle_share=1 - busy * per / wall, launches=launches * per)
+    return rows, counts
+
+
+def image_and_video_run(image_predictor, video_predictor, image, video, points):
+    """set_image + the six prompts of phase 5, and an 8-frame propagation:
+    (image outputs, per-frame video-res logits, stored low-res logits, the
+    video's state)."""
+    image_predictor.set_image(image)
+    outs = {}
+    for name, prompt in PROMPTS.items():
+        for multimask in (True, False):
+            outs[(name, multimask)] = image_predictor.predict(**prompt, multimask_output=multimask,
+                                                              return_logits=True)
+    state, masks, _ = track(video_predictor, video, video.shape[0], points)
+    return outs, [m.float().cpu() for m in masks], low_res(state), state
+
+
+@phase
+def phase_graphs(flash_attention, flash_attention_rope):
+    """`speedup()` as CUDA graphs on the hiera-L predictors of phases 5 and
+    6: set_image, predict and the 8-frame propagation once eagerly and once
+    through graphs, in fp32 (`set_runtime_backend("cuda", {"dtype":
+    torch.float32})`) and in bf16 (`speedup()`, against bf16 eager); fp32
+    logits within 1e-6 of their scale, bf16 masks at mIoU >= 0.999; K1 and
+    K2 counted inside replays from a profiler trace; walls, busy time, idle
+    share and launches of set_image and of a tracked frame, eager and graphs;
+    the graphs and their pool bytes."""
+    from sam2_opt_tpu_torch import SAM2ImagePredictor, build_sam2_video_predictor
+
+    video_predictor = build_sam2_video_predictor("hiera_l", seed=SEED)
+    with torch.no_grad():
+        video_predictor.model.module.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += \
+            OBJ_BIAS
+    image_predictor = SAM2ImagePredictor(video_predictor.model)
+    model = video_predictor.model
+    image, video = structured_image(SEED), synthetic_video(SEED)
+    T = video.shape[0]
+    points = np.array([[VIDEO_SQUARE[0] + 120, VIDEO_SQUARE[1] + 120]], np.float32)
+    result = {"rows": {}, "checks": {}}
+    replay_counts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        runs = {}
+        for mode in ("eager", "graphs"):
+            if dtype == torch.float32 and mode == "eager":
+                model.set_runtime_backend("eager")
+            elif mode == "eager":
+                set_backend(model)
+            elif dtype == torch.float32:
+                model.set_runtime_backend("cuda", {"dtype": torch.float32})
+            else:
+                video_predictor.speedup()
+            check(model.compute_dtype == dtype, f"{name} {mode}: compute dtype {model.compute_dtype}")
+            before = model.graphs.captures
+            # counts to 0 just before, read just after: under graphs the
+            # wrappers run (and count) only at each signature's warm-up and
+            # capture, so the replays' kernels are counted from a trace below
+            flash_attention.launches = flash_attention_rope.launches = 0
+            runs[mode] = image_and_video_run(image_predictor, video_predictor, image, video,
+                                             points)
+            torch.cuda.synchronize()
+            log(f"{name} {mode}: wrapper launches K1 {flash_attention.launches}, K2 "
+                f"{flash_attention_rope.launches}")
+            if mode == "graphs":
+                check(model.graphs.captures - before == len(model.graphs),
+                      "each signature must be captured once")
+                # a second pass replays every graph captured by the first
+                captures = model.graphs.captures
+                again = image_and_video_run(image_predictor, video_predictor, image, video,
+                                            points)
+                check(model.graphs.captures == captures, "a second pass must only replay")
+                check(all(np.array_equal(a[2], b[2]) for a, b in
+                          zip(runs[mode][0].values(), again[0].values()))
+                      and all(torch.equal(a, b) for a, b in zip(runs[mode][1], again[1])),
+                      f"{name}: graph replays are not deterministic")
+                keys = [k[0] for k in model.graphs.keys()]
+                pools = model.graphs.pool_bytes()
+                log(f"{name} graphs: {len(keys)} ({model.graphs.captures} captures); pool bytes "
+                    f"per graph {dict(zip(map(str, keys), pools))}, {sum(pools)} in all")
+                result["checks"][f"{name} graphs"] = dict(graphs=[str(k) for k in keys],
+                                                          pool_bytes=pools)
+            rows, counts = timed_rows(image_predictor, video_predictor, image, runs[mode][3])
+            result["rows"][f"{name} {mode}"] = rows
+            log(f"{name} {mode}: {json.dumps(rows)}; K1/K2 main kernels per set_image "
+                f"{counts['set_image']}, over {T - 1} tracked frames {counts['tracked_frames']}")
+            if mode == "graphs":
+                # K1 and K2 inside the replays, from the profiled replays
+                replay_counts[name] = counts
+                enc, trk = counts["set_image"], counts["tracked_frames"]
+                check(enc["K1"] == 3 and enc["K2"] == 0,
+                      f"{name}: a set_image replay must run K1 3 times, ran {enc}")
+                check(trk["K1"] == 3 * (T - 1) and trk["K2"] == 8 * (T - 1),
+                      f"{name}: a tracked frame's replays must run K1 3 and K2 8 times, ran {trk}")
+        (e_img, e_vid, e_low, _), (g_img, g_vid, g_low, _) = runs["eager"], runs["graphs"]
+        if dtype == torch.float32:
+            worst, bitwise = 0.0, True
+            for key in e_img:
+                for a, b in zip(e_img[key], g_img[key]):
+                    scale = max(float(np.abs(a).max()), 1e-30)
+                    worst = max(worst, float(np.abs(a - b).max()) / scale)
+                    bitwise &= np.array_equal(a, b)
+            for a, b in zip(e_vid + [e_low], g_vid + [g_low]):
+                worst = max(worst, float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30))
+                bitwise &= torch.equal(a, b)
+            log(f"fp32 graphs vs eager: max |diff| / scale {worst:.3e} (limit "
+                f"{GRAPH_FP32_RTOL}), bitwise {bitwise}")
+            check(worst <= GRAPH_FP32_RTOL, "fp32 graphs disagree with fp32 eager")
+            result["checks"]["fp32"] = dict(max_rel_diff=worst, bitwise=bitwise)
+        else:
+            ious = [miou(a > 0, b > 0) for key in e_img for a, b in zip(e_img[key][0],
+                                                                         g_img[key][0])]
+            frame_ious = [miou(a.numpy() > 0, b.numpy() > 0) for a, b in zip(e_vid, g_vid)]
+            largest = max(float((a - b).abs().max()) for a, b in zip(e_vid, g_vid))
+            largest_img = max(float(np.abs(e_img[k][2] - g_img[k][2]).max()) for k in e_img)
+            log(f"bf16 graphs vs eager: image mask mIoU min {min(ious):.5f}, per-frame video "
+                f"mask mIoU {[round(x, 5) for x in frame_ious]}, largest logit difference "
+                f"video {largest:.4f}, image low-res {largest_img:.4f}")
+            check(min(ious + frame_ious) >= GRAPH_BF16_MIOU_MIN,
+                  "bf16 graphs disagree with bf16 eager")
+            result["checks"]["bf16"] = dict(image_miou_min=min(ious), frame_miou=frame_ious,
+                                            largest_logit_diff=largest,
+                                            largest_image_logit_diff=largest_img)
+    result["replay_counts"] = replay_counts
+    return video_predictor, result
+
+
+def write_png_video(root, video):
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    for t, frame in enumerate(video):
+        Image.fromarray(frame).save(os.path.join(root, f"{t:05d}.png"))
+
+
+def square_mask(t, H=720, W=1280):
+    """The synthetic video's moving square on frame t, as a bool mask."""
+    mask = np.zeros((H, W), bool)
+    y, x = VIDEO_SQUARE[1] + 16 * t, VIDEO_SQUARE[0] + 40 * t
+    mask[y:y + 240, x:x + 240] = True
+    return mask
+
+
+def session_script(api, video_path, timings=None):
+    """The serve phase's calls, through `api` (an InferenceAPI or the HTTP
+    client below): start, a click on frame 0, a streamed propagation, a
+    mask for a second object, its removal, close. Returns the decoded masks
+    of every response, in order."""
+    from sam2_opt_tpu_torch.utils.amg import mask_to_rle, rle_to_mask
+
+    def call(endpoint, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if timings is not None:
+            timings.setdefault(endpoint, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def decoded(frames):
+        return [(f["frameIndex"], r["objectId"], rle_to_mask(r["mask"]))
+                for f in frames for r in f["results"]]
+
+    sid = call("start_session", lambda: api.start_session(video_path))
+    outs = decoded([call("add_points", lambda: api.add_points(
+        sid, 0, 1, [[VIDEO_SQUARE[0] + 120, VIDEO_SQUARE[1] + 120]], [1]))])
+    outs += decoded(call("propagate_in_video", lambda: list(api.propagate_in_video(sid, 0))))
+    rle = mask_to_rle(square_mask(2)[None] ^ square_mask(3)[None])[0]
+    outs += decoded([call("add_mask", lambda: api.add_mask(sid, 2, 2, rle))])
+    outs += decoded(call("remove_object", lambda: api.remove_object(sid, 2)))
+    check(call("close_session", lambda: api.close_session(sid)), "close_session failed")
+    return outs
+
+
+def two_object_script(api, video_path):
+    """A second session: a click and a mask on frame 0 for two objects,
+    propagated together (the batched step's graphs)."""
+    from sam2_opt_tpu_torch.utils.amg import mask_to_rle, rle_to_mask
+
+    sid = api.start_session(video_path)
+    api.add_points(sid, 0, 1, [[VIDEO_SQUARE[0] + 120, VIDEO_SQUARE[1] + 120]], [1])
+    api.add_mask(sid, 0, 2, mask_to_rle(~square_mask(0)[None])[0])
+    outs = [(f["frameIndex"], r["objectId"], rle_to_mask(r["mask"]))
+            for f in api.propagate_in_video(sid, 0) for r in f["results"]]
+    api.close_session(sid)
+    return outs
+
+
+class HttpSession:
+    """The InferenceAPI calls of `session_script` as HTTP requests."""
+
+    def __init__(self, port):
+        self.url = f"http://127.0.0.1:{port}"
+
+    def post(self, path, payload):
+        import urllib.request
+
+        req = urllib.request.Request(self.url + path, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            check(resp.status == 200, f"{path}: HTTP {resp.status}")
+            body = resp.read().decode()
+        if path == "/propagate_in_video":
+            return [json.loads(line) for line in body.strip().split("\n")]
+        return json.loads(body)
+
+    def start_session(self, video_path):
+        return self.post("/start_session", {"video_path": video_path})["sessionId"]
+
+    def add_points(self, sid, frame, obj, points, labels):
+        return self.post("/add_points", {"sessionId": sid, "frameIndex": frame, "objectId": obj,
+                                         "points": points, "labels": labels})
+
+    def propagate_in_video(self, sid, start):
+        return self.post("/propagate_in_video", {"sessionId": sid, "startFrameIndex": start})
+
+    def add_mask(self, sid, frame, obj, rle):
+        return self.post("/add_mask", {"sessionId": sid, "frameIndex": frame, "objectId": obj,
+                                       "mask": rle})
+
+    def remove_object(self, sid, obj):
+        return self.post("/remove_object", {"sessionId": sid, "objectId": obj})["results"]
+
+    def close_session(self, sid):
+        return self.post("/close_session", {"sessionId": sid})["success"]
+
+
+def same_masks(a, b):
+    return len(a) == len(b) and all(x[:2] == y[:2] and np.array_equal(x[2], y[2])
+                                    for x, y in zip(a, b))
+
+
+@phase
+def phase_serve(video_predictor):
+    """The demo server over the hiera-L video predictor after `speedup()`
+    (fresh graphs), on a PNG folder of the 8-frame video: the session script
+    over HTTP, every decoded mask equal to the same calls through
+    InferenceAPI in-process; two sessions from two threads, one capturing
+    the batched step's first graphs while the other replays, each equal to
+    its solo run; the AMG at its defaults with graphs and eagerly in bf16;
+    vos_inference on the PNG folder with a frame-0 mask and sav_benchmark on
+    its output."""
+    import tempfile
+    import threading
+
+    from sam2_opt_tpu_torch import SAM2AutomaticMaskGenerator, SAM2ImagePredictor
+    from sam2_opt_tpu_torch.eval.sav_benchmark import benchmark
+    from sam2_opt_tpu_torch.eval.vos_inference import davis_palette, save_ann_png, vos_inference
+    from sam2_opt_tpu_torch.serve.inference_api import InferenceAPI
+    from sam2_opt_tpu_torch.serve.server import DemoServer
+
+    root = tempfile.mkdtemp(prefix="sam2_chip_smoke_serve_")
+    video = synthetic_video(SEED)
+    T = video.shape[0]
+    frames_dir = os.path.join(root, "JPEGImages", "synthetic")
+    write_png_video(frames_dir, video)
+    video_predictor.speedup()  # fresh graphs
+    model = video_predictor.model
+    result = {}
+
+    server = DemoServer(InferenceAPI(video_predictor), host="127.0.0.1", port=0)
+    server.start_background()
+    try:
+        timings = {}
+        http = session_script(HttpSession(server.port), frames_dir, timings)
+    finally:
+        server.shutdown()
+    result["endpoint_ms"] = {k: v for k, v in timings.items()}
+    log(f"serve: endpoint latencies over HTTP (ms; these first calls capture the graphs) "
+        f"{json.dumps({k: [round(x, 3) for x in v] for k, v in timings.items()})}")
+    replay_timings = {}
+    in_process = session_script(InferenceAPI(video_predictor), frames_dir, replay_timings)
+    result["endpoint_replay_ms"] = replay_timings
+    log(f"serve: the same calls in-process, replays only (ms) "
+        f"{json.dumps({k: [round(x, 3) for x in v] for k, v in replay_timings.items()})}")
+    check(len(http) == 1 + T + 2 + 1 and same_masks(http, in_process),
+          "HTTP masks differ from the same calls through InferenceAPI")
+    check(all(m.shape == (720, 1280) for _, _, m in http), "mask size")
+
+    # two sessions at once: B's batched two-object step is captured while A replays
+    captures = model.graphs.captures
+    outs, errors = {}, []
+
+    def run(key, fn):
+        try:
+            outs[key] = fn(InferenceAPI(video_predictor), frames_dir)
+        except Exception as e:  # reported below; the check fails
+            errors.append(f"{key}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=("A", session_script)),
+               threading.Thread(target=run, args=("B", two_object_script))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not errors and not any(t.is_alive() for t in threads), f"concurrent sessions: {errors}")
+    concurrent_captures = model.graphs.captures - captures
+    solo_b = two_object_script(InferenceAPI(video_predictor), frames_dir)
+    log(f"two concurrent sessions: {concurrent_captures} graphs captured during the run; "
+        f"A equals its solo run {same_masks(outs['A'], http)}, B equals its solo run "
+        f"{same_masks(outs['B'], solo_b)}")
+    check(concurrent_captures > 0, "the second session must capture new graphs")
+    check(same_masks(outs["A"], http) and same_masks(outs["B"], solo_b),
+          "a concurrent session differs from its solo run")
+    result["concurrent_captures"] = concurrent_captures
+
+    # the automatic mask generator, bf16, graphs against eager: at its
+    # defaults, and on an 8-point grid with its score filters and NMS off
+    # (random weights leave no record at the defaults, and near-duplicates)
+    image = structured_image(SEED)
+    image_predictor = SAM2ImagePredictor(model)
+    for label, options in (("defaults", {}), ("filters off", AMG_OPEN)):
+        records, walls = {}, {}
+        for mode in ("graphs", "eager"):
+            if mode == "graphs":
+                model.speedup()
+            else:
+                set_backend(model)
+            amg = SAM2AutomaticMaskGenerator(image_predictor, **options)
+            if not options:
+                amg.generate(image)  # warm-up (captures the graphs both settings replay)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            records[mode] = amg.generate(image)
+            torch.cuda.synchronize()
+            walls[mode] = (time.perf_counter() - t0) * 1e3
+        ious = [miou(a["segmentation"], b["segmentation"])
+                for a, b in zip(records["graphs"], records["eager"])]
+        log(f"AMG {label} {options}, bf16: {len(records['graphs'])} records with graphs, "
+            f"{len(records['eager'])} eagerly; walls {walls['graphs']:.3f} ms (graphs) and "
+            f"{walls['eager']:.3f} ms (eager); per-mask IoU min {min(ious, default=1.0):.5f}")
+        check(len(records["graphs"]) == len(records["eager"]) and
+              all(x >= AMG_IOU_MIN for x in ious), f"AMG {label}: graphs and eager differ")
+        result[f"amg {label}"] = dict(records=len(records["graphs"]),
+                                      iou_min=min(ious, default=1.0), wall_ms=walls)
+    check(result["amg filters off"]["records"] > 0, "the AMG with filters off found no mask")
+
+    # VOS inference on the PNG folder with a frame-0 mask, then J&F
+    video_predictor.speedup()
+    ann_dir = os.path.join(root, "Annotations", "synthetic")
+    for t in range(T):
+        save_ann_png(os.path.join(ann_dir, f"{t:05d}.png"), square_mask(t).astype(np.uint8),
+                     davis_palette())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vos_inference(video_predictor, os.path.join(root, "JPEGImages"),
+                  os.path.join(root, "Annotations"), os.path.join(root, "pred"), "synthetic")
+    jf, j, f, _ = benchmark([os.path.join(root, "Annotations")], [os.path.join(root, "pred")],
+                            num_processes=1, verbose=False)
+    result["eval_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"vos_inference + sav_benchmark over {T} PNG frames: J&F {jf[0]:.3f} (J {j[0]:.3f}, "
+        f"F {f[0]:.3f}), wall {result['eval_ms']:.3f} ms")
+    check(all(np.isfinite(x[0]) for x in (jf, j, f)), "J&F must be finite")
+    result["jf"] = dict(jf=jf[0], j=j[0], f=f[0])
+    return result
+
+
 def main(argv):
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -2643,6 +3110,12 @@ def main(argv):
     switch_launches = phase_switches(
         {"K1": flash_attention, "K2": flash_attention_rope, "K4": flash_attention_kv_proj})
 
+    # slice 11: speedup() as CUDA graphs, then the serving path on them
+    graph_predictor, graphs = phase_graphs(flash_attention, flash_attention_rope)
+    serve = phase_serve(graph_predictor)
+    del graph_predictor
+    torch.cuda.empty_cache()
+
     source = "sam2_opt_tpu_torch/csrc/flash_attention.cu"
     entries = [{
         "name": "flash_attention_fwd (K1)",
@@ -2677,6 +3150,10 @@ def main(argv):
     }]
     entries[0]["training_launches"] = train_launches["K1"]
     entries[1]["training_launches"] = train_launches["K2"]
+    for entry, key in ((entries[0], "K1"), (entries[1], "K2")):
+        entry["graph_replay_launches"] = {
+            dt: {part: counts[key] for part, counts in by.items()}
+            for dt, by in graphs["replay_counts"].items()}
     source = "sam2_opt_tpu_torch/csrc/flash_attention_bwd.cu"
     for key, part, kernel, line in (("K3a", "dkdv", "flash_attention_bwd_dkdv (K3a)", 379),
                                     ("K3b", "dq", "flash_attention_bwd_dq (K3b)", 420)):
@@ -2795,6 +3272,7 @@ def main(argv):
                     "k4_gradient_errors": k4_grads,
                     "training": train_runs, "training_vs_cpu": train_cpu,
                     "training_cli_loss": cli_loss, "switches_default_launches": switch_launches,
+                    "graphs": graphs, "serve": serve,
                     "phase_seconds": PHASE_SECONDS, "card": smi[0]}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

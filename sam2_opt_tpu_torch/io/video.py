@@ -5,7 +5,8 @@ Frames are resized to the model resolution with torch (bilinear with
 antialias, as `utils/transforms.py::resize_to_model`) on the model's device,
 one at a time, and kept as uint8 [T, 3, S, S], as the JAX package keeps
 uint8 frames. Sources: an ndarray [T, H, W, 3] (uint8, or float in [0, 1]
-or [0, 255]) or a directory of JPEG frames (needs PIL). No mp4.
+or [0, 255]) or a directory of JPEG or PNG frames read through Pillow, as
+the JAX loader reads them. No mp4.
 """
 
 from __future__ import annotations
@@ -31,11 +32,12 @@ def _to_uint8(arr: np.ndarray) -> np.ndarray:
 
 
 def _frame_paths(path: str):
-    """JPEG frames named by frame number (misc.py:213-277): bare integer
-    stems, or a unique trailing digit run."""
-    names = [n for n in os.listdir(path) if os.path.splitext(n)[-1].lower() in (".jpg", ".jpeg")]
+    """JPEG or PNG frames named by frame number (misc.py:213-277): bare
+    integer stems, or a unique trailing digit run."""
+    names = [n for n in os.listdir(path)
+             if os.path.splitext(n)[-1].lower() in (".jpg", ".jpeg", ".png")]
     if not names:
-        raise RuntimeError(f"no JPEG frames found in {path}")
+        raise RuntimeError(f"no JPEG or PNG frames found in {path}")
 
     def frame_no(name):
         m = re.search(r"(\d+)\D*$", os.path.splitext(name)[0])
@@ -47,6 +49,14 @@ def _frame_paths(path: str):
     if len(set(keys)) != len(keys):
         raise RuntimeError(f"ambiguous frame ordering in {path}: frame numbers repeat")
     return [os.path.join(path, n) for _, n in sorted(zip(keys, names))]
+
+
+def _read_frame(path: str) -> np.ndarray:
+    """uint8 [H, W, 3] RGB of one frame file."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
 
 
 def _resize_frame(frame_hwc: np.ndarray, image_size: int, device) -> torch.Tensor:
@@ -67,15 +77,10 @@ def load_video_frames(video_path, image_size: int = 1024, offload_video_to_cpu: 
             raise ValueError(f"video array must be [T, H, W, 3], got {video_path.shape}")
         frames = list(_to_uint8(video_path))
     elif isinstance(video_path, str) and os.path.isdir(video_path):
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise ImportError("loading a JPEG directory needs PIL (Pillow); pass the frames as "
-                              "an ndarray [T, H, W, 3] instead") from e
-        frames = [np.asarray(Image.open(p).convert("RGB")) for p in _frame_paths(video_path)]
+        frames = [_read_frame(p) for p in _frame_paths(video_path)]
     else:
         raise NotImplementedError(f"unsupported video source {video_path!r}: an ndarray "
-                                  f"[T, H, W, 3] or a JPEG directory (no mp4)")
+                                  f"[T, H, W, 3] or a JPEG or PNG directory (no mp4)")
     video_h, video_w = frames[0].shape[:2]
     store = "cpu" if offload_video_to_cpu else device
     out = torch.stack([_resize_frame(f, image_size, device).to(store) for f in frames])

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import os
 from collections import OrderedDict
+from functools import lru_cache
 from typing import List
 
 import torch
@@ -168,6 +169,7 @@ class MultiScaleBlock(nn.Module):
         return self.mlp(xn)
 
 
+@lru_cache(maxsize=16)
 def _cubic_resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
     """[n_out, n_in] weights of `jax.image.resize(method="cubic")` along one
     axis: the Keys kernel with a = -0.5 at half-pixel sample positions,
@@ -187,7 +189,11 @@ def _cubic_resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
     w = torch.where(inside[None, :], w, torch.zeros_like(w))
-    return w.t().contiguous().to(device)
+    # one copy to the device per shape: a copy from host memory inside a
+    # step could not be captured into a CUDA graph (built outside inference
+    # mode, so training can use what a predictor cached)
+    with torch.inference_mode(False):
+        return w.t().contiguous().to(device)
 
 
 def hiera_pos_embed(pos_embed, pos_embed_window, h: int, w: int):

@@ -54,7 +54,9 @@ class PromptEncoder(nn.Module):
             coords = torch.cat([coords, coords.new_zeros(B, 1, 2)], dim=1)
             labels = torch.cat([labels, -labels.new_ones(B, 1)], dim=1)
         h, w = input_image_size
-        norm = coords / torch.tensor([w, h], dtype=coords.dtype, device=coords.device)
+        # divided by Python scalars per axis, not by a [w, h] tensor copied
+        # from host memory, which a CUDA graph could not capture
+        norm = torch.stack([coords[..., 0] / w, coords[..., 1] / h], dim=-1)
         pe = posenc.random_fourier_encode(self._gaussian, norm)
         lab = labels[..., None]
         emb = torch.where(lab == -1, torch.zeros_like(pe) + self.not_a_point_embed.weight[0], pe)

@@ -18,6 +18,7 @@ Feature maps are NCHW; masks are [B, M, H, W].
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import torch
@@ -89,11 +90,20 @@ def forward_image(model: SAM2Base, img):
     return {"backbone_fpn": fpn, "vision_pos_enc": list(out["vision_pos_enc"])}
 
 
+@lru_cache(maxsize=8)
+def _channel_constants(values: tuple, device, dtype):
+    """[C, 1, 1] per-channel constants on `device`, made once per device and
+    dtype: a copy from host memory inside a step could not be captured into
+    a CUDA graph (built outside inference mode, so training can use them)."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)[:, None, None]
+
+
 def image_normalize(img, mean=IMAGENET_MEAN, std=IMAGENET_STD):
     """ImageNet normalization of [B, 3, H, W] images in [0, 1]
     (reference utils/transforms.py:27-31)."""
-    mean = torch.tensor(mean, dtype=img.dtype, device=img.device)[:, None, None]
-    std = torch.tensor(std, dtype=img.dtype, device=img.device)[:, None, None]
+    mean = _channel_constants(tuple(mean), img.device, img.dtype)
+    std = _channel_constants(tuple(std), img.device, img.dtype)
     return (img - mean) / std
 
 

@@ -29,7 +29,9 @@ from sam2_opt_tpu_torch.ops import posenc
 
 class MemoryInput(NamedTuple):
     """The memory for one tracking step, batched over objects (B objects
-    tracked together; the reference loops objects at B = 1)."""
+    tracked together; the reference loops objects at B = 1). The index and
+    mask fields are host arrays as the predictor gathers them, or device
+    tensors after `on_device`, which a step captured into a CUDA graph needs."""
 
     feats: tuple           # S x [B, mem_dim, g, g] spatial memory features (bf16)
     tpos_idx: np.ndarray   # [B, S] int index into maskmem_tpos_enc
@@ -37,6 +39,16 @@ class MemoryInput(NamedTuple):
     ptrs: tuple            # P x [B, C] object pointers (fp32)
     ptr_pos: np.ndarray    # [B, P] float32 normalized temporal distance
     ptr_valid: np.ndarray  # [B, P] bool
+
+
+def on_device(mem: MemoryInput, device) -> MemoryInput:
+    """The host fields as device tensors, copied before the step: a copy
+    from pageable host memory cannot be captured into a CUDA graph."""
+    return mem._replace(
+        tpos_idx=torch.as_tensor(mem.tpos_idx, device=device).long(),
+        valid=torch.as_tensor(mem.valid, device=device),
+        ptr_pos=torch.as_tensor(mem.ptr_pos, device=device),
+        ptr_valid=torch.as_tensor(mem.ptr_valid, device=device))
 
 
 @lru_cache(maxsize=8)
@@ -78,10 +90,10 @@ def _memory_tokens(m: base.SAM2Base, cfg: SAM2Config, mem: MemoryInput, dtype):
     ptr_tokens = ptrs.to(dtype).reshape(B, P * tokens_per_ptr, D)
     ptr_pos_tokens = ptr_pe.repeat_interleave(tokens_per_ptr, dim=1)  # [B, P*t, D]
 
-    kv_mask = torch.cat([
-        torch.as_tensor(np.repeat(mem.valid, L, axis=1)),
-        torch.as_tensor(np.repeat(mem.ptr_valid, tokens_per_ptr, axis=1)),
-    ], 1).to(device)
+    valid = torch.as_tensor(mem.valid, device=device)[:, :, None].expand(B, S, L)
+    ptr_valid = torch.as_tensor(mem.ptr_valid, device=device)[:, :, None]
+    kv_mask = torch.cat([valid.reshape(B, S * L),
+                         ptr_valid.expand(B, P, tokens_per_ptr).reshape(B, P * tokens_per_ptr)], 1)
     return (torch.cat([spatial, ptr_tokens], 1), torch.cat([spatial_pos, ptr_pos_tokens], 1),
             kv_mask, S * L)
 
@@ -113,7 +125,7 @@ def _finalize(m: base.SAM2Base, cfg: SAM2Config, raw_embed, sam_outputs, run_mem
     if run_mem_encoder and cfg.num_maskmem > 0:
         maskmem, _ = base.encode_new_memory(m, cfg, raw_embed, high_res_masks,
                                             object_score_logits, is_mask_from_pts)
-        out["maskmem_features"] = maskmem.to(torch.bfloat16)
+        out["maskmem_features"] = _stored_memory(maskmem)
     return out
 
 
@@ -183,4 +195,12 @@ def encode_memory_only(m: base.SAM2Base, cfg: SAM2Config, embed, high_res_masks,
     :911-945). Returns bf16 features [B, mem_dim, g, g]."""
     maskmem, _ = base.encode_new_memory(m, cfg, embed, high_res_masks, object_score_logits,
                                         is_mask_from_pts)
-    return maskmem.to(torch.bfloat16)
+    return _stored_memory(maskmem)
+
+
+def _stored_memory(maskmem):
+    """bf16, contiguous like the bank's zero slots (the memory encoder's
+    convolutions may hand back channels-last): a tracking step captured as a
+    CUDA graph is keyed on its inputs' strides, so one layout keeps one
+    graph per memory capacity however many slots are filled."""
+    return maskmem.to(torch.bfloat16, memory_format=torch.contiguous_format)

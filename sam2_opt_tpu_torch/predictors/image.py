@@ -4,7 +4,8 @@ on PyTorch; counterpart of `sam2_opt_tpu/predictors/image.py`.
 Inputs and outputs are numpy, as in the reference: images HWC uint8 RGB,
 prompts in original-image pixels, masks [M, H, W]. Preprocessing (resize to
 the model resolution, /255, ImageNet normalize) runs on the model's device.
-`speedup()` switches the model to its bf16 compute copy.
+`speedup()` switches the model to its bf16 compute copy and runs the encoder
+and the prompt decoder as CUDA graph replays, one per input signature.
 """
 
 from __future__ import annotations
@@ -50,12 +51,12 @@ class SAM2ImagePredictor:
         return self.model.device
 
     def speedup(self, backend: str = "cuda"):
-        """One-line acceleration: bf16 compute. "int8" raises
-        NotImplementedError."""
+        """One-line acceleration: bf16 compute, `set_image` and `predict` as
+        CUDA graph replays. "int8" raises NotImplementedError."""
         self.model.speedup(backend)
 
-    def set_runtime_backend(self, backend: str = "eager"):
-        self.model.set_runtime_backend(backend)
+    def set_runtime_backend(self, backend: str = "eager", args=None):
+        self.model.set_runtime_backend(backend, args)
 
     def release(self):
         self.model.set_runtime_backend("eager")

@@ -9,6 +9,12 @@ tracked frame the predictor encodes the frame (`SAM2Model.encode_image`),
 gathers a fixed-capacity memory on the host and runs one tracking step of
 `models/video_core.py` on `model._m`; objects tracked together run as one
 batch, so each memory-attention call is one K2 launch with B = objects.
+After `speedup()` the encoder, the init and conditioned steps and the
+memory encoder run as CUDA graph replays (`SAM2Model.run`), keyed as the JAX
+package's `_track_jit` keys them: the kind, the static flags, and the shapes,
+which carry the object count, the memory and pointer capacities and whether
+prompts are present. Memory selection, consolidation, hole filling and the
+resize to video resolution stay on the host, outside the graphs.
 Outputs are torch tensors on the model's device, as in the reference.
 """
 
@@ -83,12 +89,13 @@ class SAM2VideoPredictor:
         return self.cfg.memory_temporal_stride_for_eval
 
     def speedup(self, backend: str = "cuda"):
-        """One-line acceleration: bf16 compute. "int8" raises
+        """One-line acceleration: bf16 compute, the encoder and every
+        tracking step as CUDA graph replays. "int8" raises
         NotImplementedError."""
         self.model.speedup(backend)
 
-    def set_runtime_backend(self, backend: str = "eager"):
-        self.model.set_runtime_backend(backend)
+    def set_runtime_backend(self, backend: str = "eager", args=None):
+        self.model.set_runtime_backend(backend, args)
 
     def release(self):
         self.model.set_runtime_backend("eager")
@@ -516,20 +523,31 @@ class SAM2VideoPredictor:
                                      device=self.device)
             labels = torch.as_tensor(point_inputs["point_labels"], dtype=torch.int32,
                                      device=self.device)
-        cfg, m = self.cfg, self.model._m
+        cfg = self.cfg
         # a mask prompt bypasses memory conditioning, on initial and tracked
         # frames alike (reference sam2_base_official.py:1051-1058)
         mask_direct = mask_inputs is not None and cfg.use_mask_input_as_output_without_sam
         if is_init_cond_frame or cfg.num_maskmem == 0 or mask_direct:
-            out = vc.track_step_init(m, cfg, feats, coords, labels, mask_inputs,
-                                     prev_sam_mask_logits, multimask_output=multimask,
-                                     run_mem_encoder=run_mem_encoder)
+            def init_step(feats, coords, labels, mask_inputs, prev_sam_mask_logits):
+                return vc.track_step_init(self.model._m, cfg, feats, coords, labels, mask_inputs,
+                                          prev_sam_mask_logits, multimask_output=multimask,
+                                          run_mem_encoder=run_mem_encoder)
+
+            out = self.model.run(("track_init", multimask, run_mem_encoder), init_step,
+                                 (feats, coords, labels, mask_inputs, prev_sam_mask_logits))
         else:
-            mem = self._gather_memory(inference_state, output_dict, frame_idx, reverse)
-            out = vc.track_step_conditioned(m, cfg, feats, mem, coords, labels,
-                                            prev_sam_mask_logits, multimask_output=multimask,
-                                            run_mem_encoder=run_mem_encoder,
-                                            mask_inputs=mask_inputs)
+            mem = vc.on_device(self._gather_memory(inference_state, output_dict, frame_idx,
+                                                   reverse), self.device)
+
+            def cond_step(feats, mem, coords, labels, prev_sam_mask_logits, mask_inputs):
+                return vc.track_step_conditioned(
+                    self.model._m, cfg, feats, mem, coords, labels, prev_sam_mask_logits,
+                    multimask_output=multimask, run_mem_encoder=run_mem_encoder,
+                    mask_inputs=mask_inputs)
+
+            out = self.model.run(("track_cond", multimask, run_mem_encoder), cond_step,
+                                 (feats, mem, coords, labels, prev_sam_mask_logits, mask_inputs))
+        # hole filling and the rest of the bookkeeping stay outside the graphs
         return self._compact_output(out, self._fill_holes(out["pred_masks"]))
 
     @staticmethod
@@ -548,11 +566,16 @@ class SAM2VideoPredictor:
         if len({(len(m.feats), len(m.ptrs)) for m in mems}) != 1:
             return None
         B = len(obj_idxs)
-        feats = tuple(f.expand(B, *f.shape[1:])
-                      for f in self._get_image_feature(inference_state, frame_idx))
-        out = vc.track_step_conditioned(self.model._m, self.cfg, feats, self._stack_memory(mems),
-                                        multimask_output=self._use_multimask(False, None),
-                                        run_mem_encoder=True)
+        multimask = self._use_multimask(False, None)
+
+        def batch_step(feats, mem):
+            feats = tuple(f.expand(B, *f.shape[1:]) for f in feats)
+            return vc.track_step_conditioned(self.model._m, self.cfg, feats, mem,
+                                             multimask_output=multimask, run_mem_encoder=True)
+
+        out = self.model.run(("track_batch", multimask), batch_step,
+                             (self._get_image_feature(inference_state, frame_idx),
+                              vc.on_device(self._stack_memory(mems), self.device)))
         pred_masks = self._fill_holes(out["pred_masks"])
         return [self._compact_output({k: v[i:i + 1] for k, v in out.items()},
                                      pred_masks[i:i + 1]) for i in range(B)]
@@ -560,9 +583,13 @@ class SAM2VideoPredictor:
     def _run_memory_encoder(self, inference_state, frame_idx, high_res_masks,
                             object_score_logits, is_mask_from_pts):
         """reference :911-945."""
-        embed = self._get_image_feature(inference_state, frame_idx)[2]
-        return vc.encode_memory_only(self.model._m, self.cfg, embed, high_res_masks,
-                                     object_score_logits, is_mask_from_pts)
+        def memory_encoder(embed, high_res_masks, object_score_logits):
+            return vc.encode_memory_only(self.model._m, self.cfg, embed, high_res_masks,
+                                         object_score_logits, is_mask_from_pts)
+
+        return self.model.run(("memenc", is_mask_from_pts), memory_encoder,
+                              (self._get_image_feature(inference_state, frame_idx)[2],
+                               high_res_masks, object_score_logits))
 
     # state edits (reference :738-1079)
 
