@@ -153,7 +153,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    per-mask IoU >= 0.99); `vos_inference` over the PNG folder with a
    frame-0 mask and `sav_benchmark` on its output (finite J&F); endpoint
    latencies, the AMG's and the eval's walls.
-Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-21; each
+22. int8 (slice 12): `speedup("int8")` on the hiera-L predictors of phase 20,
+   calibrated on 4 JPEGs written from the image and the video: the image
+   in fp32 act-quant, fp32 weight-only and bf16 act-quant through graphs
+   against fp32 eager (mIoU >= 0.98, 0.98, 0.95: `tests/test_quant.py`'s
+   gates); fp32 int8 graphs bitwise equal to fp32 int8 eager, a second pass
+   capturing nothing; the 8-frame video in fp32 act-quant at IoU >= 0.97 per
+   frame of fp32 eager in the encoder scope, and the tracking scope's
+   per-frame IoUs reported (INT8_VIDEO_IOU_MIN's comment); the quantized
+   layers per scope (195 and 267 on hiera-L), the int8 products run
+   eagerly (195 per `set_image`, 267 per tracked frame in the tracking
+   scope) and the int8 GEMMs named in profiled replays, K1 3 per
+   `set_image` and K2 8 per tracked frame in the replays, K4 0 under `SAM2_TPU_FUSED_KV_PROJ=1` with the tracking scope and
+   K8 0 under `SAM2_TPU_FUSED_MLP=1` with int8 (48 without); walls, busy,
+   idle and device time by kernel family of `set_image` and a tracked frame
+   under bf16 graphs and int8 weight-only and act-quant in both scopes; the
+   calibration's wall;
+23. the predictor variants on the same model in bf16 graphs: DAM4SAM over
+   the 8-frame video with `return_all_masks` (3 masks and 3 IoUs a frame),
+   `add_to_drm` on frame 2 and a preflight that makes it a conditioning
+   frame; the Legacy contract; `build_sam2_video_predictor(...,
+   vos_optimized=True)` on graphs from the start.
+Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-23; each
 phase that sets a switch restores it and logs its wall seconds, which the
 summary line before the kernels line gathers under "phase_seconds". Since slice 6, K8 (phases 12-14) is a
 warp-specialised wgmma/TMA kernel; phase 14 also gives the bound of the
@@ -182,8 +203,9 @@ window kernel (K5-K7, K9, K10) holds a window's K and V in shared memory
 graph replays, `phase_k9_k10_times`). The build log keeps ptxas' lines on
 registers, spills and wgmma serialisation.
 
-The line before the last is a JSON object with one entry per kernel; the last
-line is `{"ok": true, "device": {...}}`.
+The line before the last is a JSON object with one entry per kernel, after
+the summary line and phase 22's int8 line; the last line is `{"ok": true,
+"device": {...}}`.
 """
 
 from __future__ import annotations
@@ -831,6 +853,12 @@ def phase_slice(flash_attention):
 # six (tests/test_torch_chip_smoke_families.py): each caller's kernels carry
 # its prefix, so K2's rotation, attention and split merge count as K2's even
 # though its attention body is K1's, and K1's and K4's merges as theirs.
+# the kernels torch._int_mm runs on the H100, as profiled replays name them:
+# CUTLASS's sm80 int8 GEMMs (`cutlass_80_tensorop_i16832gemm_s8_*`). In some
+# replays one or two of a set_image's 195 products run a kernel of another
+# name, so phase 22's exact count of products is `int8_matmul`'s, eagerly,
+# and the replays' count by name is reported beside it
+INT8_GEMM = r"gemm_s8_|imma"
 FAMILIES = [
     ("K5-K7 window_attention (csrc)", r"window_attn_"),
     ("K8 fused_mlp (csrc)", r"fused_mlp_kernel"),
@@ -838,6 +866,7 @@ FAMILIES = [
     ("K4 flash_attention_kv_proj (csrc)", r"flash_kvproj_"),
     ("K2 flash_attention_rope (csrc)", r"flash_rope_"),
     ("K1 flash_attention (csrc)", r"flash_fwd_"),
+    ("int8 GEMM (torch._int_mm)", INT8_GEMM),
     ("convolution", r"conv|fprop|dgrad|wgrad|cudnn|implicit_gemm|winograd"),
     ("matmul", r"gemm|xmma|cutlass|cublas|nvjet|sm90_|sm80_"),
     ("softmax", r"softmax"),
@@ -2989,6 +3018,353 @@ def phase_serve(video_predictor):
     return result
 
 
+# slice 12: int8 and the predictor variants
+INT8_MIOU_MIN = {"fp32 act-quant": 0.98, "fp32 weight-only": 0.98, "bf16 act-quant": 0.95}
+# the gate of tests/test_quant.py's tracking-scope video. There the tracked
+# frames are scored absent (empty masks on both sides); with the object-score
+# bias raised, the tracking scope misses it, in the JAX package too (hiera_t,
+# tests/test_torch_quant.py): the two-way transformer's token self-attention
+# gets one activation scale, set by the click step's prompt embedding
+# (absmax ~1), and an unprompted tracked frame's tokens (random embeddings,
+# std 0.02, absmax ~0.08) fall to a few int8 steps. So the encoder scope is
+# held to it on the video, and the tracking scope's IoUs are reported.
+INT8_VIDEO_IOU_MIN = 0.97
+
+
+def int8_calibration_dir(root, image, video):
+    """4 JPEG calibration images: the 1500x2000 image and video frames 0, 3
+    and 6."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    for i, frame in enumerate([image, video[0], video[3], video[6]]):
+        Image.fromarray(frame).save(os.path.join(root, f"calib{i}.jpg"))
+    return root
+
+
+def quantized_layers(model):
+    """(int8 layers, those with an activation scale) of the compute module."""
+    from sam2_opt_tpu_torch.quant.int8 import QuantLinear
+
+    layers = [m for m in model._m.modules() if isinstance(m, QuantLinear)]
+    return len(layers), sum(m.act_scale is not None for m in layers)
+
+
+def image_outputs(predictor, image):
+    """set_image + the six prompts of phase 5, logits."""
+    predictor.set_image(image)
+    return {(name, mm): predictor.predict(**prompt, multimask_output=mm, return_logits=True)
+            for name, prompt in PROMPTS.items() for mm in (True, False)}
+
+
+def image_miou(ref, got):
+    return float(np.mean([miou(a > 0, b > 0) for key in ref for a, b in zip(ref[key][0],
+                                                                             got[key][0])]))
+
+
+def kernel_names(fn, pattern):
+    """{kernel name: launches} of the kernels matching `pattern` in a
+    profiled fn() (which replays graphs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key[:120]: ev.count for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and re.search(pattern, ev.key)}
+
+
+@phase
+def phase_int8(counters):
+    """`speedup("int8")` on the hiera-L predictors of phase 20 (seed 0, the
+    object-score bias raised), calibrated on 4 JPEGs written from the
+    1500x2000 image and the synthetic video. The image predictor through
+    graphs in three routes against fp32 eager at `tests/test_quant.py`'s
+    gates (fp32 act-quant and weight-only mIoU >= 0.98, bf16 act-quant >=
+    0.95); fp32 int8 graphs bitwise equal to fp32 int8 run eagerly, a
+    second pass capturing nothing; the 8-frame video (fp32, calibrated) at
+    IoU >= 0.97 per frame of fp32 eager in the encoder scope, and the
+    tracking scope's per-frame IoUs, also with the two-way transformer's
+    token self-attention weight-only (INT8_VIDEO_IOU_MIN's comment); the
+    quantized layers per scope, the int8 products (run eagerly, and the
+    int8 GEMMs named in replays) and K1/K2 inside replays,
+    K4 none under `SAM2_TPU_FUSED_KV_PROJ=1` with the tracking scope and K8
+    none under `SAM2_TPU_FUSED_MLP=1` with int8 (eagerly, where the wrappers
+    count); the calibration's wall; walls, busy, idle and device time by
+    kernel family of `set_image` and a tracked frame under bf16 graphs and
+    int8 weight-only and act-quant.
+    Returns (video predictor, result)."""
+    import shutil
+    import tempfile
+
+    from sam2_opt_tpu_torch import SAM2ImagePredictor, build_sam2_video_predictor
+    from sam2_opt_tpu_torch.quant.int8 import int8_matmul
+
+    video_predictor = build_sam2_video_predictor("hiera_l", seed=SEED)
+    with torch.no_grad():
+        video_predictor.model.module.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += \
+            OBJ_BIAS
+    image_predictor = SAM2ImagePredictor(video_predictor.model)
+    model = video_predictor.model
+    image, video = structured_image(SEED), synthetic_video(SEED)
+    T = video.shape[0]
+    points = np.array([[VIDEO_SQUARE[0] + 120, VIDEO_SQUARE[1] + 120]], np.float32)
+    root = tempfile.mkdtemp(prefix="sam2_chip_smoke_int8_")
+    calib = int8_calibration_dir(os.path.join(root, "calib"), image, video)
+    blocks = model.module.image_encoder.trunk.blocks
+    encoder_linears = 4 * len(blocks) + sum(hasattr(b, "proj") for b in blocks)
+    result = {"expected_encoder_layers": encoder_linears, "gates": {}, "layers": {},
+              "speedup_wall_s": {}, "int8_products": {}, "rows": {}}
+
+    def quantize(label, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video_predictor.speedup("int8", **kw)
+        torch.cuda.synchronize()
+        result["speedup_wall_s"][label] = time.perf_counter() - t0
+        result["layers"][label] = quantized_layers(model)
+        log(f"int8 {label}: speedup('int8', {kw}) {result['speedup_wall_s'][label]:.2f} s "
+            f"(calibration on the fp32 master + quantization), (int8 layers, with an activation "
+            f"scale) {result['layers'][label]}")
+
+    # the image routes against fp32 eager
+    model.set_runtime_backend("eager")
+    ref = image_outputs(image_predictor, image)
+    routes = {"fp32 act-quant": dict(calib_dir=calib, dtype=torch.float32),
+              "fp32 weight-only": dict(dtype=torch.float32),
+              "bf16 act-quant": dict(calib_dir=calib)}
+    for label, kw in routes.items():
+        quantize(label, **kw)
+        check(result["layers"][label] == (encoder_linears, 0 if "weight" in label else
+                                          encoder_linears),
+              f"{label}: the encoder scope must quantize {encoder_linears} layers")
+        check(model._use_graphs and model._m is not model.module, f"{label}: graphs on a copy")
+        outs = image_outputs(image_predictor, image)
+        gate = image_miou(ref, outs)
+        result["gates"][label] = gate
+        log(f"int8 {label}: image mask mIoU vs fp32 eager {gate:.5f} (limit "
+            f"{INT8_MIOU_MIN[label]})")
+        check(gate >= INT8_MIOU_MIN[label], f"int8 {label} masks drift from fp32")
+        if label == "fp32 act-quant":
+            # graphs against the same int8 model eagerly, and a second pass
+            before = model.graphs.captures
+            again = image_outputs(image_predictor, image)
+            check(model.graphs.captures == before, "a second int8 pass must only replay")
+            model._use_graphs = False
+            int8_matmul.launches = 0
+            eager = image_outputs(image_predictor, image)
+            result["int8_products"]["set_image"] = int8_matmul.launches
+            model._use_graphs = True
+            bitwise = all(np.array_equal(a, b) for key in outs
+                          for a, b in zip(outs[key], eager[key]))
+            same = all(np.array_equal(a, b) for key in outs for a, b in zip(outs[key],
+                                                                             again[key]))
+            log(f"fp32 int8 graphs vs fp32 int8 eager: bitwise {bitwise}; a second pass "
+                f"replays only and repeats the bits: {same}")
+            check(bitwise and same, "fp32 int8 graphs differ from fp32 int8 eager")
+            result["fp32_graphs_bitwise"] = bitwise
+            check(result["int8_products"]["set_image"] == encoder_linears,
+                  f"an eager int8 set_image must run {encoder_linears} int8 products")
+            names = kernel_names(lambda: image_predictor.set_image(image), INT8_GEMM)
+            result["int8_products"]["set_image replay, by kernel name"] = sum(names.values())
+            log(f"int8 products of one set_image: {encoder_linears} run eagerly; int8 "
+                f"GEMMs in a replay, by name: {json.dumps(names)}")
+            check(sum(names.values()) > 0, "a set_image replay must run int8 GEMMs")
+
+    # the video, fp32, calibrated: the encoder scope held to the gate, the
+    # tracking scope measured against it (INT8_VIDEO_IOU_MIN's comment)
+    model.set_runtime_backend("eager")
+    _, ref_masks, _ = track(video_predictor, video, T, points)
+
+    def frame_ious():
+        state, masks, _ = track(video_predictor, video, T, points)
+        return state, [float(miou(a[0, 0].cpu().numpy() > 0, b[0, 0].cpu().numpy() > 0))
+                       for a, b in zip(ref_masks, masks)]
+
+    quantize("video fp32 act-quant", calib_dir=calib, dtype=torch.float32)
+    _, ious = frame_ious()
+    result["gates"]["video fp32 act-quant"] = ious
+    log(f"int8 video, encoder scope, fp32 act-quant: per-frame IoU vs fp32 eager "
+        f"{[round(x, 5) for x in ious]} (limit {INT8_VIDEO_IOU_MIN})")
+    check(len(ious) == T and min(ious) >= INT8_VIDEO_IOU_MIN, "int8 video masks drift")
+
+    quantize("tracking fp32 act-quant", calib_dir=calib, dtype=torch.float32,
+             quant_scope="tracking")
+    layers = result["layers"]["tracking fp32 act-quant"]
+    # memory attention: q/k/v/out of both attentions and the FFN's two per
+    # layer; the two-way transformer: 14 per layer and its final attention's 4
+    tracking_linears = (encoder_linears + 10 * len(model.module.memory_attention.layers)
+                        + 14 * len(model.module.sam_mask_decoder.transformer.layers) + 4)
+    result["expected_tracking_layers"] = tracking_linears
+    layer0 = model._m.memory_attention.layers[0]
+    reached = [p.act_scale is not None for p in (layer0.self_attn.q_proj,
+                                                 layer0.cross_attn_image.k_proj)]
+    check(layers == (tracking_linears, tracking_linears) and all(reached),
+          f"the tracking scope must quantize and calibrate {tracking_linears} layers, memory "
+          f"attention's q/k projections among them")
+    state, ious = frame_ious()
+    met = min(ious) >= INT8_VIDEO_IOU_MIN
+    result["gates"]["tracking fp32 act-quant"] = dict(frame_iou=ious, limit=INT8_VIDEO_IOU_MIN,
+                                                      met=met)
+    log(f"int8 tracking scope, fp32 act-quant: per-frame IoU vs fp32 eager "
+        f"{[round(x, 5) for x in ious]} (limit {INT8_VIDEO_IOU_MIN}: "
+        f"{'met' if met else 'NOT met'})")
+    names = kernel_names(lambda: list(video_predictor.propagate_in_video(state,
+                                                                         start_frame_idx=1)),
+                         INT8_GEMM)
+    result["int8_products"]["tracked_frame replay, by kernel name"] = \
+        sum(names.values()) / (T - 1)
+    log(f"int8 GEMMs over {T - 1} tracked-frame replays, by name: {json.dumps(names)}")
+    check(sum(names.values()) > 0, "a tracked frame's replays must run int8 GEMMs")
+    # the cause: the two-way transformer's token self-attention, whose
+    # calibrated scale the click step's prompt embedding sets; the same
+    # scope with those layers weight-only
+    with torch.no_grad():
+        for blk in model._m.sam_mask_decoder.transformer.layers:
+            for proj in (blk.self_attn.q_proj, blk.self_attn.k_proj, blk.self_attn.v_proj,
+                         blk.self_attn.out_proj):
+                proj.act_scale = None
+    model.graphs.clear()
+    _, ious = frame_ious()
+    result["gates"]["tracking, token self-attention weight-only"] = ious
+    log(f"int8 tracking scope with the two-way transformer's token self-attention "
+        f"weight-only: per-frame IoU vs fp32 eager {[round(x, 5) for x in ious]}")
+
+    # the switches, eagerly (the wrappers count where they launch)
+    K1, K2, K4, K8 = (counters[k] for k in ("K1", "K2", "K4", "K8"))
+    video_predictor.speedup("int8", calib_dir=calib, dtype=torch.float32,
+                            quant_scope="tracking")
+    model._use_graphs = False
+    with switches({"SAM2_TPU_FUSED_KV_PROJ": "1"}):
+        for c in (K1, K2, K4, int8_matmul):
+            c.launches = 0
+        _, _, per_frame = track(video_predictor, video, 3, points,
+                                counts=(K1, K2, K4, int8_matmul))
+    log(f"tracking-scope int8 under SAM2_TPU_FUSED_KV_PROJ=1, eagerly: per frame (K1, K2, K4, "
+        f"int8 products) {per_frame}")
+    frame = (3, 8, 0, tracking_linears)
+    check(per_frame == [(0, 0, 0, 0), frame, frame],
+          f"a tracked frame must run {tracking_linears} int8 products and keep K4 off "
+          f"(K2 8, K4 0)")
+    result["int8_products"]["tracked_frame"] = per_frame[1][3]
+    result["kv_proj_switch_per_frame"] = per_frame
+    mlp = {}
+    with switches({"SAM2_TPU_FUSED_MLP": "1"}):
+        for label, kw in (("bf16", None), ("bf16 int8", {})):
+            if kw is None:
+                set_backend(model)
+            else:
+                video_predictor.speedup("int8", **kw)
+                model._use_graphs = False
+            K1.launches = K8.launches = 0
+            image_predictor.set_image(image)
+            torch.cuda.synchronize()
+            mlp[label] = (K1.launches, K8.launches)
+    log(f"SAM2_TPU_FUSED_MLP=1, one set_image eagerly: (K1, K8) {mlp}")
+    check(mlp == {"bf16": (3, 48), "bf16 int8": (3, 0)},
+          "int8 MLPs must keep K8 off (48 launches without int8)")
+    result["fused_mlp_switch"] = mlp
+
+    # times through graphs: bf16 against int8 weight-only and act-quant
+    for label, kw in (("bf16", None), ("bf16 int8 weight-only", {}),
+                      ("bf16 int8 act-quant", dict(calib_dir=calib)),
+                      ("bf16 int8 act-quant tracking", dict(calib_dir=calib,
+                                                            quant_scope="tracking"))):
+        if kw is None:
+            video_predictor.speedup()
+        else:
+            video_predictor.speedup("int8", **kw)
+        state, _, _ = track(video_predictor, video, T, points)
+        rows, counts = timed_rows(image_predictor, video_predictor, image, state)
+        enc, trk = counts["set_image"], counts["tracked_frames"]
+        check(enc["K1"] == 3 and trk["K1"] == 3 * (T - 1) and trk["K2"] == 8 * (T - 1),
+              f"{label}: replays must run K1 3 per set_image and K2 8 per tracked frame")
+        # device time by kernel family: of a set_image, and of a tracked frame
+        # (the 7 of a propagation from frame 1, averaged)
+        _, rows["set_image"]["families"], _ = device_split(
+            lambda: image_predictor.set_image(image))
+        _, fams, _ = device_split(
+            lambda: list(video_predictor.propagate_in_video(state, start_frame_idx=1)), reps=1)
+        rows["tracked_frame"]["families"] = {
+            k: {key: v / (T - 1) for key, v in f.items()} for k, f in fams.items()}
+        result["rows"][label] = rows
+        log(f"{label} graphs: {json.dumps(rows)}; K1/K2 per set_image {enc}, over {T - 1} "
+            f"tracked frames {trk}")
+    shutil.rmtree(root, ignore_errors=True)
+    return video_predictor, result
+
+
+@phase
+def phase_variants(video_predictor):
+    """The predictor variants on the hiera-L model of phase 22 in bf16
+    graphs: DAM4SAM over the 8-frame video with `return_all_masks` (3
+    masks and 3 IoUs a frame), `add_to_drm` on frame 2 and a preflight that
+    makes it a conditioning frame; the Legacy contract (a new object after
+    tracking starts raises); `build_sam2_video_predictor(vos_optimized=True)`
+    on graphs from the start."""
+    from sam2_opt_tpu_torch import build_sam2_video_predictor
+    from sam2_opt_tpu_torch.predictors.variants import (
+        SAM2VideoPredictorDAM4SAM,
+        SAM2VideoPredictorLegacy,
+        SAM2VideoPredictorVOS,
+    )
+
+    model = video_predictor.model
+    model.speedup()
+    video = synthetic_video(SEED)
+    T, H, W, _ = video.shape
+    points = np.array([[VIDEO_SQUARE[0] + 120, VIDEO_SQUARE[1] + 120]], np.float32)
+    result = {}
+    dam = SAM2VideoPredictorDAM4SAM(model)
+    state = dam.init_state(video)
+    dam.add_new_points_or_box(state, 0, 1, points=points, labels=np.array([1], np.int32))
+    t0 = time.perf_counter()
+    outs = list(dam.propagate_in_video(state, return_all_masks=True))
+    result["dam4sam_propagation_s"] = time.perf_counter() - t0
+    check(len(outs) == T, "DAM4SAM must yield every frame")
+    for _, obj_ids, masks, (all_masks, ious) in outs:
+        check(obj_ids == [1] and masks.shape == (1, 1, H, W) and len(all_masks) == 3
+              and ious.shape == (3,) and all(m.shape == (1, 1, H, W) for m in all_masks)
+              and np.isfinite(ious).all() and bool(torch.isfinite(masks).all()),
+              "DAM4SAM: 3 masks and 3 IoUs per frame")
+    obj_out = state["output_dict_per_obj"][0]
+    visible = [o["n_pixels_pos"] for _, o in sorted(obj_out["non_cond_frame_outputs"].items())]
+    dam.add_to_drm(state, 2, 1)
+    dam.propagate_in_video_preflight(state)
+    check(2 in obj_out["cond_frame_outputs"] and 2 not in obj_out["non_cond_frame_outputs"]
+          and obj_out["cond_frame_outputs"][2]["maskmem_features"] is not None,
+          "add_to_drm: the preflight must make frame 2 a conditioning frame")
+    tail = list(dam.propagate_in_video(state, start_frame_idx=3, return_all_masks=True))
+    check(len(tail) == T - 3, "DAM4SAM after add_to_drm")
+    log(f"DAM4SAM, bf16 graphs: {T} frames with 3 masks + 3 IoUs each "
+        f"({result['dam4sam_propagation_s']:.3f} s), n_pixels_pos per tracked frame {visible}; "
+        f"frame 2 promoted to the DRM, frames 3-{T - 1} tracked again")
+    result["n_pixels_pos"] = visible
+
+    legacy = SAM2VideoPredictorLegacy(model)
+    state = legacy.init_state(video[:3])
+    legacy.add_new_points_or_box(state, 0, 1, points=points, labels=np.array([1], np.int32))
+    list(legacy.propagate_in_video(state))
+    try:
+        legacy.add_new_points_or_box(state, 1, 2, points=points, labels=np.array([1], np.int32))
+        raised = False
+    except RuntimeError as e:
+        raised = "after tracking starts" in str(e)
+    check(raised, "Legacy: a new object after tracking starts must raise")
+    log("Legacy: a new object after tracking starts raises")
+
+    vos = build_sam2_video_predictor("hiera_l", seed=SEED, vos_optimized=True)
+    check(type(vos) is SAM2VideoPredictorVOS and vos.model._use_graphs
+          and vos.model.compute_dtype == torch.bfloat16, "VOS: bf16 graphs from the start")
+    _, masks, _ = track(vos, video, 3, points)
+    check(len(masks) == 3 and all(bool(torch.isfinite(m).all()) for m in masks)
+          and vos.model.graphs.captures > 0, "VOS: tracking through graphs")
+    log(f"VOS: 3 frames through {vos.model.graphs.captures} captured graphs")
+    result["vos_captures"] = vos.model.graphs.captures
+    del vos
+    return result
+
+
 def main(argv):
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -3114,6 +3490,14 @@ def main(argv):
     graph_predictor, graphs = phase_graphs(flash_attention, flash_attention_rope)
     serve = phase_serve(graph_predictor)
     del graph_predictor
+    torch.cuda.empty_cache()
+
+    # slice 12: int8 and the predictor variants
+    int8_predictor, int8 = phase_int8(
+        {"K1": flash_attention, "K2": flash_attention_rope, "K4": flash_attention_kv_proj,
+         "K8": fused_mlp})
+    variants = phase_variants(int8_predictor)
+    del int8_predictor
     torch.cuda.empty_cache()
 
     source = "sam2_opt_tpu_torch/csrc/flash_attention.cu"
@@ -3272,8 +3656,9 @@ def main(argv):
                     "k4_gradient_errors": k4_grads,
                     "training": train_runs, "training_vs_cpu": train_cpu,
                     "training_cli_loss": cli_loss, "switches_default_launches": switch_launches,
-                    "graphs": graphs, "serve": serve,
+                    "graphs": graphs, "serve": serve, "variants": variants,
                     "phase_seconds": PHASE_SECONDS, "card": smi[0]}))
+    log(json.dumps({"int8": int8, "card": smi[0]}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                            "count": torch.cuda.device_count()}}))

@@ -8,6 +8,8 @@ The JAX package stores the reference `sd["model"]` in its own layouts
 - linear weights:          [in, out] -> [out, in]
 - 4-D positional embeddings (pos_embed, pos_embed_window): NHWC -> NCHW
 - embeddings / learned tokens / buffers: unchanged
+- int8 linears (`quant/int8.py`): `w_int8` [in, out] -> [out, in], kept
+  int8; `w_scale`, `bias` and `act_scale` unchanged
 
 The tree is a nested dict (int keys for module lists) of array-likes, e.g.
 numpy arrays; keys flatten to the reference's dotted names.
@@ -55,15 +57,21 @@ def to_torch_layout(key: str, value: np.ndarray) -> np.ndarray:
         return np.transpose(v, (3, 2, 0, 1))
     if v.ndim == 2 and key.endswith("weight") and not _is_match(key, _EMBED_WEIGHT_RES):
         return np.transpose(v)
+    if key.endswith(".w_int8"):
+        return np.transpose(v)
     return v
 
 
 def state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's params tree -> a state_dict that loads strictly into
-    `SAM2Base`, fp32. Any tree shaped like the params maps the same way:
-    JAX gradients and optax's Adam moments (`mu`, `nu`) come out under the
-    port's names and layouts, as the training tests compare them."""
-    return {k: torch.from_numpy(np.array(to_torch_layout(k, v), np.float32))
+    `SAM2Base`, fp32 (int8 weights stay int8: a quantized tree's state dict
+    loads into a module given its quantized layers by
+    `quant.int8.quantize_like`, as `build_sam2` does). Any tree shaped like
+    the params maps the same way: JAX gradients and optax's Adam moments
+    (`mu`, `nu`) come out under the port's names and layouts, as the
+    training tests compare them."""
+    return {k: torch.from_numpy(np.array(to_torch_layout(k, v),
+                                         np.int8 if k.endswith(".w_int8") else np.float32))
             for k, v in flatten_params(params).items()}
 
 

@@ -50,6 +50,7 @@ from sam2_opt_tpu_torch.kernels.flash_attention import (
 )
 from sam2_opt_tpu_torch.ops import common as ops
 from sam2_opt_tpu_torch.ops import posenc
+from sam2_opt_tpu_torch.quant.int8 import QuantLinear
 
 
 @lru_cache(maxsize=16)
@@ -93,32 +94,66 @@ def _use_fused_rope(q, kv_len: int, frame_tokens: int) -> bool:
 
 
 class RoPEAttention(ops.Attention):
-    """Reference `RoPEAttention` parameters (q/k/v/out projections)."""
+    """Reference `RoPEAttention` parameters (q/k/v projections, each an
+    `nn.Linear` or, after int8 quantization, a `QuantLinear`)."""
 
     _split_key = None
 
     def split_qk(self):
-        """(wq, bq, wk, bk) with `split_perm` on the output channels. Under
-        autograd they are indexed inside the graph on every call, so the
-        gradient flows back to the projections (the JAX `_perm_proj`,
-        memory_attention.py:91). Without grad (no_grad or inference mode)
-        they are detached copies built once per parameter storage, so
-        `speedup()`'s bf16 copy, a new device or a loaded state dict builds
-        its own on first use."""
-        params = (self.q_proj.weight, self.q_proj.bias, self.k_proj.weight, self.k_proj.bias)
-        head_dim = self.q_proj.out_features // self.num_heads
+        """The q and k projections with `split_perm` on their output
+        channels: each (weight, bias) of an `nn.Linear`, or a permuted
+        `QuantLinear` (int8 rows, scales and bias permuted alike: the JAX
+        `_perm_proj`, memory_attention.py:91-107). Under autograd they are
+        indexed inside the graph on every call, so the gradient flows back
+        to the projections. Without grad (no_grad or inference mode) they
+        are detached copies built once per tensor storage, so `speedup()`'s
+        compute copy, a new device or a loaded state dict builds its own on
+        first use."""
+        projs = (self.q_proj, self.k_proj)
+        tensors = tuple(t for p in projs for t in _proj_tensors(p) if t is not None)
         if torch.is_grad_enabled():
-            perm = posenc.split_perm(head_dim, self.num_heads).to(self.q_proj.weight.device)
-            return tuple(p[perm] for p in params)
+            return tuple(_permuted(p, self._perm(tensors[0].device)) for p in projs)
         # the key holds the tensors themselves, so a freed storage cannot
         # come back at the same address and pass for a cached one
-        key = tuple((p, p.data_ptr(), p.dtype, p._version) for p in params)
-        if self._split_key is None or any(
+        key = tuple((t, t.data_ptr(), t.dtype, t._version) for t in tensors)
+        if self._split_key is None or len(key) != len(self._split_key) or any(
                 a[0] is not b[0] or a[1:] != b[1:] for a, b in zip(self._split_key, key)):
-            perm = posenc.split_perm(head_dim, self.num_heads).to(self.q_proj.weight.device)
-            self._split = tuple(p.detach()[perm] for p in params)
+            perm = self._perm(tensors[0].device)
+            with torch.no_grad():
+                self._split = tuple(_permuted(p, perm) for p in projs)
             self._split_key = key
         return self._split
+
+    def _perm(self, device):
+        head_dim = self.q_proj.out_features // self.num_heads
+        return posenc.split_perm(head_dim, self.num_heads).to(device)
+
+
+def _proj_tensors(proj):
+    if isinstance(proj, QuantLinear):
+        return proj.w_int8, proj.w_scale, proj.bias, proj.act_scale
+    return proj.weight, proj.bias
+
+
+def _permuted(proj, perm):
+    if isinstance(proj, QuantLinear):
+        return proj.permuted(perm)
+    return proj.weight[perm], proj.bias[perm]
+
+
+def _project(split, x):
+    """x through one of `split_qk`'s projections."""
+    if isinstance(split, QuantLinear):
+        return split(x)
+    return F.linear(x, *split)
+
+
+def _run_pre_hooks(proj, x):
+    """Run `proj`'s forward pre-hooks on its input where the projection runs
+    on split or raw weights instead of its forward: int8 calibration
+    (`quant/calibrate.py`) records each linear's input there."""
+    for hook in proj._forward_pre_hooks.values():
+        hook(proj, (x,))
 
 
 def _rope_attention(attn: RoPEAttention, cfg: MemoryAttentionConfig, q_in, k_in, v_in,
@@ -127,14 +162,17 @@ def _rope_attention(attn: RoPEAttention, cfg: MemoryAttentionConfig, q_in, k_in,
     unrotated tokens; q rotated here. Under `SAM2_TPU_FLASH`, on the card
     where the kernels take the shape (`_use_fused_rope`), K is rotated in
     K2, or for single-head cross-attention under `SAM2_TPU_FUSED_KV_PROJ=1`
-    projected and rotated in K4; elsewhere their plain versions run.
-    `SAM2_TPU_FUSED_ROPE=0` rotates K here instead and runs K1 (at D = 256
-    on the card) where K2 would run, its plain version elsewhere (the JAX
-    unfused branch, memory_attention.py:206-224). With `SAM2_TPU_FLASH` off,
-    K is rotated here and plain attention runs, as JAX's XLA path does."""
+    with raw (not int8) k/v weights, projected and rotated in K4; elsewhere
+    their plain versions run. `SAM2_TPU_FUSED_ROPE=0` rotates K here
+    instead and runs K1 (at D = 256 on the card) where K2 would run, its
+    plain version elsewhere (the JAX unfused branch,
+    memory_attention.py:206-224). With `SAM2_TPU_FLASH` off, K is rotated
+    here and plain attention runs, as JAX's XLA path does."""
     ex, ey = cfg.rope_feat_sizes
-    wq, bq, wk, bk = attn.split_qk()
-    q = ops.separate_heads(F.linear(q_in, wq, bq), attn.num_heads)
+    proj_q, proj_k = attn.split_qk()
+    _run_pre_hooks(attn.q_proj, q_in)
+    _run_pre_hooks(attn.k_proj, k_in)
+    q = ops.separate_heads(_project(proj_q, q_in), attn.num_heads)
     head_dim = q.shape[-1]
     cq, sq = _rope_half_tables(head_dim, ex, ey, cfg.rope_theta, 1, 0, q.device, q.dtype)
     ck, sk = _rope_half_tables(head_dim, ex, ey, cfg.rope_theta, reps, n_extra, q.device, q.dtype)
@@ -143,17 +181,18 @@ def _rope_attention(attn: RoPEAttention, cfg: MemoryAttentionConfig, q_in, k_in,
     on_card = _use_fused_rope(q, k_in.shape[1], ex * ey)
     flash = ops.use_flash_attention(q)
     rope = flash and _rope_fusion_on()
-    # (when int8 projections are ported, quantized k/v projections cannot
-    # stream raw weights into K4 and take the branch below, as in the JAX
-    # package, memory_attention.py:184-186)
-    if cross and rope and attn.num_heads == 1 and _kv_proj_fusion_on():
+    # K4 streams raw k/v weights: int8 projections take the branch below,
+    # as in the JAX package (memory_attention.py:183-186)
+    if (cross and rope and attn.num_heads == 1 and _kv_proj_fusion_on()
+            and not isinstance(proj_k, QuantLinear) and not isinstance(attn.v_proj, QuantLinear)):
+        _run_pre_hooks(attn.v_proj, v_in)
         attend = flash_attention_kv_proj if on_card else flash_attention_kv_proj_ref
-        out, _ = attend(q, k_in, v_in, wk, bk, attn.v_proj.weight, attn.v_proj.bias, ck, sk,
+        out, _ = attend(q, k_in, v_in, *proj_k, attn.v_proj.weight, attn.v_proj.bias, ck, sk,
                         kv_mask)
         return attn.out_proj(ops.recombine_heads(out))
     if flash:
         ops.check_fast_exp(q.dtype)  # K2 and K1 below; K4 above does not read it
-    k = ops.separate_heads(F.linear(k_in, wk, bk), attn.num_heads)
+    k = ops.separate_heads(_project(proj_k, k_in), attn.num_heads)
     v = ops.separate_heads(attn.v_proj(v_in), attn.num_heads)
     if rope:
         attend = flash_attention_rope if on_card else flash_attention_rope_ref

@@ -1,7 +1,8 @@
 """SAM2Model: the module with its fp32/bf16 runtime seam.
 
 Counterpart of `sam2_opt_tpu/models/model.py`. It owns the fp32 master
-`SAM2Base` and, after `speedup()`, a bf16 compute copy; the seams
+`SAM2Base` and, after `speedup()`, a bf16 compute copy (after
+`speedup("int8")` a copy whose linears are int8, `quant/int8.py`); the seams
 `encode_image`, `encode_image_e2e` and `predict_masks` run on whichever is
 active, and the video predictor runs `models/video_core.py` on it (`_m`).
 Under the "cuda" backend every seam, the video predictor's tracking steps
@@ -58,8 +59,9 @@ class SAM2Model:
         """'eager' = fp32 op by op on the master module; 'cuda' = the seams
         as CUDA graph replays (core/executor.py) in `args["dtype"]`:
         bfloat16 (the default, a compute copy; the fp32 master stays) or
-        float32 (the master itself). The graphs are cleared on every change,
-        as the JAX package clears `_jit_fns`."""
+        float32 (the master itself; `quantize_int8` quantizes a copy). The
+        graphs are cleared on every change, as the JAX package clears
+        `_jit_fns`."""
         args = dict(args or {})
         if backend == "eager":
             self.backend, self.compute_dtype, self._compute = "eager", torch.float32, self.module
@@ -76,14 +78,85 @@ class SAM2Model:
             raise ValueError(f"unsupported backend {backend!r}: 'eager' (fp32) or 'cuda'")
         self.graphs.clear()
 
-    def speedup(self, backend: str = "cuda"):
+    def speedup(self, backend: str = "cuda", dtype=torch.bfloat16,
+                calib_dir: Optional[str] = None, model_root_path: Optional[str] = None,
+                activation_quant: bool = True, quant_scope: str = "encoder",
+                max_images: Optional[int] = 32):
         """One-line acceleration (reference sam2_image_predictor.py:94-138):
-        bf16 compute on the card, every seam a CUDA graph replay. "int8" is
-        not ported yet."""
-        if backend == "int8":
-            raise NotImplementedError(
-                "int8 is not ported yet; see ROADMAP.md (Queue A, int8)")
-        self.set_runtime_backend(backend)
+        `dtype` compute on the card, every seam a CUDA graph replay.
+
+        backend "int8" (aliases "trt_int8"/"int8_trt": the reference's
+        `speedup("trt", model_root_path=...)` int8 engines,
+        benchmark.py:172-174) also quantizes the linears of `quant_scope`
+        ("encoder" or "tracking", `quantize_int8`): weight-only without a
+        calibration directory, activation-quant when `calib_dir` (or
+        `model_root_path`, accepted for the reference's call sites) holds
+        calibration images. The fp32 master stays: speedup("eager")
+        restores the parity path."""
+        backend = str(backend).lower()
+        if backend in ("int8", "trt_int8", "int8_trt"):
+            self.quantize_int8(calib_dir=calib_dir or model_root_path,
+                               activation_quant=activation_quant, dtype=dtype,
+                               scope=quant_scope, max_images=max_images)
+            return
+        if calib_dir is not None or model_root_path is not None:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "speedup(%r): model_root_path/calib_dir ignored (they select int8); "
+                "for int8 use speedup('int8', calib_dir=...)", backend)
+        self.set_runtime_backend(backend, {"dtype": dtype} if backend == "cuda" else None)
+
+    def quantize_int8(self, calib_dir: Optional[str] = None, activation_quant: bool = True,
+                      dtype=torch.bfloat16, pattern: Optional[str] = None,
+                      max_images: Optional[int] = None, scope: str = "encoder"):
+        """Int8-quantize the hot path (JAX `models/model.py:137-197`, the
+        stand-in for the reference's TRT int8 engines,
+        quant_image_encoder.py:8-75) on the "cuda" backend in `dtype`.
+        Quantizes a compute copy only: in fp32 too the master module is
+        left as it is.
+
+        scope: "encoder" (the reference's int8 footprint: the Hiera trunk's
+        linears) or "tracking" (beyond the reference: also memory
+        attention's q/k/v/out projections and FFN and the two-way
+        transformer's linears; calibration then drives the whole tracking
+        step per image). With `activation_quant` and `calib_dir`, at most
+        `max_images` images (32 when None; 0 or below: no cap) calibrate
+        the activation scales on the fp32 master, eagerly."""
+        from sam2_opt_tpu_torch.quant.int8 import (
+            DEFAULT_QUANT_PATTERN,
+            TRACKING_QUANT_PATTERN,
+            quantize_module,
+        )
+
+        if scope not in ("encoder", "tracking"):
+            # scope also selects the calibration routine, so a typo must not
+            # calibrate the encoder alone
+            raise ValueError(f"unknown quant scope: {scope!r}")
+        if pattern is None:
+            pattern = TRACKING_QUANT_PATTERN if scope == "tracking" else DEFAULT_QUANT_PATTERN
+        act_scales = None
+        if activation_quant and calib_dir:
+            from sam2_opt_tpu_torch.quant import calibrate as cal
+
+            if max_images is None:
+                max_images = 32
+            ds = cal.ImageEncodeCalibratorDataset(
+                calib_dir, image_size=self.cfg.image_size,
+                max_images=max_images if max_images > 0 else None)
+            collect = (cal.collect_tracking_activation_scales if scope == "tracking"
+                       else cal.collect_activation_scales)
+            act_scales = collect(self.module, self.cfg, ds.batches(), pattern=pattern)
+            if not act_scales:
+                raise RuntimeError(
+                    f"activation calibration over {calib_dir!r} produced no scales (quant "
+                    f"pattern {pattern!r} matched no linears); refusing to fall back to "
+                    f"weight-only int8 silently.")
+        self.set_runtime_backend("cuda", {"dtype": dtype})
+        if self._compute is self.module:
+            self._compute = copy.deepcopy(self.module)
+        quantize_module(self._compute, pattern, act_scales)
+        self.graphs.clear()
 
     def run(self, name, fn, args: tuple):
         """fn(*args): a graph replay per signature under the "cuda" backend
@@ -152,9 +225,11 @@ def build_sam2(variant: str = "hiera_l", checkpoint_path: Optional[str] = None,
                device=None) -> SAM2Model:
     """Build a SAM2Model (reference build_sam.py:71-97 without hydra).
 
-    Loads a reference `.pt` checkpoint or a given state_dict strictly;
-    otherwise draws random weights from `seed` (on the CPU, so every device
-    gets the same weights). Runs on CUDA unless `device` says otherwise.
+    Loads a reference `.pt` checkpoint or a given state_dict strictly (an
+    int8 one, such as a JAX int8 tree carried across, gives a module whose
+    linears are int8); otherwise draws random weights from `seed` (on the
+    CPU, so every device gets the same weights). Runs on CUDA unless
+    `device` says otherwise.
     """
     device = default_device(device)
     if cfg is None:
@@ -165,6 +240,9 @@ def build_sam2(variant: str = "hiera_l", checkpoint_path: Optional[str] = None,
 
         state_dict = load_checkpoint(checkpoint_path)
     if state_dict is not None:
+        from sam2_opt_tpu_torch.quant.int8 import quantize_like
+
+        quantize_like(module, state_dict)  # an int8 state dict's layers
         module.load_state_dict(state_dict, strict=True)
     else:
         init_params(module, torch.Generator().manual_seed(seed))

@@ -110,18 +110,23 @@ def condition_on_memory(m: base.SAM2Base, cfg: SAM2Config, curr_feat, mem: Memor
 
 
 def _finalize(m: base.SAM2Base, cfg: SAM2Config, raw_embed, sam_outputs, run_mem_encoder: bool,
-              is_mask_from_pts: bool):
+              is_mask_from_pts: bool, keep_multimasks: bool = False):
     """The stored per-frame outputs. The memory encoder reads the raw frame
     features, not the memory-conditioned ones (reference track_step
     :1167-1177). Hole filling runs after this step, as the reference applies
-    fill_holes_in_mask_scores after track_step."""
-    _, _, ious, low_res_masks, high_res_masks, obj_ptr, object_score_logits = sam_outputs
+    fill_holes_in_mask_scores after track_step. `keep_multimasks` adds every
+    multimask slot as `all_pred_masks` (fp32), for the DAM4SAM track's
+    distractor analysis (reference sam2_base_dam4sam.py:447-501)."""
+    low_res_multimasks, _, ious, low_res_masks, high_res_masks, obj_ptr, object_score_logits = \
+        sam_outputs
     out = {
         "pred_masks": low_res_masks,
         "obj_ptr": obj_ptr.float(),
         "object_score_logits": object_score_logits.float(),
         "ious": ious.float(),
     }
+    if keep_multimasks:
+        out["all_pred_masks"] = low_res_multimasks.float()
     if run_mem_encoder and cfg.num_maskmem > 0:
         maskmem, _ = base.encode_new_memory(m, cfg, raw_embed, high_res_masks,
                                             object_score_logits, is_mask_from_pts)
@@ -131,7 +136,7 @@ def _finalize(m: base.SAM2Base, cfg: SAM2Config, raw_embed, sam_outputs, run_mem
 
 def track_step_init(m: base.SAM2Base, cfg: SAM2Config, feats: Tuple, point_coords, point_labels,
                     mask_inputs, prev_sam_mask_logits=None, multimask_output: bool = True,
-                    run_mem_encoder: bool = False):
+                    run_mem_encoder: bool = False, keep_multimasks: bool = False):
     """Initial conditioning frame: the no-memory embedding path (reference
     :951-957 + track_step). feats = (hrf0, hrf1, embed) NCHW, batch 1;
     point_coords [1,P,2] / point_labels [1,P] or None; mask_inputs
@@ -141,13 +146,14 @@ def track_step_init(m: base.SAM2Base, cfg: SAM2Config, feats: Tuple, point_coord
     return _track_with_features(m, cfg, (hrf0, hrf1, pix_feat), embed, point_coords,
                                 point_labels, mask_inputs, prev_sam_mask_logits,
                                 multimask_output, run_mem_encoder,
-                                is_mask_from_pts=point_coords is not None)
+                                is_mask_from_pts=point_coords is not None,
+                                keep_multimasks=keep_multimasks)
 
 
 def track_step_conditioned(m: base.SAM2Base, cfg: SAM2Config, feats: Tuple, mem: MemoryInput,
                            point_coords=None, point_labels=None, prev_sam_mask_logits=None,
                            multimask_output: bool = True, run_mem_encoder: bool = True,
-                           mask_inputs=None):
+                           mask_inputs=None, keep_multimasks: bool = False):
     """Tracked frame: memory attention + SAM heads + memory encoder
     (reference track_step :1114-1179, non-initial branch). `mask_inputs`
     reaches here only when use_mask_input_as_output_without_sam is False."""
@@ -156,12 +162,13 @@ def track_step_conditioned(m: base.SAM2Base, cfg: SAM2Config, feats: Tuple, mem:
     return _track_with_features(m, cfg, (hrf0, hrf1, pix_feat), embed, point_coords,
                                 point_labels, mask_inputs, prev_sam_mask_logits,
                                 multimask_output, run_mem_encoder,
-                                is_mask_from_pts=point_coords is not None)
+                                is_mask_from_pts=point_coords is not None,
+                                keep_multimasks=keep_multimasks)
 
 
 def _track_with_features(m, cfg, feats, raw_embed, point_coords, point_labels, mask_inputs,
                          prev_sam_mask_logits, multimask_output, run_mem_encoder,
-                         is_mask_from_pts):
+                         is_mask_from_pts, keep_multimasks=False):
     hrf0, hrf1, pix_feat = feats
     if mask_inputs is not None and cfg.use_mask_input_as_output_without_sam:
         # the reference runs the pointer's SAM heads on the raw backbone
@@ -186,7 +193,8 @@ def _track_with_features(m, cfg, feats, raw_embed, point_coords, point_labels, m
                                              mask_inputs=mask_prompt,
                                              high_res_features=(hrf0, hrf1),
                                              multimask_output=multimask_output)
-    return _finalize(m, cfg, raw_embed, sam_outputs, run_mem_encoder, is_mask_from_pts)
+    return _finalize(m, cfg, raw_embed, sam_outputs, run_mem_encoder, is_mask_from_pts,
+                     keep_multimasks)
 
 
 def encode_memory_only(m: base.SAM2Base, cfg: SAM2Config, embed, high_res_masks,

@@ -50,10 +50,14 @@ class SAM2ImagePredictor:
     def device(self) -> torch.device:
         return self.model.device
 
-    def speedup(self, backend: str = "cuda"):
+    def speedup(self, backend: str = "cuda", **kwargs):
         """One-line acceleration: bf16 compute, `set_image` and `predict` as
-        CUDA graph replays. "int8" raises NotImplementedError."""
-        self.model.speedup(backend)
+        CUDA graph replays. "int8" also quantizes the encoder's linears:
+        pass `calib_dir` with calibration images for activation-quant, omit
+        it for weight-only (`SAM2Model.speedup` takes the other arguments:
+        dtype, model_root_path, activation_quant, quant_scope,
+        max_images)."""
+        self.model.speedup(backend, **kwargs)
 
     def set_runtime_backend(self, backend: str = "eager", args=None):
         self.model.set_runtime_backend(backend, args)

@@ -58,6 +58,9 @@ def _select_closest_cond_frames(frame_idx, cond_frame_outputs, max_cond_frame_nu
 
 
 class SAM2VideoPredictor:
+    # keep every multimask slot in a step's output (the DAM4SAM track sets it)
+    keep_multimasks = False
+
     def __init__(self, sam_model: SAM2Model, fill_hole_area: int = 8,
                  non_overlap_masks: bool = False, clear_non_cond_mem_around_input: bool = False,
                  add_all_frames_to_correct_as_cond: bool = False):
@@ -88,11 +91,14 @@ class SAM2VideoPredictor:
     def memory_temporal_stride_for_eval(self) -> int:
         return self.cfg.memory_temporal_stride_for_eval
 
-    def speedup(self, backend: str = "cuda"):
+    def speedup(self, backend: str = "cuda", **kwargs):
         """One-line acceleration: bf16 compute, the encoder and every
-        tracking step as CUDA graph replays. "int8" raises
-        NotImplementedError."""
-        self.model.speedup(backend)
+        tracking step as CUDA graph replays. "int8" also quantizes the
+        image encoder's linears (weight-only, or activation-quant with
+        `calib_dir`); `quant_scope="tracking"` extends int8 to memory
+        attention and the two-way transformer, and calibration then drives
+        the whole tracking step (`SAM2Model.speedup` for the arguments)."""
+        self.model.speedup(backend, **kwargs)
 
     def set_runtime_backend(self, backend: str = "eager", args=None):
         self.model.set_runtime_backend(backend, args)
@@ -527,13 +533,14 @@ class SAM2VideoPredictor:
         # a mask prompt bypasses memory conditioning, on initial and tracked
         # frames alike (reference sam2_base_official.py:1051-1058)
         mask_direct = mask_inputs is not None and cfg.use_mask_input_as_output_without_sam
+        keep = self.keep_multimasks and multimask
         if is_init_cond_frame or cfg.num_maskmem == 0 or mask_direct:
             def init_step(feats, coords, labels, mask_inputs, prev_sam_mask_logits):
                 return vc.track_step_init(self.model._m, cfg, feats, coords, labels, mask_inputs,
                                           prev_sam_mask_logits, multimask_output=multimask,
-                                          run_mem_encoder=run_mem_encoder)
+                                          run_mem_encoder=run_mem_encoder, keep_multimasks=keep)
 
-            out = self.model.run(("track_init", multimask, run_mem_encoder), init_step,
+            out = self.model.run(("track_init", multimask, run_mem_encoder, keep), init_step,
                                  (feats, coords, labels, mask_inputs, prev_sam_mask_logits))
         else:
             mem = vc.on_device(self._gather_memory(inference_state, output_dict, frame_idx,
@@ -543,15 +550,15 @@ class SAM2VideoPredictor:
                 return vc.track_step_conditioned(
                     self.model._m, cfg, feats, mem, coords, labels, prev_sam_mask_logits,
                     multimask_output=multimask, run_mem_encoder=run_mem_encoder,
-                    mask_inputs=mask_inputs)
+                    mask_inputs=mask_inputs, keep_multimasks=keep)
 
-            out = self.model.run(("track_cond", multimask, run_mem_encoder), cond_step,
+            out = self.model.run(("track_cond", multimask, run_mem_encoder, keep), cond_step,
                                  (feats, mem, coords, labels, prev_sam_mask_logits, mask_inputs))
         # hole filling and the rest of the bookkeeping stay outside the graphs
         return self._compact_output(out, self._fill_holes(out["pred_masks"]))
 
-    @staticmethod
-    def _compact_output(out, pred_masks):
+    def _compact_output(self, out, pred_masks):
+        """The stored per-frame output (the DAM4SAM track adds to it)."""
         return {"maskmem_features": out.get("maskmem_features"), "pred_masks": pred_masks,
                 "obj_ptr": out["obj_ptr"], "object_score_logits": out["object_score_logits"]}
 
@@ -567,13 +574,15 @@ class SAM2VideoPredictor:
             return None
         B = len(obj_idxs)
         multimask = self._use_multimask(False, None)
+        keep = self.keep_multimasks and multimask
 
         def batch_step(feats, mem):
             feats = tuple(f.expand(B, *f.shape[1:]) for f in feats)
             return vc.track_step_conditioned(self.model._m, self.cfg, feats, mem,
-                                             multimask_output=multimask, run_mem_encoder=True)
+                                             multimask_output=multimask, run_mem_encoder=True,
+                                             keep_multimasks=keep)
 
-        out = self.model.run(("track_batch", multimask), batch_step,
+        out = self.model.run(("track_batch", multimask, keep), batch_step,
                              (self._get_image_feature(inference_state, frame_idx),
                               vc.on_device(self._stack_memory(mems), self.device)))
         pred_masks = self._fill_holes(out["pred_masks"])

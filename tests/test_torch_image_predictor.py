@@ -140,14 +140,16 @@ def test_transforms_match_jax():
 
 def test_unported_options_raise(predictors, tiny128_cfg):
     _, port_pred = predictors
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_pred.model.speedup("int8")
+    with pytest.raises(ValueError, match="unknown quant scope"):
+        port_pred.model.speedup("int8", quant_scope="decoder")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SAM2VideoPredictor(port_pred.model).init_state(_image()[None], async_loading_frames=True)
-    with pytest.raises(ValueError):  # bf16 on "cuda" is the one reduced precision
+    with pytest.raises(ValueError):  # the reference's engine names are not accepted
         port_pred.speedup("tensorrt")
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError):  # bf16 on "cuda" is the one reduced precision
         port_pred.speedup(dtype=torch.float16)
+    with pytest.raises(TypeError):
+        port_pred.speedup(use_cache=True)
     with pytest.raises(TypeError):
         SAM2ImagePredictor(port_pred.model, model_root_path="models")
     assert port_pred.model.compute_dtype == torch.float32

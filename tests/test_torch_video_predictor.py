@@ -208,8 +208,16 @@ def test_video_loader_sources(tmp_path):
 
 
 def test_video_builder_options(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_sam2_video_predictor("hiera_t", device="cpu", vos_optimized=True)
+    from sam2_opt_tpu_torch.predictors.variants import (
+        SAM2VideoPredictorDAM4SAM,
+        SAM2VideoPredictorVOS,
+    )
+
+    vos = build_sam2_video_predictor("hiera_t", device="cpu", vos_optimized=True)
+    assert isinstance(vos, SAM2VideoPredictorVOS) and vos.model._use_graphs
     monkeypatch.setenv("SAM2_VERSION_TRACK", "dam4sam")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert isinstance(build_sam2_video_predictor("hiera_t", device="cpu"),
+                      SAM2VideoPredictorDAM4SAM)
+    monkeypatch.setenv("SAM2_VERSION_TRACK", "nonsense")
+    with pytest.raises(ValueError, match="SAM2_VERSION_TRACK"):
         build_sam2_video_predictor("hiera_t", device="cpu")
