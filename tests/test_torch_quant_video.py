@@ -153,7 +153,7 @@ def test_int8_tracking_matches_jax(tmp_path, tiny128_cfg, tiny128_params):
         return (a & b).sum() / (a | b).sum()
 
     # both packages' int8 drop alike against fp32 (the cause: chip_smoke.py,
-    # INT8_VIDEO_IOU_MIN's comment)
+    # INT8_TRACKED_IOU_MIN's comment)
     for f in ref:
         assert abs(iou(fp32[f], got[f]) - iou(fp32[f], ref[f])) <= 0.01, f
     for f in ref:
