@@ -165,9 +165,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    run eagerly, a negative control below 0.78, and with the two-way
    transformer's token self-attention weight-only >= 0.97 per frame; the
    quantized layers per scope (195 and 267 on hiera-L), the int8 products
-   run eagerly (195 per `set_image`, 267 per tracked frame in the tracking
-   scope), a replay's int8 and matmul kernels equal to an eager run's by
-   name and number in profiled traces, K1 3 per `set_image` and K2 8 per tracked frame in the replays, K4
+   captured into the graphs a replay runs (195 per `set_image`, 267 per
+   tracked frame in the tracking scope, none captured by frames 2-7) and
+   the profiler's record of them in a replay (some, and no more than
+   captured), K1 3 per `set_image` and K2 8 per tracked frame in the replays, K4
    0 under `SAM2_TPU_FUSED_KV_PROJ=1` with the tracking scope and K8 0
    under `SAM2_TPU_FUSED_MLP=1` with int8 (48 without); walls, busy, idle
    and device time by kernel family of `set_image` and a tracked frame
@@ -223,6 +224,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -860,11 +862,13 @@ def phase_slice(flash_attention):
 # the kernels torch._int_mm runs on the H100, as profiled replays name them:
 # CUTLASS's sm80 int8 GEMMs, `cutlass_80_tensorop_i16832gemm_s8_128x64_128x3`
 # for the encoder's and memory attention's rows and `..._s8_64x64_128x6` for
-# the mask decoder's zero-padded token rows. Late in a whole run of this
-# script a trace of a set_image has held 193-194 of them for 195 products,
-# in a replay and eagerly alike (a trace of phase 22 alone holds 195), so
-# phase 22 holds a replay's int8 and matmul kernels equal to an eager run's
-# and counts the products where the wrapper launches them
+# the mask decoder's zero-padded token rows. A profiler trace is no exact
+# count of them: late in a whole run of this script a trace of a set_image
+# has held 193-194 of its 195 products and 2365 kernel records where a
+# trace of phase 22 alone held 195 and 2406, in a replay and eagerly alike,
+# and a replay's trace has differed from an eager run's. So phase 22 counts
+# the products captured into the graphs (`captured_products`) and holds a
+# replay's trace to some of them and no more
 INT8_GEMM = r"gemm_s8_|imma"
 FAMILIES = [
     ("K5-K7 window_attention (csrc)", r"window_attn_"),
@@ -885,6 +889,12 @@ FAMILIES = [
 ]
 
 
+def family(name):
+    """The family of FAMILIES a kernel's name falls in, else "other"."""
+    return next((f for f, pattern in FAMILIES if re.search(pattern, name, re.IGNORECASE)),
+                "other")
+
+
 def device_split(fn, reps=3):
     """Device time of fn() per call, summed by kernel family from a
     torch.profiler trace of `reps` calls: (busy ms, {family: {ms, launches}},
@@ -902,9 +912,7 @@ def device_split(fn, reps=3):
             dev_us = ev.self_cuda_time_total
         if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        fam = next((f for f, pattern in FAMILIES if re.search(pattern, ev.key, re.IGNORECASE)),
-                   "other")
-        f = fams.setdefault(fam, {"ms": 0.0, "launches": 0})
+        f = fams.setdefault(family(ev.key), {"ms": 0.0, "launches": 0})
         f["ms"] += dev_us / 1e3 / reps
         f["launches"] += ev.count / reps
         kernels.append([ev.key[:90], dev_us / 1e3 / reps])
@@ -3093,17 +3101,36 @@ def trace_kernels(fn):
     return kernels
 
 
-def gemm_kernels(kernels):
-    """The int8 and matmul kernels of `trace_kernels`' result."""
-    pattern = INT8_GEMM + "|" + dict(FAMILIES)["matmul"]
-    return {k: n for k, n in kernels.items() if re.search(pattern, k)}
-
-
 def int8_by_name(kernels):
     """({kernel name: launches}, their sum) of the int8 GEMMs among
     `trace_kernels`' result."""
     names = {k[:120]: n for k, n in kernels.items() if re.search(INT8_GEMM, k)}
     return names, sum(names.values())
+
+
+@contextlib.contextmanager
+def captured_products():
+    """For the block, wraps the int8 product so that its `captured` counts
+    the products launched while a CUDA graph is captured: those the graph's
+    replays run, which no wrapper sees, as a replay runs no Python. The
+    product's own `launches` (it counts through the module's name) goes on
+    counting every call."""
+    from sam2_opt_tpu_torch.quant import int8 as int8_module
+
+    product = int8_module.int8_matmul
+
+    def counting(a, w_int8):
+        if torch.cuda.is_current_stream_capturing():
+            counting.captured += 1
+        return product(a, w_int8)
+
+    counting.launches, counting.captured = product.launches, 0
+    int8_module.int8_matmul = counting
+    try:
+        yield counting
+    finally:
+        int8_module.int8_matmul = product
+        product.launches = counting.launches
 
 
 @phase
@@ -3122,9 +3149,9 @@ def phase_int8(counters):
     rows' zero padding placed first) below 0.78, and >= 0.97 per frame with
     the two-way transformer's token self-attention weight-only
     (INT8_TRACKED_IOU_MIN's comment); the quantized layers per scope, the
-    int8 products (195 per `set_image`, 267 per tracked frame, launched
-    eagerly; a replay's int8 and matmul kernels equal to an eager run's, by
-    name and number) and K1/K2 inside replays, K8 none under `SAM2_TPU_FUSED_MLP=1` with int8 (eagerly, where
+    int8 products captured into the graphs a replay runs (195 per
+    `set_image`, 267 per tracked frame; the profiler's record of a replay
+    holds some and no more) and K1/K2 inside replays, K8 none under `SAM2_TPU_FUSED_MLP=1` with int8 (eagerly, where
     the wrappers count); the calibration's wall; walls, busy, idle and
     device time by kernel family of `set_image` and a tracked frame under
     bf16 graphs and int8 weight-only and act-quant.
@@ -3196,26 +3223,25 @@ def phase_int8(counters):
                 f"replays only and repeats the bits: {same}")
             check(bitwise and same, "fp32 int8 graphs differ from fp32 int8 eager")
             result["fp32_graphs_bitwise"] = bitwise
-            # a replay's trace against an eager run's: the same int8 and matmul
-            # kernels, by name and number, and the eager run's int8 products
-            # counted where the wrapper launches them (INT8_GEMM's comment)
+            # the products a replay runs, captured into its graphs anew, and
+            # the profiler's record of them in one replay (INT8_GEMM's comment)
+            model.graphs.clear()
+            with captured_products() as products:
+                image_predictor.set_image(image)
+            captures = model.graphs.captures
             replay = trace_kernels(lambda: image_predictor.set_image(image))
-            model._use_graphs = False
-            int8_matmul.launches = 0
-            eager = trace_kernels(lambda: image_predictor.set_image(image))
-            products = int8_matmul.launches
-            model._use_graphs = True
             names, count = int8_by_name(replay)
-            same_gemms = gemm_kernels(replay) == gemm_kernels(eager)
-            result["int8_products"]["set_image"] = products
+            result["int8_products"]["set_image"] = products.captured
             result["int8_products"]["set_image replay, by kernel name"] = count
-            log(f"int8 products of one set_image: {products} launched eagerly; int8 GEMMs by "
-                f"name in a replay {json.dumps(names)}, in the eager run "
-                f"{int8_by_name(eager)[1]}; the replay's int8 and matmul kernels equal the eager "
-                f"run's: {same_gemms}")
-            check(products == encoder_linears and same_gemms and count > 0,
-                  f"a set_image replay must run the eager run's GEMMs, {encoder_linears} int8 "
-                  f"products among them")
+            others = {k[:120]: n for k, n in replay.items() if family(k) in ("matmul", "other")}
+            log(f"int8 products captured into the graphs of one set_image: {products.captured}; "
+                f"int8 GEMMs by name in a replay {json.dumps(names)} of "
+                f"{sum(replay.values())} kernel records; its other matmul kernels and those of "
+                f"no family {json.dumps(others)}")
+            check(products.captured == encoder_linears and model.graphs.captures == captures
+                  and 0 < count <= products.captured,
+                  f"a set_image replay must run {encoder_linears} int8 products, captured into "
+                  f"its graphs, and the profiler must see some of them")
 
     # the video, fp32, calibrated: the encoder scope, then the tracking scope
     # (INT8_TRACKED_IOU_MIN's comment)
@@ -3261,32 +3287,34 @@ def phase_int8(counters):
         f"tracked frames {INT8_TRACKED_IOU_MIN})")
     check(len(ious) == T and ious[0] >= INT8_VIDEO_IOU_MIN
           and min(ious[1:]) >= INT8_TRACKED_IOU_MIN, "int8 tracking-scope masks drift")
-    # each tracked frame's replay against the same frame run eagerly, one
-    # trace each (as set_image's above)
-    def frame_traces(graphs):
-        model._use_graphs = graphs
-        frames = video_predictor.propagate_in_video(state, start_frame_idx=1)
-        traces = []
-        for _ in range(T - 1):
-            int8_matmul.launches = 0
-            traces.append((trace_kernels(lambda: next(frames)), int8_matmul.launches))
-        check(next(frames, None) is None, "the propagation from frame 1 yields T - 1 frames")
-        model._use_graphs = True
-        return traces
-
-    replays, eagers = frame_traces(True), frame_traces(False)
-    per_frame = [int8_by_name(r)[1] for r, _ in replays]
-    products = [n for _, n in eagers]
-    same_gemms = [gemm_kernels(r) == gemm_kernels(e) for (r, _), (e, _) in zip(replays, eagers)]
-    names = {k for r, _ in replays for k in int8_by_name(r)[0]}
+    # the products each tracked frame's replay runs: with the graphs cleared,
+    # frame 1 captures every seam of a tracked frame anew and frames 2-7
+    # replay them; the profiler's record of each replay (INT8_GEMM's comment)
+    model.graphs.clear()
+    frames = video_predictor.propagate_in_video(state, start_frame_idx=1)
+    captured_per_frame, new_graphs, per_frame, records = [], [], [], []
+    with captured_products() as products:
+        for t in range(1, T):
+            products.captured, captures = 0, model.graphs.captures
+            if t == 1:
+                next(frames)
+            else:
+                kernels = trace_kernels(lambda: next(frames))
+                per_frame.append(int8_by_name(kernels)[1])
+                records.append(sum(kernels.values()))
+            captured_per_frame.append(products.captured)
+            new_graphs.append(model.graphs.captures - captures)
+    check(next(frames, None) is None, "the propagation from frame 1 yields T - 1 frames")
+    result["int8_products"]["tracked_frame captured"] = captured_per_frame
     result["int8_products"]["tracked_frame replays, by kernel name"] = per_frame
-    log(f"int8 products of each tracked frame launched eagerly {products}; int8 GEMMs by name "
-        f"in each frame's replay {per_frame}, in its eager run "
-        f"{[int8_by_name(e)[1] for e, _ in eagers]} ({json.dumps(sorted(names))}); each "
-        f"replay's int8 and matmul kernels equal its eager run's: {same_gemms}")
-    check(products == [tracking_linears] * (T - 1) and all(same_gemms) and min(per_frame) > 0,
-          f"each tracked frame's replay must run its eager run's GEMMs, {tracking_linears} int8 "
-          f"products among them")
+    log(f"int8 products captured into the graphs of each tracked frame {captured_per_frame} "
+        f"(graphs captured {new_graphs}); int8 GEMMs by name in the replays of frames 2-{T - 1} "
+        f"{per_frame} of {records} kernel records")
+    check(captured_per_frame == [tracking_linears] + [0] * (T - 2)
+          and new_graphs[1:] == [0] * (T - 2)
+          and 0 < min(per_frame) and max(per_frame) <= tracking_linears,
+          f"each tracked frame's replay must run {tracking_linears} int8 products, captured "
+          f"into its graphs by frame 1, and the profiler must see some of them")
 
     # the same model eagerly under SAM2_TPU_FUSED_KV_PROJ=1: K4 leaves int8
     # k/v projections to K2, so the switch changes no number and the graphs
