@@ -178,8 +178,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    the 8-frame video with `return_all_masks` (3 masks and 3 IoUs a frame),
    `add_to_drm` on frame 2 and a preflight that makes it a conditioning
    frame; the Legacy contract; `build_sam2_video_predictor(...,
-   vos_optimized=True)` on graphs from the start.
-Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-23; each
+   vos_optimized=True)` on graphs from the start;
+24. parallel (slice 13): two rank processes share the card over gloo
+   (`parallel_rank`; a rank that fails fails the phase): (a) fp32 hiera-b+
+   at 1024², T = 4 (two fp32 ranks at T = 8 would not fit), a video of 2
+   objects per data row, one step under dp 2 x tp 1 and dp 1 x tp 2 against
+   one process on the same global batch (loss 1e-5 relative, every reduced
+   gradient 1e-3 of its max |g| plus 1e-7 of the largest); (b) bf16 DP at
+   full size, dp 2, T = 8, `Trainer.run` with comms_dtype None and
+   "bfloat16", each rank launching per step phase 10's K1 6, K2 56, K3a 59,
+   K3b 59, its ms per step and peak (contention of two ranks on one card,
+   not scaling), the reduced gradients of the two at the JAX test's bf16
+   tolerance; (d) `train.py --dp 2` on a PNG folder (hiera_t, 256 px, 2
+   videos, 1 step), rank 0 alone writing the checkpoint, both ranks resuming
+   to the trained parameters; (e) hiera-L fp32: the image predictor at dp 2
+   on 2 images and at dp 1 x tp 2 (logits 1e-4 of their scale from one
+   process), the video predictor at dp 2 with 2 objects over the 8-frame
+   video (masks agreeing >= 0.999 per frame), K1 and K2 per rank equal to
+   one process's; then, in this process, (c) NCCL at world size 1: the DP
+   trainer's bf16 steps on a dp 1 mesh and an all-reduce on the card.
+Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-24; each
 phase that sets a switch restores it and logs its wall seconds, which the
 summary line before the kernels line gathers under "phase_seconds". Since slice 6, K8 (phases 12-14) is a
 warp-specialised wgmma/TMA kernel; phase 14 also gives the bound of the
@@ -1513,11 +1531,11 @@ def phase_trainer(counters):
         median_ms = float(np.median(step_ms[1:]))
         # one more step, profiled (its launches are not the main path's)
         step_fn = next(iter(trainer._step_fns.values()))
-        images, masks, obj_valid = trainer._place_batch(batch, TRAIN_OBJECTS)
+        images, masks, obj_valid, rows = trainer._place_batch(batch, TRAIN_OBJECTS)
 
         def one_step():
             trainer.opt_state, metrics = step_fn(trainer.model, trainer.opt_state, images, masks,
-                                                 obj_valid, trainer._gen, 1e-6)
+                                                 obj_valid, trainer.row_generators(rows), 1e-6)
             return float(metrics["loss"])
 
         busy, fams, top = device_split(one_step, reps=1)
@@ -3492,6 +3510,498 @@ def phase_variants(video_predictor):
     return result
 
 
+# --------------------------------------------------------------------------- #
+# slice 13: data and tensor parallelism; two ranks share the one card over gloo
+# --------------------------------------------------------------------------- #
+
+# fp32 at T = 8 peaks at 41.90 GiB in phase 10 (H100 80GB HBM3): two ranks at T = 8
+# would not fit
+PAR_FP32_FRAMES = 4
+PAR_STEPS = 2              # Trainer.run steps per bf16 setting
+PAR_LOSS_RTOL = 1e-5
+PAR_GRAD_TOL = 1e-3        # of each gradient's own max |g| ...
+PAR_GRAD_FLOOR = 1e-7      # ... plus this much of the model's largest gradient
+PAR_LOGIT_TOL = 1e-4       # of the logits' scale
+PAR_MASK_AGREE = 0.999     # per frame, video masks against one process
+PAR_TIMEOUT_S = 480
+PAR_RANKS = 2
+
+
+class CaptureOptimizer:
+    """Records the reduced gradients (and the global norm a TP step hands
+    over) and leaves the parameters as they are: the step's gradients
+    without Adam's sign-like first update between them and the check."""
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, state, params, lr, grad_norm=None):
+        self.grads, self.grad_norm = grads, grad_norm
+        return {n: torch.zeros_like(g) for n, g in grads.items()}, state
+
+
+def par_batch(T):
+    """A global batch of two videos (phase 10's, and one from the next seed)."""
+    a, b = training_video(T=T, seed=SEED), training_video(T=T, seed=SEED + 1)
+    return {k: np.concatenate([a[k], b[k]]) for k in a}
+
+
+def par_step(mesh, cfg, batch, rows, dtype, comms=None):
+    """One `build_train_step` step on global `rows` of `batch` with phase
+    10's settings (point prompt on frame 0, one correction click from the
+    per-row generators, remat "encoder") and a CaptureOptimizer: the loss,
+    the whole reduced gradients on the host, ms and peak GiB of the step."""
+    import dataclasses
+
+    from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
+    from sam2_opt_tpu_torch.parallel import tp as tp_lib
+    from sam2_opt_tpu_torch.training.trainer import build_train_step, row_generators
+
+    model = b_plus("cuda")
+    sharded = tp_lib.shard_module(model, mesh) if mesh is not None else {}
+    tcfg = dataclasses.replace(train_config(dtype, "/nonexistent"), comms_dtype=comms)
+    opt = CaptureOptimizer()
+    step = build_train_step(cfg, tcfg, opt, mesh)
+    take = slice(rows[0], rows[-1] + 1)
+    images = torch.as_tensor(batch["images"][take], device="cuda").float() / 255.0
+    masks = torch.as_tensor(batch["masks"][take], device="cuda")
+    valid = torch.as_tensor(batch["obj_valid"][take], device="cuda")
+    # the step twice (the optimizer moves nothing): the first pays the
+    # shapes' one-time costs, the second is timed
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, metrics = step(model, {}, images, masks, valid,
+                          row_generators(SEED, 0, rows, "cuda"), 1e-6)
+        loss = float(metrics["loss"])
+        ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads = mesh_lib.fetch_global(opt.grads, mesh, sharded)
+    del model, opt, step, images, masks, valid
+    torch.cuda.empty_cache()
+    return dict(loss=loss, grads=grads, ms=ms, peak_gib=peak)
+
+
+def par_grads_within(got, want):
+    """The worst |err| / own max |g| over tensors, and those outside
+    PAR_GRAD_TOL * own max + PAR_GRAD_FLOOR * the largest."""
+    check(sorted(got) == sorted(want), "the layouts differentiate other parameters")
+    gmax = max(g.abs().max().item() for g in want.values())
+    worst, bad = 0.0, []
+    for n, w in want.items():
+        err = (got[n] - w).abs().max().item()
+        scale = w.abs().max().item()
+        if err > PAR_GRAD_TOL * scale + PAR_GRAD_FLOOR * gmax:
+            bad.append((n, err, scale))
+        if scale >= 1e-6 * gmax:
+            worst = max(worst, err / scale)
+    return worst, bad
+
+
+def par_same_on_ranks(value, what):
+    """Every rank holds the same `value` (a small picklable)."""
+    import torch.distributed as dist
+
+    values = [None] * dist.get_world_size()
+    dist.all_gather_object(values, value)
+    diff = [i for i, v in enumerate(zip(*values)) if len(set(v)) > 1]
+    check(not diff, f"{what} differs between ranks at {len(diff)} of {len(values[0])} entries, "
+          f"first {[(i, [v[i] for v in values]) for i in diff[:4]]}")
+    return values
+
+
+def fingerprint(tensors):
+    return [float(t.double().sum()) for t in tensors.values()] + [
+        float(t.double().abs().sum()) for t in tensors.values()]
+
+
+def par_fp32_layouts(rank):
+    """(a) fp32 DP (dp 2 x tp 1, a video per rank) and TP (dp 1 x tp 2, one
+    video) against one process on the same global batch (rank 0 runs it
+    while rank 1 waits): hiera-b+ 1024², T = PAR_FP32_FRAMES, 2 objects."""
+    import torch.distributed as dist
+
+    from sam2_opt_tpu_torch.config import model_config
+    from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = model_config("hiera_b+")
+    batch = par_batch(PAR_FP32_FRAMES)
+    layouts = {"dp2": (2, 1, 2), "tp2": (1, 2, 1)}  # dp, tp, global videos
+    ref = {}
+    if rank == 0:
+        for name, (_, _, n) in layouts.items():
+            ref[name] = par_step(None, cfg, batch, list(range(n)), "float32")
+            log(f"one process, fp32, {n} video(s) of T = {PAR_FP32_FRAMES}: loss "
+                f"{ref[name]['loss']:.6f}, {ref[name]['ms']:.1f} ms, peak "
+                f"{ref[name]['peak_gib']:.2f} GiB")
+    dist.barrier()
+    out = {}
+    for name, (dp, tp, n) in layouts.items():
+        mesh = mesh_lib.make_mesh(dp, tp, backend="gloo", device="cuda")
+        got = par_step(mesh, cfg, batch, mesh_lib.process_local_batch_rows(mesh, n), "float32")
+        par_same_on_ranks(fingerprint(got["grads"]) + [got["loss"]],
+                          f"{name}: the reduced gradients")
+        row = dict(loss=got["loss"], ms=got["ms"], peak_gib=got["peak_gib"])
+        if rank == 0:
+            want = ref[name]
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            worst, bad = par_grads_within(got["grads"], want["grads"])
+            log(f"(a) fp32 {name} (dp {dp} x tp {tp}) vs one process: loss {got['loss']:.6f} vs "
+                f"{want['loss']:.6f} (rel {rel:.2e}, limit {PAR_LOSS_RTOL}); "
+                f"{len(want['grads'])} gradients, worst |err| / own max |g| {worst:.2e}, "
+                f"outside {bad[:3]}")
+            check(rel <= PAR_LOSS_RTOL, f"fp32 {name}: the loss disagrees with one process")
+            check(not bad, f"fp32 {name}: gradients disagree with one process")
+            row.update(loss_rel=rel, worst_grad_rel=worst, one_process_ms=want["ms"],
+                       one_process_peak_gib=want["peak_gib"])
+        log(f"(a) fp32 {name}: rank {rank} step {got['ms']:.1f} ms (two ranks on one card: "
+            f"contention, not scaling), peak {got['peak_gib']:.2f} GiB")
+        out[name] = row
+        del got
+    return out
+
+
+def par_bf16_dp(rank, counters):
+    """(b) bf16 DP at full size, dp 2, T = 8, a video of 2 objects per rank:
+    Trainer.run (the main path) with comms_dtype None and "bfloat16", each
+    rank's launches per step equal to phase 10's; then the reduced
+    gradients of one step under each, held together at the JAX test's
+    bf16 tolerance."""
+    import dataclasses
+    import tempfile
+
+    from sam2_opt_tpu_torch.config import model_config
+    from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
+    from sam2_opt_tpu_torch.training.trainer import Trainer
+
+    cfg = model_config("hiera_b+")
+    batch = par_batch(TRAIN_FRAMES)
+    mesh = mesh_lib.make_mesh(2, 1, backend="gloo", device="cuda")
+    expect = launches_per_step()
+    runs, grads = {}, {}
+    for comms in (None, "bfloat16"):
+        root = tempfile.mkdtemp(prefix="sam2_chip_smoke_par_")
+        tcfg = dataclasses.replace(train_config("bfloat16", root), comms_dtype=comms)
+        trainer = Trainer(cfg, b_plus("cuda"), tcfg, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        trainer.run(lambda epoch: iter([batch] * PAR_STEPS), steps_per_epoch=PAR_STEPS)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(got == {k: PAR_STEPS * v for k, v in expect.items()},
+              f"rank {rank}, bf16 DP (comms {comms}): launched {got}, expected {PAR_STEPS} x "
+              f"{expect}")
+        check(np.isfinite(trainer.step_losses).all(), "bf16 DP losses")
+        step_ms = [1e3 * x for x in trainer.step_seconds]
+        log(f"(b) bf16 dp 2, comms {comms}: rank {rank} Trainer.run {PAR_STEPS} steps, ms per "
+            f"step {[round(x, 1) for x in step_ms]} (two ranks on one card: contention, not "
+            f"scaling), peak {peak:.2f} GiB, launches {got}, losses "
+            f"{[round(x, 4) for x in trainer.step_losses]}")
+        runs[str(comms)] = dict(step_ms=step_ms, peak_gib=peak, launches=got,
+                                losses=trainer.step_losses)
+        del trainer
+        torch.cuda.empty_cache()
+        one = par_step(mesh, cfg, batch, mesh_lib.process_local_batch_rows(mesh, 2), "bfloat16",
+                       comms)
+        grads[str(comms)] = one
+    plain, comms = grads["None"], grads["bfloat16"]
+    rel = abs(comms["loss"] - plain["loss"]) / abs(plain["loss"])
+    gmax = max(g.abs().max().item() for g in plain["grads"].values())
+    bad = []
+    for n, a in plain["grads"].items():
+        tol = 0.05 * a.abs() + 0.02 * a.abs().max() + 1e-4 * gmax
+        if not bool(((comms["grads"][n] - a).abs() <= tol).all()):
+            bad.append(n)
+    log(f"(b) bf16 comms vs plain bf16 DP: loss {comms['loss']:.6f} vs {plain['loss']:.6f} (rel "
+        f"{rel:.2e}, limit 1e-3); gradients outside 5% + 2% of their max + 1e-4 of the largest: "
+        f"{bad[:3]} ({len(bad)})")
+    check(rel < 1e-3 and not bad, "bf16 gradient comms disagree with plain bf16 DP")
+    return dict(runs=runs, comms_loss_rel=rel)
+
+
+def par_cli(rank, root):
+    """(d) `train.py --dp 2` over the PNG folder (hiera_t at 256 px, 2
+    videos, 1 step): rank 0 alone writes the checkpoint, and a fresh trainer
+    on each rank resumes from it to the same parameters."""
+    import torch.distributed as dist
+
+    from sam2_opt_tpu_torch.config import model_config
+    from sam2_opt_tpu_torch.models.model import build_sam2
+    from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
+    from sam2_opt_tpu_torch.training import checkpoints
+    from sam2_opt_tpu_torch.training.train import main as train_main
+    from sam2_opt_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    writes = []
+    save = checkpoints.CheckpointManager.save
+    checkpoints.CheckpointManager.save = lambda self, step, state: (writes.append(step),
+                                                                    save(self, step, state))
+    try:
+        ckpt = f"{root}/ckpt"
+        trainer = train_main(["--img_folder", f"{root}/JPEGImages", "--gt_folder",
+                              f"{root}/Annotations", "--variant", "hiera_t", "--image-size", "256",
+                              "--num-epochs", "1", "--num-frames", "2", "--max-objects", "1",
+                              "--batch-size", "2", "--dp", "2", "--backend", "gloo",
+                              "--checkpoint-dir", ckpt, "--log-dir", f"{root}/logs"])
+        trained = mesh_lib.fetch_global(trainer.model.state_dict(), trainer.mesh, trainer.sharded)
+        fresh = Trainer(model_config("hiera_t", image_size=256),
+                        build_sam2("hiera_t", seed=1, cfg=model_config("hiera_t", image_size=256))
+                        .module, TrainConfig(checkpoint_dir=ckpt, log_dir=f"{root}/logs2"),
+                        mesh=trainer.mesh)
+        check(fresh.load_checkpoint() and fresh.steps == 1, "the ranks must resume")
+        restored = mesh_lib.fetch_global(fresh.model.state_dict(), fresh.mesh, fresh.sharded)
+    finally:
+        checkpoints.CheckpointManager.save = save
+    check(trainer.device.type == "cuda" and trainer.steps == 1
+          and np.isfinite(trainer.step_losses).all(), "the training CLI under two ranks")
+    check(all(torch.equal(restored[k], v) for k, v in trained.items()),
+          "the resumed parameters differ from the trained ones")
+    prints = par_same_on_ranks(fingerprint(restored), "the resumed parameters")
+    all_writes = [None] * dist.get_world_size()
+    dist.all_gather_object(all_writes, writes)
+    check(all_writes[0] and not any(all_writes[1:]), f"checkpoint writes per rank {all_writes}")
+    log(f"(d) train.py --dp 2: rank {rank} loss {trainer.step_losses[0]:.4f}; checkpoint writes "
+        f"per rank {all_writes}; both ranks resumed to the trained parameters "
+        f"({len(prints[0]) // 2} tensors)")
+    return dict(loss=trainer.step_losses[0], writes=all_writes)
+
+
+def par_inference(rank, counters):
+    """(e) hiera-L fp32 on two ranks against one process (rank 0, then
+    broadcast): SAM2ImagePredictor(mesh=dp 2) on 2 images, the video
+    predictor (mesh=dp 2) over the 8-frame video with 2 objects, and the
+    image predictor at dp 1 x tp 2; K1 and K2 counted per rank."""
+    import torch.distributed as dist
+
+    from sam2_opt_tpu_torch.models.model import build_sam2
+    from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
+    from sam2_opt_tpu_torch.predictors.image import SAM2ImagePredictor
+    from sam2_opt_tpu_torch.predictors.video import SAM2VideoPredictor
+
+    images = [structured_image(SEED), structured_image(SEED + 1)]
+    coords = [np.array([[1000, 750]], np.float32), np.array([[600, 500], [1300, 1000]],
+                                                            np.float32)]
+    labels = [np.array([1]), np.array([1, 0])]
+    video = synthetic_video(SEED)
+    points = {1: np.array([[VIDEO_SQUARE[0] + 120, VIDEO_SQUARE[1] + 120]], np.float32),
+              2: np.array([[1000, 600]], np.float32)}
+
+    def model():
+        m = build_sam2("hiera_l", seed=SEED)
+        with torch.no_grad():
+            m.module.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += OBJ_BIAS
+        return m
+
+    def image_run(predictor):
+        for c in counters.values():
+            c.launches = 0
+        predictor.set_image_batch(images)
+        k1 = counters["K1"].launches
+        _, ious, low = predictor.predict_batch(coords, labels, multimask_output=True)
+        return dict(ious=ious, low=low, k1=k1)
+
+    def video_run(predictor):
+        state = predictor.init_state(video)
+        for obj, pt in points.items():
+            predictor.add_new_points_or_box(state, 0, obj, points=pt, labels=np.array([1]))
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        masks = [(logits > 0).cpu().numpy() for _, _, logits in
+                 predictor.propagate_in_video(state)]
+        return dict(masks=masks, seconds=time.perf_counter() - t0,
+                    k1=counters["K1"].launches, k2=counters["K2"].launches)
+
+    sam = model()
+    ref = None
+    if rank == 0:
+        ref = {"image": image_run(SAM2ImagePredictor(sam)),
+               "video": video_run(SAM2VideoPredictor(sam, fill_hole_area=8))}
+        ref["video"]["masks"] = [np.packbits(m) for m in ref["video"]["masks"]]
+    box = [ref]
+    dist.broadcast_object_list(box, src=0)
+    ref = box[0]
+    ref_masks = [np.unpackbits(m)[:2 * video.shape[1] * video.shape[2]].reshape(
+        2, 1, *video.shape[1:3]).astype(bool) for m in ref["video"]["masks"]]
+
+    def image_within(got, what):
+        worst = max(float(np.abs(a - b).max() / np.abs(b).max())
+                    for a, b in zip(got["low"], ref["image"]["low"]))
+        check(len(got["low"]) == 2 and worst <= PAR_LOGIT_TOL,
+              f"{what}: logits {worst:.2e} of their scale from one process")
+        return worst
+
+    dp2 = mesh_lib.make_mesh(2, 1, backend="gloo", device="cuda")
+    img = image_run(SAM2ImagePredictor(sam, mesh=dp2))
+    img_err = image_within(img, "image dp 2")
+    vid = video_run(SAM2VideoPredictor(sam, fill_hole_area=8, mesh=dp2))
+    agree = [float((a == b).mean()) for a, b in zip(vid["masks"], ref_masks)]
+    check(len(agree) == VIDEO_FRAMES and min(agree) >= PAR_MASK_AGREE,
+          f"video dp 2: mask agreement per frame {agree}")
+    # each rank encodes its image, and every tracked frame (frame 0's features
+    # are cached from init_state); its object's batch launches K2 8 a frame
+    tracked = VIDEO_FRAMES - 1
+    check(img["k1"] == ref["image"]["k1"] == 3
+          and vid["k1"] == ref["video"]["k1"] == 3 * tracked
+          and vid["k2"] == ref["video"]["k2"] == 8 * tracked,
+          f"rank {rank}: K1 {img['k1']} per image batch, video K1 {vid['k1']} K2 {vid['k2']}; "
+          f"one process {ref['image']['k1']}, {ref['video']['k1']}, {ref['video']['k2']}")
+    del sam
+    torch.cuda.empty_cache()
+    tp2 = mesh_lib.make_mesh(1, 2, backend="gloo", device="cuda")
+    img_tp = image_run(SAM2ImagePredictor(model(), mesh=tp2))
+    tp_err = image_within(img_tp, "image tp 2")
+    check(img_tp["k1"] == 3, f"rank {rank}: tp 2 image K1 {img_tp['k1']}")
+    log(f"(e) hiera-L fp32, rank {rank}: image dp 2 logits {img_err:.2e} of scale (limit "
+        f"{PAR_LOGIT_TOL}), K1 {img['k1']} for its image; video dp 2 mask agreement per frame "
+        f"min {min(agree):.6f} (limit {PAR_MASK_AGREE}), K1 {vid['k1']} K2 {vid['k2']} over "
+        f"{VIDEO_FRAMES} frames, propagation {vid['seconds']:.2f} s (one process "
+        f"{ref['video']['seconds']:.2f} s; two ranks on one card); image tp 2 {tp_err:.2e}, K1 "
+        f"{img_tp['k1']}")
+    return dict(image_dp2_err=img_err, image_tp2_err=tp_err, video_agree_min=min(agree),
+                launches={"image_dp2": {"K1": img["k1"]}, "video_dp2": {"K1": vid["k1"],
+                          "K2": vid["k2"]}, "image_tp2": {"K1": img_tp["k1"]}},
+                video_s=vid["seconds"], one_process_video_s=ref["video"]["seconds"])
+
+
+def parallel_rank(out):
+    """One rank of phase_parallel, started by it with torchrun's variables;
+    writes `out/rank<r>.json`, exits non-zero on any failure."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from sam2_opt_tpu_torch.kernels import flash_attention as fa
+    from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
+
+    try:
+        mesh_lib.init_distributed("gloo", "cuda")
+        rank = dist.get_rank()
+        counters = {"K1": fa.flash_attention, "K2": fa.flash_attention_rope,
+                    "K3a": fa.flash_attention_bwd_dkdv, "K3b": fa.flash_attention_bwd_dq}
+        result = {}
+        for name, fn in (("a", lambda: par_fp32_layouts(rank)),
+                         ("b", lambda: par_bf16_dp(rank, counters)),
+                         ("d", lambda: par_cli(rank, out)),
+                         ("e", lambda: par_inference(rank, counters))):
+            t0 = time.perf_counter()
+            result[name] = fn()
+            result[f"{name}_seconds"] = round(time.perf_counter() - t0, 1)
+            log(f"rank {rank}: ({name}) {result[name + '_seconds']} s")
+        with open(f"{out}/rank{rank}.json", "w") as f:
+            json.dump(result, f)
+        dist.barrier()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def par_nccl_world1():
+    """(c) NCCL at world size 1: the DP trainer on a dp 1 mesh over NCCL,
+    two bf16 steps of phase 10's batch, and an all-reduce on the card."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sam2_opt_tpu_torch.config import model_config
+    from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
+    from sam2_opt_tpu_torch.training.trainer import Trainer
+
+    mesh = mesh_lib.make_mesh(1, 1, backend="nccl", device="cuda")
+    try:
+        group = mesh.get_group("data")
+        check(dist.get_backend(group) == "nccl", "the NCCL group")
+        root = tempfile.mkdtemp(prefix="sam2_chip_smoke_nccl_")
+        trainer = Trainer(model_config("hiera_b+"), b_plus("cuda"),
+                          train_config("bfloat16", root), mesh=mesh)
+        trainer.run(lambda epoch: iter([training_video()] * 2), steps_per_epoch=2)
+        loss = torch.tensor([trainer.step_losses[0], 1.0], device="cuda")
+        dist.all_reduce(loss, group=group)
+        torch.cuda.synchronize()
+        check(np.isfinite(trainer.step_losses[0]) and loss[1].item() == 1.0,
+              "the NCCL all-reduce on the card")
+        result = dict(loss=trainer.step_losses[0],
+                      step_ms=[1e3 * x for x in trainer.step_seconds])
+        log(f"(c) NCCL world size 1: backend {dist.get_backend(group)}, two bf16 hiera-b+ steps, "
+            f"loss {result['loss']:.4f}, ms per step {[round(x, 1) for x in result['step_ms']]}, "
+            "all-reduce on the card")
+        del trainer
+        torch.cuda.empty_cache()
+        return result
+    finally:
+        dist.destroy_process_group()
+
+
+@phase
+def phase_parallel():
+    """Slice 13: data and tensor parallelism. Two rank processes share the
+    card over gloo and run (a), (b), (d) and (e) (`parallel_rank`); any rank
+    that fails fails the phase. Then (c), NCCL at world size 1, here."""
+    import importlib.util
+    import socket
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="sam2_chip_smoke_parallel_")
+    check(importlib.util.find_spec("PIL") is not None, "(d) needs Pillow for the PNG folder")
+    from PIL import Image
+
+    batch = training_video(T=2, S=256)
+    for v in range(2):
+        for t in range(2):
+            for sub, arr in (("JPEGImages", batch["images"][0, t]),
+                             ("Annotations", batch["masks"][0, t, v].astype(np.uint8))):
+                os.makedirs(f"{out}/{sub}/video{v}", exist_ok=True)
+                Image.fromarray(arr).save(f"{out}/{sub}/video{v}/{t:05d}.png")
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(PAR_RANKS):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(PAR_RANKS), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(PAR_RANKS), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), SAM2_DIST_INIT_TIMEOUT=str(PAR_TIMEOUT_S))
+        logf = open(f"{out}/rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.parallel_rank(sys.argv[1])",
+             out], cwd=here, env=env, stdout=logf, stderr=subprocess.STDOUT), logf))
+    t0, failed = time.perf_counter(), None
+    while any(p.poll() is None for p, _ in procs):
+        bad = [r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)]
+        late = time.perf_counter() - t0 > PAR_TIMEOUT_S
+        if bad or late:
+            failed = f"ranks {bad} failed" if bad else f"the ranks ran past {PAR_TIMEOUT_S} s"
+            for p, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+            break
+        time.sleep(1.0)
+    for p, logf in procs:
+        p.wait()
+        logf.close()
+    codes = [p.returncode for p, _ in procs]
+    for rank in range(PAR_RANKS):
+        with open(f"{out}/rank{rank}.log") as f:
+            for line in f.read().splitlines():
+                log(f"  [rank {rank}] {line}")
+    check(failed is None and codes == [0] * PAR_RANKS, f"phase parallel: {failed}, exit codes "
+          f"{codes}")
+    ranks = []
+    for rank in range(PAR_RANKS):
+        with open(f"{out}/rank{rank}.json") as f:
+            ranks.append(json.load(f))
+    log(f"phase parallel: the two ranks took {time.perf_counter() - t0:.1f} s")
+    nccl = par_nccl_world1()
+    return dict(ranks=ranks, nccl=nccl)
+
+
 def main(argv):
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -3627,6 +4137,9 @@ def main(argv):
     del int8_predictor
     torch.cuda.empty_cache()
 
+    # slice 13: data and tensor parallelism (two ranks on the card), last
+    parallel = phase_parallel()
+
     source = "sam2_opt_tpu_torch/csrc/flash_attention.cu"
     entries = [{
         "name": "flash_attention_fwd (K1)",
@@ -3661,6 +4174,13 @@ def main(argv):
     }]
     entries[0]["training_launches"] = train_launches["K1"]
     entries[1]["training_launches"] = train_launches["K2"]
+    # per rank and training step under bf16 DP (phase parallel (b)), and per
+    # rank in its hiera-L inference (e)
+    dp_runs = [r["b"]["runs"]["None"]["launches"] for r in parallel["ranks"]]
+    for entry, key in zip(entries, ("K1", "K2")):
+        entry["dp_inference_launches_per_rank"] = [
+            {run: counts[key] for run, counts in r["e"]["launches"].items() if key in counts}
+            for r in parallel["ranks"]]
     for entry, key in ((entries[0], "K1"), (entries[1], "K2")):
         entry["graph_replay_launches"] = {
             dt: {part: counts[key] for part, counts in by.items()}
@@ -3687,6 +4207,8 @@ def main(argv):
             "self": {"shape": list(K3_SELF), "bfloat16": k3[("self", torch.bfloat16)][part],
                      "fp32": k3[("self", torch.float32)][part]},
         })
+    for entry, key in zip(entries, ("K1", "K2", "K3a", "K3b")):
+        entry["dp_training_launches_per_rank_step"] = [run[key] // PAR_STEPS for run in dp_runs]
     # K5-K8: one kernel behind K5, K6 and K7; each row at the shape that
     # launches most on its main path, the other shapes beside it
     source = "sam2_opt_tpu_torch/csrc/window_attention.cu"
@@ -3784,7 +4306,7 @@ def main(argv):
                     "training": train_runs, "training_vs_cpu": train_cpu,
                     "training_cli_loss": cli_loss, "switches_default_launches": switch_launches,
                     "graphs": graphs, "serve": serve, "variants": variants,
-                    "phase_seconds": PHASE_SECONDS, "card": smi[0]}))
+                    "parallel": parallel, "phase_seconds": PHASE_SECONDS, "card": smi[0]}))
     log(json.dumps({"int8": int8, "card": smi[0]}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -48,6 +48,11 @@ def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
+def is_transposed_linear(key: str, ndim: int) -> bool:
+    """A linear weight: [in, out] in the JAX tree, [out, in] here."""
+    return ndim == 2 and key.endswith("weight") and not _is_match(key, _EMBED_WEIGHT_RES)
+
+
 def to_torch_layout(key: str, value: np.ndarray) -> np.ndarray:
     """Inverse of the JAX package's `convert_tensor` for one tensor."""
     v = np.asarray(value)
@@ -55,7 +60,7 @@ def to_torch_layout(key: str, value: np.ndarray) -> np.ndarray:
         return np.transpose(v, (0, 3, 1, 2))
     if v.ndim == 4 and key.endswith("weight"):
         return np.transpose(v, (3, 2, 0, 1))
-    if v.ndim == 2 and key.endswith("weight") and not _is_match(key, _EMBED_WEIGHT_RES):
+    if is_transposed_linear(key, v.ndim):
         return np.transpose(v)
     if key.endswith(".w_int8"):
         return np.transpose(v)

@@ -54,14 +54,40 @@ class SAM2Model:
         # after a "cuda" backend to run the same dtype eagerly, the yardstick
         # a graph is held against
         self._use_graphs = False
+        # set by shard(): the ("data", "model") mesh and {name: dim} of the
+        # parameters that are tensor-parallel shards
+        self.mesh = None
+        self.sharded = {}
+
+    def shard(self, mesh) -> "SAM2Model":
+        """Tensor-parallel placement (JAX `models/model.py:51-66`): each
+        linear the TP rule selects keeps this rank's rows of the "model"
+        axis (`parallel/tp.py`); the predictors split their batches over
+        "data". Beyond the reference, which runs inference on one GPU. Shard
+        before `speedup()`: the compute copies are made from the master."""
+        from sam2_opt_tpu_torch.parallel import tp as tp_lib
+
+        if self.mesh is not None:
+            if mesh is self.mesh:
+                return self
+            raise RuntimeError("the model is already sharded over another mesh")
+        if self._compute is not self.module:
+            raise RuntimeError("shard() before speedup(): the compute copy would keep whole "
+                               "weights")
+        self.mesh = mesh
+        self.sharded = tp_lib.shard_module(self.module, mesh)
+        self.graphs.clear()
+        return self
 
     def set_runtime_backend(self, backend: str = "eager", args: Optional[dict] = None):
         """'eager' = fp32 op by op on the master module; 'cuda' = the seams
         as CUDA graph replays (core/executor.py) in `args["dtype"]`:
         bfloat16 (the default, a compute copy; the fp32 master stays) or
-        float32 (the master itself; `quantize_int8` quantizes a copy). The
-        graphs are cleared on every change, as the JAX package clears
-        `_jit_fns`."""
+        float32 (the master itself; `quantize_int8` quantizes a copy);
+        `args["graphs"] = False` runs that dtype eagerly, as a model with
+        tensor-parallel shards must: a graph cannot capture their collectives
+        over gloo. The graphs are cleared on every change, as the JAX package
+        clears `_jit_fns`."""
         args = dict(args or {})
         if backend == "eager":
             self.backend, self.compute_dtype, self._compute = "eager", torch.float32, self.module
@@ -70,10 +96,15 @@ class SAM2Model:
             dtype = args.get("dtype", torch.bfloat16)
             if dtype not in (torch.bfloat16, torch.float32):
                 raise ValueError(f"unsupported dtype {dtype}: bfloat16 or float32")
+            graphs = args.get("graphs", True)
+            if graphs and self.sharded:
+                raise ValueError("a tensor-parallel model runs its seams eagerly: pass "
+                                 "args={'graphs': False} (CUDA graphs cannot capture the "
+                                 "collectives of its linears)")
             self.backend, self.compute_dtype = "cuda", dtype
             self._compute = (self.module if dtype == torch.float32
                              else copy.deepcopy(self.module).to(torch.bfloat16))
-            self._use_graphs = True
+            self._use_graphs = graphs
         else:
             raise ValueError(f"unsupported backend {backend!r}: 'eager' (fp32) or 'cuda'")
         self.graphs.clear()
@@ -129,6 +160,8 @@ class SAM2Model:
             quantize_module,
         )
 
+        if self.sharded:
+            raise ValueError("int8 quantizes whole linears; a tensor-parallel model holds shards")
         if scope not in ("encoder", "tracking"):
             # scope also selects the calibration routine, so a typo must not
             # calibrate the encoder alone

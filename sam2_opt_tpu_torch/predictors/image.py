@@ -6,6 +6,13 @@ prompts in original-image pixels, masks [M, H, W]. Preprocessing (resize to
 the model resolution, /255, ImageNet normalize) runs on the model's device.
 `speedup()` switches the model to its bf16 compute copy and runs the encoder
 and the prompt decoder as CUDA graph replays, one per input signature.
+
+With `mesh=` (`parallel/mesh.py`; beyond the reference, which runs on one
+GPU) the model keeps its tensor-parallel shards over "model"; a batch whose
+size divides by the "data" axis is split over it: each rank encodes its
+images and the features are all-gathered, and `predict_batch` decodes each
+rank's images and all-gathers the outputs, so every rank returns the whole
+batch's, as the JAX predictor returns its global arrays.
 """
 
 from __future__ import annotations
@@ -14,9 +21,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sam2_opt_tpu_torch.config import SAM2Config
 from sam2_opt_tpu_torch.models.model import SAM2Model
+from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
 from sam2_opt_tpu_torch.utils.transforms import postprocess_masks, resize_to_model
 
 
@@ -32,8 +41,12 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 class SAM2ImagePredictor:
     def __init__(self, sam_model: SAM2Model, mask_threshold: float = 0.0,
-                 max_hole_area: float = 0.0, max_sprinkle_area: float = 0.0) -> None:
+                 max_hole_area: float = 0.0, max_sprinkle_area: float = 0.0,
+                 mesh=None) -> None:
         self.model = sam_model
+        self.mesh = mesh
+        if mesh is not None:
+            sam_model.shard(mesh)
         self.mask_threshold = mask_threshold
         self.max_hole_area = max_hole_area
         self.max_sprinkle_area = max_sprinkle_area
@@ -41,6 +54,8 @@ class SAM2ImagePredictor:
         self._features = None
         self._orig_hw: Optional[List[Tuple[int, int]]] = None
         self._is_batch = False
+        # the batch rows this rank encoded (and decodes), when split over "data"
+        self._local_rows: Optional[List[int]] = None
 
     @property
     def cfg(self) -> SAM2Config:
@@ -100,7 +115,13 @@ class SAM2ImagePredictor:
                            for img in images])
         else:
             x = self._resize_to_model(np.stack(images).astype(np.uint8))
-        hrf0, hrf1, embed = self.model.encode_image_e2e(x)
+        dp = mesh_lib.axis_size(self.mesh, "data")
+        if dp > 1 and x.shape[0] % dp == 0:
+            self._local_rows = mesh_lib.process_local_batch_rows(self.mesh, x.shape[0])
+            feats = self.model.encode_image_e2e(mesh_lib.data_sharded(self.mesh, x))
+            hrf0, hrf1, embed = (mesh_lib.all_gather_rows(self.mesh, f) for f in feats)
+        else:
+            hrf0, hrf1, embed = self.model.encode_image_e2e(x)
         self._features = {"image_embed": embed, "high_res_feats": [hrf0, hrf1]}
         self._is_image_set = True
 
@@ -152,17 +173,22 @@ class SAM2ImagePredictor:
         """Batched-image prediction (reference sam2_image_predictor.py:325-385)."""
         if not self._is_batch:
             raise RuntimeError("use set_image_batch first")
-        all_masks, all_ious, all_low = [], [], []
-        for i in range(self._features["image_embed"].shape[0]):
+        rows = self._local_rows or range(self._features["image_embed"].shape[0])
+        outs = []
+        for i in rows:
             pick = lambda xs: None if xs is None else xs[i]  # noqa: E731
             mask_in, coords, labels, ubox = self._prep_prompts(
                 pick(point_coords_batch), pick(point_labels_batch), pick(box_batch),
                 pick(mask_input_batch), normalize_coords, img_idx=i)
             masks, ious, low = self._predict(coords, labels, ubox, mask_in, multimask_output,
                                              return_logits=return_logits, img_idx=i)
-            all_masks.append(_squeeze0(_numpy(masks)))
-            all_ious.append(_squeeze0(_numpy(ious)))
-            all_low.append(_squeeze0(_numpy(low)))
+            outs.append(tuple(_squeeze0(_numpy(t)) for t in (masks, ious, low)))
+        if self._local_rows is not None:
+            # every rank's images, in data order
+            gathered = [None] * mesh_lib.axis_size(self.mesh, "data")
+            dist.all_gather_object(gathered, outs, group=self.mesh.get_group("data"))
+            outs = [o for part in gathered for o in part]
+        all_masks, all_ious, all_low = (list(t) for t in zip(*outs))
         return all_masks, all_ious, all_low
 
     def _predict(self, point_coords, point_labels, boxes=None, mask_input=None,
@@ -212,3 +238,4 @@ class SAM2ImagePredictor:
         self._features = None
         self._orig_hw = None
         self._is_batch = False
+        self._local_rows = None

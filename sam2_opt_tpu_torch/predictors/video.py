@@ -16,6 +16,14 @@ which carry the object count, the memory and pointer capacities and whether
 prompts are present. Memory selection, consolidation, hole filling and the
 resize to video resolution stay on the host, outside the graphs.
 Outputs are torch tensors on the model's device, as in the reference.
+
+With `mesh=` (`parallel/mesh.py`; beyond the reference, which tracks on one
+GPU) the model keeps its tensor-parallel shards over "model", and a batched
+tracking step whose object count divides by the "data" axis is split over
+it: each rank runs memory attention, the heads and the memory encoder for
+its block of objects (JAX `predictors/video.py:53-80`), then the step's
+outputs, memory included, are all-gathered, so every rank holds the state
+and yields the masks one process would.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from sam2_opt_tpu_torch.models import sam2_base as base
 from sam2_opt_tpu_torch.models import video_core as vc
 from sam2_opt_tpu_torch.models.model import SAM2Model
 from sam2_opt_tpu_torch.ops.connected_components import fill_holes_in_mask_scores
+from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
 from sam2_opt_tpu_torch.utils.misc import concat_points
 
 NO_OBJ_SCORE = base.NO_OBJ_SCORE
@@ -63,8 +72,11 @@ class SAM2VideoPredictor:
 
     def __init__(self, sam_model: SAM2Model, fill_hole_area: int = 8,
                  non_overlap_masks: bool = False, clear_non_cond_mem_around_input: bool = False,
-                 add_all_frames_to_correct_as_cond: bool = False):
+                 add_all_frames_to_correct_as_cond: bool = False, mesh=None):
         self.model = sam_model
+        self.mesh = mesh
+        if mesh is not None:
+            sam_model.shard(mesh)
         self.fill_hole_area = fill_hole_area
         self.non_overlap_masks = non_overlap_masks
         self.clear_non_cond_mem_around_input = clear_non_cond_mem_around_input
@@ -573,11 +585,17 @@ class SAM2VideoPredictor:
         if len({(len(m.feats), len(m.ptrs)) for m in mems}) != 1:
             return None
         B = len(obj_idxs)
+        dp = mesh_lib.axis_size(self.mesh, "data")
+        split = dp > 1 and B % dp == 0
+        if split:  # this rank's block of objects
+            rows = mesh_lib.process_local_batch_rows(self.mesh, B)
+            mems = mems[rows[0]:rows[-1] + 1]
+        n = len(mems)
         multimask = self._use_multimask(False, None)
         keep = self.keep_multimasks and multimask
 
         def batch_step(feats, mem):
-            feats = tuple(f.expand(B, *f.shape[1:]) for f in feats)
+            feats = tuple(f.expand(n, *f.shape[1:]) for f in feats)
             return vc.track_step_conditioned(self.model._m, self.cfg, feats, mem,
                                              multimask_output=multimask, run_mem_encoder=True,
                                              keep_multimasks=keep)
@@ -585,9 +603,11 @@ class SAM2VideoPredictor:
         out = self.model.run(("track_batch", multimask, keep), batch_step,
                              (self._get_image_feature(inference_state, frame_idx),
                               vc.on_device(self._stack_memory(mems), self.device)))
-        pred_masks = self._fill_holes(out["pred_masks"])
+        out = {**out, "pred_masks": self._fill_holes(out["pred_masks"])}
+        if split:  # every rank's objects, in data order
+            out = {k: mesh_lib.all_gather_rows(self.mesh, v) for k, v in out.items()}
         return [self._compact_output({k: v[i:i + 1] for k, v in out.items()},
-                                     pred_masks[i:i + 1]) for i in range(B)]
+                                     out["pred_masks"][i:i + 1]) for i in range(B)]
 
     def _run_memory_encoder(self, inference_state, frame_idx, high_res_masks,
                             object_score_logits, is_mask_from_pts):

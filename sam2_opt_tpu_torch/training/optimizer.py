@@ -143,10 +143,14 @@ class ScheduledOptimizer:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state, params: Dict[str, torch.Tensor],
-               lr: float):
+               lr: float, grad_norm: Optional[torch.Tensor] = None):
+        """`grad_norm`: the global norm where the caller computes it (a rank
+        holding tensor-parallel shards sees a part of each sharded
+        gradient)."""
         grads = {n: grads[n] for n in params}
         if self.grad_clip_norm is not None:
-            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+            norm = (torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+                    if grad_norm is None else grad_norm)
             clip = norm >= self.grad_clip_norm
             grads = {n: torch.where(clip, g / norm * self.grad_clip_norm, g)
                      for n, g in grads.items()}

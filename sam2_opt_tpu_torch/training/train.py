@@ -1,19 +1,26 @@
 """Training launcher CLI (re-design of sam2/training/train.py); counterpart
-of `sam2_opt_tpu/training/train.py` on one device.
+of `sam2_opt_tpu/training/train.py`.
 
     python -m sam2_opt_tpu_torch.training.train \\
         --img_folder MOSE/JPEGImages --gt_folder MOSE/Annotations \\
         --variant hiera_b+ --checkpoint sam2.1_hiera_base_plus.pt \\
         --num-epochs 40 --num-frames 8
 
+    # data parallel over N cards, one process each (the reference's DDP)
+    torchrun --nproc_per_node N -m sam2_opt_tpu_torch.training.train --dp N ...
+
 Runs on the card unless `--device cpu`; without `--checkpoint` the weights
-are random, drawn from `--seed`.
+are random, drawn from `--seed`. Under torchrun every process builds the
+same model, loads only its rows of each global batch (`--batch-size` is the
+global size) and rank 0 logs and writes the checkpoints; `--backend gloo`
+puts several ranks on one card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import os
 
 
 def main(argv=None):
@@ -48,20 +55,33 @@ def main(argv=None):
                         help="rollout compute dtype; bfloat16 = mixed precision (fp32 master "
                              "weights, loss and optimizer)")
     parser.add_argument("--comms-dtype", default=None, choices=("bfloat16",),
-                        help="gradient-collective precision (needs a mesh: not ported yet)")
+                        help="gradient-collective precision (reference DDP comms hook, "
+                             "trainer.py:300-311): bfloat16 reduces the data-parallel "
+                             "gradients in bf16, then upcasts them for the fp32 optimizer; "
+                             "needs --compute-dtype bfloat16, --dp and --tp 1")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--dp", type=int, default=0,
-                        help="data-parallel mesh size (not ported yet: 0 only)")
+                        help="data-parallel mesh size (0 = no mesh, one process; -1 = every "
+                             "rank after --tp)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel mesh size (not ported yet: 1 only)")
+                        help="tensor-parallel mesh size (shards the big linears over the "
+                             "'model' axis)")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="process-group backend (default: nccl on cuda, gloo on cpu)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    for flag, value, default in (("--dp", args.dp, 0), ("--tp", args.tp, 1),
-                                 ("--comms-dtype", args.comms_dtype, None)):
-        if value != default:
-            raise NotImplementedError(f"{flag} is not ported yet: the port trains on one "
-                                      "device (ROADMAP.md, Queue A item 13)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.dp:
+        dp = args.dp if args.dp > 0 else world // args.tp
+        if dp * args.tp != world:
+            parser.error(f"--dp {args.dp} x --tp {args.tp} needs {dp * args.tp} processes, "
+                         f"the world has {world} (launch with torchrun --nproc_per_node)")
+        if args.batch_size % dp:
+            parser.error(f"--batch-size {args.batch_size} must be divisible by dp={dp}")
+    elif world > 1 or args.tp != 1:
+        parser.error("multi-process runs and --tp need a mesh: pass --dp (e.g. --dp -1) so "
+                     "the batch can be sharded across processes")
     if args.batch_size % max(args.grad_accum_steps, 1) != 0:
         parser.error(f"--batch-size {args.batch_size} must be divisible by "
                      f"--grad-accum-steps {args.grad_accum_steps}")
@@ -75,7 +95,12 @@ def main(argv=None):
         VOSDataset,
         data_loader,
     )
+    from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
     from sam2_opt_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    mesh = None
+    if args.dp:
+        mesh = mesh_lib.make_mesh(dp, args.tp, backend=args.backend, device=args.device)
 
     overrides = {}
     if args.image_size:
@@ -97,17 +122,23 @@ def main(argv=None):
         max_num_objects=args.max_objects, base_lr=args.lr, layer_decay=args.layer_decay,
         log_dir=args.log_dir, checkpoint_dir=args.checkpoint_dir,
         freeze_image_encoder=args.freeze_image_encoder, seed=args.seed, remat=args.remat,
-        grad_accum_steps=args.grad_accum_steps, compute_dtype=args.compute_dtype)
-    trainer = Trainer(cfg, model, tcfg)
+        grad_accum_steps=args.grad_accum_steps, compute_dtype=args.compute_dtype,
+        comms_dtype=args.comms_dtype)
+    trainer = Trainer(cfg, model, tcfg, mesh=mesh)
 
     raw = PNGRawDataset(args.img_folder, args.gt_folder)
     ds = VOSDataset(raw, RandomUniformSampler(num_frames=args.num_frames,
                                               max_num_objects=args.max_objects),
                     image_size=cfg.image_size, max_num_objects=args.max_objects, seed=args.seed)
 
+    # each process loads only its rows of every global batch (the
+    # reference's per-rank DistributedSampler)
+    batch_rows = (mesh_lib.process_local_batch_rows(mesh, args.batch_size)
+                  if mesh is not None else None)
+
     def train_loader(epoch):
         ds.set_epoch(epoch)
-        return data_loader(ds, args.batch_size, seed=args.seed + epoch)
+        return data_loader(ds, args.batch_size, seed=args.seed + epoch, batch_rows=batch_rows)
 
     val_loader = None
     if args.val_img_folder:
@@ -116,11 +147,16 @@ def main(argv=None):
                          hflip_prob=0.0)
 
         def val_loader(epoch):
-            return data_loader(vds, 1, shuffle=False, drop_last=False)
+            if mesh is None:
+                return data_loader(vds, 1, shuffle=False, drop_last=False)
+            # a video per data rank (a ragged last batch is dropped)
+            return data_loader(vds, dp, shuffle=False,
+                               batch_rows=mesh_lib.process_local_batch_rows(mesh, dp))
 
     steps_per_epoch = max(len(ds) // args.batch_size, 1)
-    print(f"training {args.variant} on {len(ds)} videos, {steps_per_epoch} steps/epoch, "
-          f"device {trainer.device}")
+    if trainer.rank0:
+        print(f"training {args.variant} on {len(ds)} videos, {steps_per_epoch} steps/epoch, "
+              f"device {trainer.device}, {world} process(es)")
     trainer.run(train_loader, val_loader, steps_per_epoch=steps_per_epoch)
     return trainer  # for callers in the same process and tests; the CLI ignores it
 

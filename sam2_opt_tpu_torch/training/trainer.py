@@ -1,6 +1,6 @@
 """Trainer: the training loop (re-design of sam2/training/trainer.py:141-1113).
 
-Counterpart of `sam2_opt_tpu/training/trainer.py` on one device: the step
+Counterpart of `sam2_opt_tpu/training/trainer.py`: the step
 (forward-tracking rollout over each video of the batch, loss, backward,
 optimizer update) as a plain function, with
 - remat "none" / "encoder" / "blocks" / "blocks_frames" through
@@ -11,10 +11,18 @@ optimizer update) as a plain function, with
   (`torch.func.functional_call`); loss math, gradients and the optimizer
   stay fp32;
 - a frozen image encoder (gradients and updates zeroed);
-- meters, TensorBoard logging where available, atomic checkpoints with
-  resume discovery, a hard stop on a non-finite loss, and a val loop.
-A mesh (data or tensor parallelism) and bf16 gradient collectives are not
-ported yet (ROADMAP, Queue A item 13).
+- a ("data", "model") mesh (`parallel/mesh.py`): each rank runs the step on
+  its rows of the global batch and the fp32 gradients are averaged over
+  "data" before the clip norm, so every rank applies the same update; the
+  linears of the TP rule are column-parallel over "model" (`parallel/tp.py`);
+  `comms_dtype="bfloat16"` rounds the gradients to bf16 for that all-reduce
+  (JAX `trainer.py:189-235`);
+- randomness per video: every video draws its clicks from a generator keyed
+  by the seed, the step and its global row, so a DP layout takes the step
+  one process takes over the same global batch;
+- meters, rank 0's TensorBoard logging where available, atomic checkpoints
+  (rank 0 writes, every rank restores) with resume discovery, a hard stop on
+  a non-finite loss, and a val loop.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from torch import nn
 
 from sam2_opt_tpu_torch.config import SAM2Config
 from sam2_opt_tpu_torch.models.sam2_base import SAM2Base
+from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
+from sam2_opt_tpu_torch.parallel import tp as tp_lib
 from sam2_opt_tpu_torch.training import sam2_train
 from sam2_opt_tpu_torch.training.checkpoints import CheckpointManager
 from sam2_opt_tpu_torch.training.meters import AverageMeter, MemMeter, ProgressMeter
@@ -76,13 +86,19 @@ class TrainConfig:
     # "bfloat16": mixed precision, fp32 master weights / loss / optimizer
     # (the reference MOSE recipe's `amp: bfloat16`)
     compute_dtype: str = "float32"
-    # bf16 gradient collectives: needs a mesh, not ported yet
+    # "bfloat16": the data-parallel gradient all-reduce in bf16 (the
+    # reference DDP comms hook, trainer.py:300-311); needs bf16 compute, a
+    # tp = 1 mesh and no accumulation
     comms_dtype: Optional[str] = None
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: the port trains on one device "
-                               "(ROADMAP.md, Queue A item 13)")
+def row_generators(seed: int, step: int, rows, device) -> list:
+    """One generator per video, keyed by the seed, the step and the video's
+    global row, so the draws do not depend on which rank runs the row (JAX
+    splits one key per global row, `trainer.py:159`)."""
+    return [torch.Generator(device=device).manual_seed(
+        int(np.random.SeedSequence([seed, step, row]).generate_state(1, np.uint64)[0] >> 1))
+        for row in rows]
 
 
 class _LossAndGrads(nn.Module):
@@ -104,16 +120,16 @@ def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=N
                      use_box: bool = False, use_mask: bool = False, n_init: int = 1,
                      correct_frames=()):
     """The training step, `step(model, opt_state, images, masks, obj_valid,
-    gen, lr) -> (opt_state, metrics)`: images [B, T, S, S, 3] float in [0, 1],
-    masks [B, T, N, S, S] bool, obj_valid [B, N] bool on the model's device,
-    `gen` a torch.Generator there; the model's parameters are updated in
-    place. Videos are looped and their losses averaged (the JAX step vmaps
-    them); `grad_accum_steps` runs strided micro-batches (rows a, a + A, ...)
-    before the one update."""
-    if mesh is not None:
-        raise _not_ported("a device mesh")
-    if tcfg.comms_dtype:
-        raise _not_ported("comms_dtype")
+    gens, lr) -> (opt_state, metrics)`: images [B, T, S, S, 3] float in
+    [0, 1], masks [B, T, N, S, S] bool, obj_valid [B, N] bool on the model's
+    device, this rank's rows of the global batch under a mesh; `gens` one
+    torch.Generator there per video (`row_generators`), or one shared by
+    every video; the model's parameters are updated in place. Videos are
+    looped and their losses averaged (the JAX step vmaps them);
+    `grad_accum_steps` runs strided micro-batches (rows a, a + A, ...)
+    before the one update. Under a mesh the loss, its parts and the
+    gradients are averaged over "data" before the update, and the clip norm
+    counts every TP shard once."""
     cfg = model_cfg
     remat_blocks = tcfg.remat in ("blocks", "blocks_frames")
     use_remat = tcfg.remat == "encoder"
@@ -121,12 +137,24 @@ def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=N
     accum = max(int(tcfg.grad_accum_steps), 1)
     compute_dtype = _DTYPES[tcfg.compute_dtype]
     frozen = tcfg.freeze_image_encoder
+    comms_dtype = _DTYPES[tcfg.comms_dtype] if tcfg.comms_dtype else None
+    if comms_dtype is not None:
+        # the JAX package's errors (trainer.py:144-149, 207-215)
+        if comms_dtype != compute_dtype:
+            raise ValueError(f"comms_dtype={tcfg.comms_dtype} requires compute_dtype to match "
+                             f"(got {tcfg.compute_dtype}): the gradient collectives inherit "
+                             "the dtype the loss is differentiated in")
+        if mesh is None or mesh_lib.axis_size(mesh, "model") != 1:
+            raise ValueError("comms_dtype requires a data-parallel mesh (tp=1): the bf16 "
+                             "gradient all-reduce runs over 'data' only")
+        if accum != 1:
+            raise ValueError("comms_dtype with grad_accum_steps>1 is not supported")
 
-    def batch_loss(model, images, masks, obj_valid, gen):
+    def batch_loss(model, images, masks, obj_valid, gens):
         losses, auxs = [], []
         for b in range(images.shape[0]):
             loss, aux = sam2_train.video_train_loss(
-                model, cfg, images[b], masks[b], gen, obj_valid=obj_valid[b],
+                model, cfg, images[b], masks[b], gens[b], obj_valid=obj_valid[b],
                 num_correction_clicks=tcfg.num_correction_clicks, use_box_input=use_box,
                 use_mask_input=use_mask, num_init_cond_frames=n_init,
                 frames_to_add_correction_pt=correct_frames, use_remat=use_remat,
@@ -136,11 +164,11 @@ def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=N
         n = len(losses)
         return sum(losses) / n, {k: sum(torch.as_tensor(a[k]) for a in auxs) / n for k in auxs[0]}
 
-    def grads_of(model, images, masks, obj_valid, gen):
+    def grads_of(model, images, masks, obj_valid, gens):
         names, masters = zip(*model.named_parameters())
         wrapper = _LossAndGrads(model)
         if compute_dtype == torch.float32:
-            loss, aux, grads = wrapper(batch_loss, masters, images, masks, obj_valid, gen)
+            loss, aux, grads = wrapper(batch_loss, masters, images, masks, obj_valid, gens)
         else:
             # bf16 copies of the masters (and of the floating buffers, as the
             # JAX package casts its whole tree); the casts are in the graph,
@@ -150,12 +178,35 @@ def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=N
                          if b.is_floating_point()})
             loss, aux, grads = torch.func.functional_call(
                 wrapper, cast, (batch_loss, masters, images.to(compute_dtype), masks, obj_valid,
-                                gen))
-        grads = {n: torch.zeros_like(p) if g is None else g.float()
+                                gens))
+        # comms_dtype: each rank's gradients are rounded to bf16 here,
+        # reduced so (all_reduce_grads) and upcast after, as the JAX
+        # package rounds its per-shard gradients before the pmean
+        keep = comms_dtype or torch.float32
+        grads = {n: torch.zeros_like(p, dtype=keep) if g is None else g.to(keep)
                  for n, p, g in zip(names, masters, grads)}
         return loss, aux, grads
 
-    def accum_grads(model, images, masks, obj_valid, gen):
+    def all_reduce_grads(model, loss, aux, grads):
+        """The mean over "data" of the loss, its parts and the gradients;
+        the gradients in `comms_dtype` where set (bucketed, `all_reduce_mean`),
+        then fp32 for the clip norm and the optimizer. Under TP the loss and
+        the replicated gradients are also averaged over "model"
+        (`tp.average_replicated`)."""
+        if mesh is None:
+            return loss, aux, {n: g.float() for n, g in grads.items()}
+        keys = list(aux)
+        scalars = torch.stack([torch.as_tensor(loss, dtype=torch.float32)]
+                              + [torch.as_tensor(aux[k], dtype=torch.float32) for k in keys])
+        names = list(grads)
+        reduced = mesh_lib.all_reduce_mean(mesh, [scalars] + [grads[n] for n in names])
+        scalars = mesh_lib.all_reduce_mean(mesh, reduced[:1], axis="model")[0]
+        grads = tp_lib.average_replicated(
+            mesh, {n: g.float() for n, g in zip(names, reduced[1:])},
+            tp_lib.sharded_params(model))
+        return scalars[0], dict(zip(keys, scalars[1:])), grads
+
+    def accum_grads(model, images, masks, obj_valid, gens):
         B = images.shape[0]
         if B % accum:
             raise ValueError(f"batch size {B} is not divisible by grad_accum_steps {accum}; "
@@ -163,7 +214,8 @@ def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=N
         total = None
         for a in range(accum):
             # micro-batch a = rows a, a + accum, ... (the JAX package's strided split)
-            out = grads_of(model, images[a::accum], masks[a::accum], obj_valid[a::accum], gen)
+            out = grads_of(model, images[a::accum], masks[a::accum], obj_valid[a::accum],
+                           gens[a::accum])
             if total is None:
                 total = out
             else:
@@ -175,16 +227,21 @@ def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=N
         return (total[0] * inv, {k: v * inv for k, v in total[1].items()},
                 {n: g * inv for n, g in total[2].items()})
 
-    def step(model: SAM2Base, opt_state, images, masks, obj_valid, gen, lr: float):
+    def step(model: SAM2Base, opt_state, images, masks, obj_valid, gens, lr: float):
         model.image_encoder.trunk.remat_blocks = remat_blocks
-        loss, aux, grads = accum_grads(model, images, masks, obj_valid, gen)
+        if isinstance(gens, torch.Generator):
+            gens = [gens] * images.shape[0]
+        loss, aux, grads = all_reduce_grads(model, *accum_grads(model, images, masks, obj_valid,
+                                                                gens))
         params = dict(model.named_parameters())
         if frozen:
             # zero the frozen encoder's gradients so they neither enter the
             # clip norm nor move the moments ...
             grads = {n: torch.zeros_like(g) if n.startswith("image_encoder") else g
                      for n, g in grads.items()}
-        updates, opt_state = optimizer.update(grads, opt_state, params, lr)
+        sharded = tp_lib.sharded_params(model)
+        norm = {"grad_norm": tp_lib.global_grad_norm(grads, sharded, mesh)} if sharded else {}
+        updates, opt_state = optimizer.update(grads, opt_state, params, lr, **norm)
         with torch.no_grad():
             for n, p in params.items():
                 # ... and skip their updates: weight decay would otherwise
@@ -222,17 +279,29 @@ class TensorBoardLogger:
 
 
 class Trainer:
-    """Single-device trainer over a `SAM2Base` whose parameters are the fp32
-    masters; the device is the model's."""
+    """The trainer over a `SAM2Base` whose parameters are the fp32 masters;
+    the device is the model's. With a mesh, every rank builds the same model
+    and calls `run` with the same loader: rank 0's parameters are broadcast,
+    the TP rule shards the model, each rank trains on its rows of each
+    global batch (a loader built with `batch_rows` yields just those, tagged
+    with `global_batch_size`; an untagged batch is the global one), rank 0
+    logs and writes the checkpoints, and every rank restores them."""
 
     def __init__(self, model_cfg: SAM2Config, model: SAM2Base, train_cfg: TrainConfig,
                  mesh=None):
-        if mesh is not None:
-            raise _not_ported("a device mesh")
         self.cfg = model_cfg
         self.tcfg = train_cfg
         self.model = model
+        self.mesh = mesh
         self.device = next(model.parameters()).device
+        self.sharded = {}
+        if mesh is not None:
+            # every rank starts from rank 0's weights (DDP broadcasts them),
+            # then keeps its TP shards
+            with torch.no_grad():
+                for p in model.parameters():
+                    mesh_lib.replicated(mesh, p.data)
+            self.sharded = tp_lib.shard_module(model, mesh)
         self.optimizer = build_optimizer(
             dict(model.named_parameters()), base_lr=train_cfg.base_lr,
             weight_decay=train_cfg.weight_decay, grad_clip_norm=train_cfg.grad_clip_norm,
@@ -241,26 +310,42 @@ class Trainer:
         self.steps = 0
         self.epoch = 0
         self.best_val_loss = float("inf")
-        self.step_losses: list = []
+        self.step_losses: list = []  # global-batch mean losses
         self.step_seconds: list = []  # host wall time of each step, ending in a sync
+        self.rank0 = mesh_lib.is_rank0()
         self.ckpt = CheckpointManager(train_cfg.checkpoint_dir)
-        self.tb = TensorBoardLogger(train_cfg.log_dir)
+        self.tb = TensorBoardLogger(train_cfg.log_dir, enabled=self.rank0)
         self._step_fns = {}
-        self._gen = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
         self._pyrng = random.Random(train_cfg.seed)
 
+    def row_generators(self, rows, step: Optional[int] = None):
+        """The per-video generators of global rows `rows` at `step` (this
+        step when None)."""
+        return row_generators(self.tcfg.seed, self.steps if step is None else step, rows,
+                              self.device)
+
     def save_checkpoint(self):
-        self.ckpt.save(self.steps, {
-            "params": self.model.state_dict(), "opt_state": self.opt_state,
-            "steps": self.steps, "epoch": self.epoch, "best_val_loss": self.best_val_loss})
+        """Every rank gathers the TP shards into whole tensors; rank 0 writes;
+        all wait for the file (JAX `trainer.py:445-461`)."""
+        state = mesh_lib.fetch_global(
+            {"params": self.model.state_dict(), "opt_state": self.opt_state},
+            self.mesh, self.sharded)
+        if self.rank0:
+            self.ckpt.save(self.steps, {**state, "steps": self.steps, "epoch": self.epoch,
+                                        "best_val_loss": self.best_val_loss})
+        mesh_lib.barrier()
 
     def load_checkpoint(self) -> bool:
-        """Resume auto-discovery; True when resumed."""
-        restored = self.ckpt.restore(map_location=self.device)
+        """Resume auto-discovery on every rank, each keeping its TP shards of
+        the whole tensors; True when resumed."""
+        restored = self.ckpt.restore(map_location="cpu")
         if restored is None:
             return False
-        self.model.load_state_dict(restored["params"], strict=True)
-        self.opt_state = restored["opt_state"]
+        params = mesh_lib.place_like(self.model.state_dict(), restored["params"], self.mesh,
+                                     self.sharded)
+        self.model.load_state_dict(params, strict=True)
+        self.opt_state = mesh_lib.place_like(self.opt_state, restored["opt_state"], self.mesh,
+                                             self.sharded)
         self.steps = int(restored["steps"])
         self.epoch = int(restored["epoch"])
         self.best_val_loss = float(restored["best_val_loss"])
@@ -268,11 +353,21 @@ class Trainer:
         return True
 
     def _place_batch(self, batch, N):
-        images = torch.as_tensor(np.asarray(batch["images"]), device=self.device).float() / 255.0
-        masks = torch.as_tensor(np.asarray(batch["masks"]), device=self.device)
+        """(images, masks, obj_valid, global rows) of this rank on its device."""
+        n = np.asarray(batch["images"]).shape[0]
+        gbs = int(batch.get("global_batch_size", 0))
+        rows = mesh_lib.process_local_batch_rows(self.mesh, gbs or n)
+        if gbs and len(rows) != n:
+            raise ValueError(f"the loader gave {n} rows of the global {gbs}; this rank owns "
+                             f"{len(rows)}: build it with batch_rows=process_local_batch_rows"
+                             "(mesh, global_batch_size)")
+        take = slice(None) if gbs else slice(rows[0], rows[-1] + 1)
+        images = torch.as_tensor(np.asarray(batch["images"])[take],
+                                 device=self.device).float() / 255.0
+        masks = torch.as_tensor(np.asarray(batch["masks"])[take], device=self.device)
         obj_valid = torch.as_tensor(np.asarray(
-            batch.get("obj_valid", np.ones((images.shape[0], N), bool))), device=self.device)
-        return images, masks, obj_valid
+            batch.get("obj_valid", np.ones((n, N), bool)))[take], device=self.device)
+        return images, masks, obj_valid, rows
 
     def run(self, train_loader_fn, val_loader_fn=None, steps_per_epoch: Optional[int] = None):
         """train_loader_fn(epoch) -> iterator of collated batches.
@@ -296,7 +391,8 @@ class Trainer:
     def _sample_prompt_kind(self, T: int):
         """Per-step initial-prompt form and correction frames (reference
         prepare_prompt_inputs, model/sam2.py:146-267): a fresh subset of
-        tracked frames each step, as the reference draws it."""
+        tracked frames each step, as the reference draws it; every rank draws
+        the same, from the shared seed."""
         use_mask = self._pyrng.random() >= self.tcfg.prob_to_use_pt_input
         use_box = (not use_mask) and self._pyrng.random() < self.tcfg.prob_to_use_box_input
         n_init = self._pyrng.randint(1, max(self.tcfg.max_init_cond_frames, 1))
@@ -318,7 +414,7 @@ class Trainer:
         for batch in loader:
             data_time.update(time.time() - t_data)
             T, N = batch["images"].shape[1], batch["masks"].shape[2]
-            images, masks, obj_valid = self._place_batch(batch, N)
+            images, masks, obj_valid, rows = self._place_batch(batch, N)
             # the schedule's position; with the length unknown, assume an
             # epoch 10x longer than seen so far (at least 1000 steps)
             denom = total_steps or self.tcfg.num_epochs * max(10 * (self.steps + 1), 1000)
@@ -329,11 +425,11 @@ class Trainer:
             if step_fn is None:
                 use_box, use_mask, n_init, correct_frames = skey
                 step_fn = self._step_fns[skey] = build_train_step(
-                    self.cfg, self.tcfg, self.optimizer, use_box=use_box, use_mask=use_mask,
-                    n_init=n_init, correct_frames=correct_frames)
+                    self.cfg, self.tcfg, self.optimizer, self.mesh, use_box=use_box,
+                    use_mask=use_mask, n_init=n_init, correct_frames=correct_frames)
             t0 = time.time()
             self.opt_state, metrics = step_fn(self.model, self.opt_state, images, masks,
-                                              obj_valid, self._gen, lr)
+                                              obj_valid, self.row_generators(rows), lr)
             loss = float(metrics["loss"])  # synchronizes with the device
             self.step_seconds.append(time.time() - t0)
             step_time.update(self.step_seconds[-1])
@@ -346,7 +442,8 @@ class Trainer:
             if self.steps % self.tcfg.log_scalar_frequency == 0:
                 self.tb.log("train/loss", loss, self.steps)
                 self.tb.log("train/lr", lr, self.steps)
-                progress.display(self.steps)
+                if self.rank0:
+                    progress.display(self.steps)
             self.steps += 1
             t_data = time.time()
         return loss_meter.avg
@@ -354,14 +451,17 @@ class Trainer:
     @torch.no_grad()
     def val_epoch(self, loader):
         """Forward-only validation loss (reference val_epoch :583-650): point
-        prompt, no correction clicks, fp32."""
+        prompt, no correction clicks, fp32; each rank its rows, the mean
+        over "data"."""
         loss_meter = AverageMeter("val_loss", fmt=":.4f")
-        for batch in loader:
-            images, masks, obj_valid = self._place_batch(batch, batch["masks"].shape[2])
+        for i, batch in enumerate(loader):
+            images, masks, obj_valid, rows = self._place_batch(batch, batch["masks"].shape[2])
+            gens = self.row_generators(rows, step=-1 - i)
             losses = [sam2_train.video_train_loss(
-                self.model, self.cfg, images[b], masks[b], self._gen, obj_valid=obj_valid[b],
+                self.model, self.cfg, images[b], masks[b], gens[b], obj_valid=obj_valid[b],
                 num_correction_clicks=0)[0] for b in range(images.shape[0])]
-            loss_meter.update(float(sum(losses) / len(losses)), n=images.shape[0])
+            loss = mesh_lib.all_reduce_mean(self.mesh, [sum(losses) / len(losses)])[0]
+            loss_meter.update(float(loss), n=len(rows) * mesh_lib.axis_size(self.mesh, "data"))
         self.tb.log("val/loss", loss_meter.avg, self.steps)
         self.best_val_loss = min(self.best_val_loss, loss_meter.avg)
         return loss_meter.avg

@@ -11,7 +11,8 @@ the counterpart of `tests/test_training.py`'s trainer tests:
   recomputed frame must draw the same clicks): loss 1e-5, parameters as
   above;
 - a frozen image encoder does not move while the rest does;
-- a mesh, `comms_dtype` and `--dp` raise.
+- `comms_dtype` without bf16 compute or a mesh, and a `--dp` or `--tp` the
+  processes cannot hold, raise (the meshes: `tests/test_torch_parallel.py`).
 """
 
 import numpy as np
@@ -152,13 +153,16 @@ def test_training_after_inference_mode(cfg):
 
 
 def test_parallel_options_raise(cfg, tmp_path):
+    """The JAX package's errors (`tests/test_training.py`): comms_dtype needs
+    bf16 compute and a data-parallel mesh; --dp must match the processes."""
     from sam2_opt_tpu_torch.training.train import main
 
     opt = build_optimizer(dict(model(cfg).named_parameters()), trunk_depth=cfg.trunk.depth)
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
+    with pytest.raises(ValueError, match="comms_dtype"):
         build_train_step(cfg, TrainConfig(comms_dtype="bfloat16"), opt)
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        build_train_step(cfg, TrainConfig(), opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        main(["--img_folder", str(tmp_path), "--gt_folder", str(tmp_path), "--dp", "2",
-              "--device", "cpu"])
+    with pytest.raises(ValueError, match="data-parallel mesh"):
+        build_train_step(cfg, TrainConfig(compute_dtype="bfloat16", comms_dtype="bfloat16"), opt)
+    for flags in (["--dp", "2"], ["--tp", "2"]):
+        with pytest.raises(SystemExit):
+            main(["--img_folder", str(tmp_path), "--gt_folder", str(tmp_path), *flags,
+                  "--device", "cpu"])
