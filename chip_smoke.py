@@ -196,7 +196,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    process), the video predictor at dp 2 with 2 objects over the 8-frame
    video (masks agreeing >= 0.999 per frame), K1 and K2 per rank equal to
    one process's; then, in this process, (c) NCCL at world size 1: the DP
-   trainer's bf16 steps on a dp 1 mesh and an all-reduce on the card.
+   trainer's bf16 steps on a dp 1 mesh, its gradient all-reduce counted
+   over the NCCL group (at least the parameter count a step, each bucket
+   unchanged by the sum over one rank).
 Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-24; each
 phase that sets a switch restores it and logs its wall seconds, which the
 summary line before the kernels line gathers under "phase_seconds". Since slice 6, K8 (phases 12-14) is a
@@ -3561,7 +3563,7 @@ def par_step(mesh, cfg, batch, rows, dtype, comms=None):
     sharded = tp_lib.shard_module(model, mesh) if mesh is not None else {}
     tcfg = dataclasses.replace(train_config(dtype, "/nonexistent"), comms_dtype=comms)
     opt = CaptureOptimizer()
-    step = build_train_step(cfg, tcfg, opt, mesh)
+    step = build_train_step(cfg, tcfg, opt, mesh, sharded=sharded)
     take = slice(rows[0], rows[-1] + 1)
     images = torch.as_tensor(batch["images"][take], device="cuda").float() / 255.0
     masks = torch.as_tensor(batch["masks"][take], device="cuda")
@@ -3903,8 +3905,11 @@ def parallel_rank(out):
 
 
 def par_nccl_world1():
-    """(c) NCCL at world size 1: the DP trainer on a dp 1 mesh over NCCL,
-    two bf16 steps of phase 10's batch, and an all-reduce on the card."""
+    """(c) NCCL at world size 1: the DP trainer on a dp 1 mesh over NCCL, two
+    bf16 steps of phase 10's batch. A mesh's axis of one rank still runs its
+    all-reduce, so the trainer's bucketed gradient all-reduce passes the
+    NCCL group: each step must reduce at least the model's parameter count,
+    and a sum over one rank must leave every bucket as it was."""
     import tempfile
 
     import torch.distributed as dist
@@ -3914,27 +3919,45 @@ def par_nccl_world1():
     from sam2_opt_tpu_torch.training.trainer import Trainer
 
     mesh = mesh_lib.make_mesh(1, 1, backend="nccl", device="cuda")
+    real = dist.all_reduce
     try:
         group = mesh.get_group("data")
         check(dist.get_backend(group) == "nccl", "the NCCL group")
         root = tempfile.mkdtemp(prefix="sam2_chip_smoke_nccl_")
         trainer = Trainer(model_config("hiera_b+"), b_plus("cuda"),
                           train_config("bfloat16", root), mesh=mesh)
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        calls = []
+
+        def counted(tensor, *args, group=None, **kwargs):
+            before = tensor.clone()
+            work = real(tensor, *args, group=group, **kwargs)
+            calls.append((dist.get_backend(group), tensor.numel(), torch.equal(before, tensor)))
+            return work
+
+        dist.all_reduce = counted
         trainer.run(lambda epoch: iter([training_video()] * 2), steps_per_epoch=2)
-        loss = torch.tensor([trainer.step_losses[0], 1.0], device="cuda")
-        dist.all_reduce(loss, group=group)
         torch.cuda.synchronize()
-        check(np.isfinite(trainer.step_losses[0]) and loss[1].item() == 1.0,
-              "the NCCL all-reduce on the card")
-        result = dict(loss=trainer.step_losses[0],
-                      step_ms=[1e3 * x for x in trainer.step_seconds])
-        log(f"(c) NCCL world size 1: backend {dist.get_backend(group)}, two bf16 hiera-b+ steps, "
-            f"loss {result['loss']:.4f}, ms per step {[round(x, 1) for x in result['step_ms']]}, "
-            "all-reduce on the card")
+        dist.all_reduce = real
+        elems = sum(n for _, n, _ in calls)
+        check(np.isfinite(trainer.step_losses).all(), "the NCCL trainer's losses")
+        check(calls and {b for b, _, _ in calls} == {"nccl"} and elems >= 2 * n_params
+              and all(same for _, _, same in calls),
+              f"the trainer's gradient all-reduce over NCCL: {len(calls)} all-reduces of "
+              f"{elems} elements for 2 steps of {n_params} parameters, unchanged "
+              f"{sum(same for _, _, same in calls)}")
+        result = dict(loss=trainer.step_losses[0], step_ms=[1e3 * x for x in trainer.step_seconds],
+                      all_reduces=len(calls), elements=elems, parameters=n_params)
+        log(f"(c) NCCL world size 1: two bf16 hiera-b+ steps of Trainer.run, loss "
+            f"{result['loss']:.4f}, ms per step {[round(x, 1) for x in result['step_ms']]}; "
+            f"the trainer's all-reduces over NCCL: {len(calls)} of {elems} elements in all "
+            f"({n_params} parameters a step, and the step's scalars), each bucket unchanged "
+            "by the sum over one rank")
         del trainer
         torch.cuda.empty_cache()
         return result
     finally:
+        dist.all_reduce = real
         dist.destroy_process_group()
 
 

@@ -32,7 +32,6 @@ from sam2_opt_tpu_torch.kernels.fused_mlp import fused_mlp
 from sam2_opt_tpu_torch.kernels.window_attention import packed_window_attention, window_flash_3d
 from sam2_opt_tpu_torch.ops import common as ops
 from sam2_opt_tpu_torch.ops import posenc
-from sam2_opt_tpu_torch.parallel.tp import full_weight_and_bias
 
 
 def _packed_window_max_tokens() -> int:
@@ -162,14 +161,16 @@ class MultiScaleBlock(nn.Module):
     def _mlp(self, xn):
         """The block MLP; in bf16 under `SAM2_TPU_FUSED_MLP=1` the fused
         kernel (K8), where both layers hold a raw weight (`hiera.py:267-283`).
-        A tensor-parallel layer gives K8 its whole weight, gathered over
-        "model": every rank then runs the whole MLP, the JAX math."""
+        K8 takes whole weights: a tensor-parallel layer, which holds fewer
+        rows than its out features, raises."""
         l1, l2 = self.mlp.layers
         if (xn.dtype == torch.bfloat16 and _use_fused_mlp()
                 and isinstance(getattr(l1, "weight", None), torch.Tensor)
                 and isinstance(getattr(l2, "weight", None), torch.Tensor)):
-            return fused_mlp(xn, *full_weight_and_bias(l1), *full_weight_and_bias(l2),
-                             fast_act=True)
+            if any(lin.weight.shape[0] != lin.out_features for lin in (l1, l2)):
+                raise ValueError("SAM2_TPU_FUSED_MLP=1 needs whole MLP weights and this block's "
+                                 "MLP holds tensor-parallel shards: unset it on a sharded model")
+            return fused_mlp(xn, l1.weight, l1.bias, l2.weight, l2.bias, fast_act=True)
         return self.mlp(xn)
 
 

@@ -64,7 +64,8 @@ class SAM2Model:
         linear the TP rule selects keeps this rank's rows of the "model"
         axis (`parallel/tp.py`); the predictors split their batches over
         "data". Beyond the reference, which runs inference on one GPU. Shard
-        before `speedup()`: the compute copies are made from the master."""
+        before `speedup()`: the compute copies are made from the master. A
+        sharded model runs its seams eagerly (no CUDA graphs)."""
         from sam2_opt_tpu_torch.parallel import tp as tp_lib
 
         if self.mesh is not None:
@@ -76,6 +77,9 @@ class SAM2Model:
                                "weights")
         self.mesh = mesh
         self.sharded = tp_lib.shard_module(self.module, mesh)
+        # a float32 "cuda" backend computes on the master: its seams now run
+        # eagerly (set_runtime_backend)
+        self._use_graphs = self._use_graphs and not self.sharded
         self.graphs.clear()
         return self
 
@@ -83,11 +87,10 @@ class SAM2Model:
         """'eager' = fp32 op by op on the master module; 'cuda' = the seams
         as CUDA graph replays (core/executor.py) in `args["dtype"]`:
         bfloat16 (the default, a compute copy; the fp32 master stays) or
-        float32 (the master itself; `quantize_int8` quantizes a copy);
-        `args["graphs"] = False` runs that dtype eagerly, as a model with
-        tensor-parallel shards must: a graph cannot capture their collectives
-        over gloo. The graphs are cleared on every change, as the JAX package
-        clears `_jit_fns`."""
+        float32 (the master itself; `quantize_int8` quantizes a copy). A
+        model with tensor-parallel shards runs that dtype eagerly: a graph
+        cannot capture the collectives of its linears over gloo. The graphs
+        are cleared on every change, as the JAX package clears `_jit_fns`."""
         args = dict(args or {})
         if backend == "eager":
             self.backend, self.compute_dtype, self._compute = "eager", torch.float32, self.module
@@ -96,15 +99,10 @@ class SAM2Model:
             dtype = args.get("dtype", torch.bfloat16)
             if dtype not in (torch.bfloat16, torch.float32):
                 raise ValueError(f"unsupported dtype {dtype}: bfloat16 or float32")
-            graphs = args.get("graphs", True)
-            if graphs and self.sharded:
-                raise ValueError("a tensor-parallel model runs its seams eagerly: pass "
-                                 "args={'graphs': False} (CUDA graphs cannot capture the "
-                                 "collectives of its linears)")
             self.backend, self.compute_dtype = "cuda", dtype
             self._compute = (self.module if dtype == torch.float32
                              else copy.deepcopy(self.module).to(torch.bfloat16))
-            self._use_graphs = graphs
+            self._use_graphs = not self.sharded
         else:
             raise ValueError(f"unsupported backend {backend!r}: 'eager' (fp32) or 'cuda'")
         self.graphs.clear()

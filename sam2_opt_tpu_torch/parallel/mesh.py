@@ -248,10 +248,12 @@ def all_reduce_mean(mesh: Optional[DeviceMesh], tensors: Sequence[torch.Tensor],
     (their own when None), each bucket summed by one all-reduce and divided
     by the axis size in that dtype, then unpacked in the tensors' dtypes:
     with `dtype=torch.bfloat16` the reduction itself runs in bf16, as the
-    JAX package's pmean of bf16 gradients does."""
-    n = axis_size(mesh, axis)
-    if n == 1:
+    JAX package's pmean of bf16 gradients does. Without a mesh the tensors
+    come back as they are; an axis of one rank still runs its all-reduce
+    (at dp 1 the trainer's gradients pass the NCCL group as DDP's do)."""
+    if mesh is None:
         return list(tensors)
+    n = axis_size(mesh, axis)
     group = mesh.get_group(axis)
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     i = 0

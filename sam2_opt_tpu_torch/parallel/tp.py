@@ -19,7 +19,12 @@ Every other parameter is replicated. Every rank of a "model" group computes
 its gradient from the same activations, but kernels with atomics (the
 convolutions' weight gradients on the card) may round it differently from
 rank to rank, so the step averages it over "model" (`average_replicated`)
-and every rank applies one update to one copy.
+and every rank applies one update to one copy. `reduce_step` holds the
+collectives of a training step under a mesh, for both training steps.
+
+A sharded model refuses the fused block MLP (K8, `SAM2_TPU_FUSED_MLP=1`):
+K8 takes whole weights, and a block whose MLP holds shards raises
+(`models/hiera.py`) instead of gathering them on every call.
 """
 
 from __future__ import annotations
@@ -103,16 +108,6 @@ class ColumnParallelLinear(nn.Module):
                 f"shard={self.mg.rank}/{self.mg.size}")
 
 
-def full_weight_and_bias(linear: nn.Module):
-    """(weight, bias) of a linear, whole whether or not it is sharded: a
-    shard is gathered (differentiably) over "model", for a caller that
-    computes the whole product on every rank (K8)."""
-    if not isinstance(linear, ColumnParallelLinear):
-        return linear.weight, linear.bias
-    return tuple(None if t is None else _GatherFromModel.apply(t, linear.mg, 0)
-                 for t in (linear.weight, linear.bias))
-
-
 def shard_module(module: nn.Module, mesh) -> Dict[str, int]:
     """Replace, in place, each `nn.Linear` the TP rule selects by a
     `ColumnParallelLinear` (nothing at tp = 1). Returns {parameter name:
@@ -143,13 +138,6 @@ def shard_module(module: nn.Module, mesh) -> Dict[str, int]:
     return sharded
 
 
-def sharded_params(module: nn.Module) -> Dict[str, int]:
-    """{name: dim} of a module's parameters that are TP shards."""
-    return {f"{name}.{p}": 0 for name, sub in module.named_modules()
-            if isinstance(sub, ColumnParallelLinear) for p in ("weight", "bias")
-            if getattr(sub, p) is not None}
-
-
 def global_grad_norm(grads: Dict[str, torch.Tensor], sharded: Dict[str, int], mesh):
     """The whole model's gradient norm on a rank holding TP shards: the
     replicated gradients' squares plus the shards' squares summed over
@@ -159,6 +147,24 @@ def global_grad_norm(grads: Dict[str, torch.Tensor], sharded: Dict[str, int], me
     part = torch.as_tensor(part, dtype=torch.float32, device=next(iter(grads.values())).device)
     dist.all_reduce(part, group=mesh.get_group("model"))
     return torch.sqrt(square([n for n in grads if n not in sharded]) + part)
+
+
+def reduce_step(mesh, scalars: torch.Tensor, grads: Dict[str, torch.Tensor],
+                sharded: Dict[str, int]):
+    """The collectives of a training step on this rank's rows: the mean over
+    "data" of the step's scalars (the loss and its parts, fp32) and of its
+    gradients (bucketed in their own dtype, bf16 under `comms_dtype`), the
+    scalars and the replicated gradients also over "model"; `sharded` is
+    `shard_module`'s return. Returns (scalars, fp32 gradients, the keyword
+    arguments of the optimizer's update: the global norm where this rank
+    holds shards). Without a mesh: the gradients in fp32, no collective."""
+    names = list(grads)
+    reduced = mesh_lib.all_reduce_mean(mesh, [scalars] + [grads[n] for n in names])
+    scalars = mesh_lib.all_reduce_mean(mesh, reduced[:1], axis="model")[0]
+    grads = average_replicated(mesh, {n: g.float() for n, g in zip(names, reduced[1:])},
+                               sharded)
+    norm = {"grad_norm": global_grad_norm(grads, sharded, mesh)} if sharded else {}
+    return scalars, grads, norm
 
 
 def average_replicated(mesh, grads: Dict[str, torch.Tensor], sharded: Dict[str, int]):

@@ -428,18 +428,24 @@ def data_loader(dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
     (loads + augments) ONLY the rows of each global batch listed in
     `batch_rows` (from `parallel.mesh.process_local_batch_rows`), yielding
     local batches of len(batch_rows) rows tagged with the global size.
-    Requires drop_last (a ragged final global batch would shard unevenly).
+    Without drop_last a ragged final global batch is padded with copies of
+    its last video, so it shards evenly; every batch then carries
+    `row_valid` [len(batch_rows)] bool, False on the padding.
     """
     order = list(range(len(dataset)))
     if shuffle:
         random.Random(seed).shuffle(order)
     if batch_rows is not None:
-        assert drop_last, "batch_rows (multi-process sharding) needs drop_last"
         rows = list(batch_rows)
-        for start in range(0, len(order) - batch_size + 1, batch_size):
+        end = len(order) - (batch_size - 1 if drop_last else 0)
+        for start in range(0, end, batch_size):
             chunk = order[start : start + batch_size]
+            valid = np.array([r < len(chunk) for r in rows])
+            chunk = chunk + chunk[-1:] * (batch_size - len(chunk))
             out = collate_videos([dataset[chunk[r]] for r in rows])
             out["global_batch_size"] = batch_size
+            if not drop_last:
+                out["row_valid"] = valid
             yield out
         return
     batch = []

@@ -32,6 +32,7 @@ class TrainState(NamedTuple):
     model: base.SAM2Base  # its parameters are the fp32 masters, updated in place
     opt_state: Dict
     step: int
+    sharded: Dict[str, int]  # {name: dim} of the TP shards (`tp.shard_module`)
 
 
 def sample_center_points(masks):
@@ -80,15 +81,15 @@ def make_optimizer(learning_rate: float = 1e-5, weight_decay: float = 0.1,
 def init_train_state(model: base.SAM2Base, optimizer, mesh=None) -> TrainState:
     """The state of step 0; under a mesh the model first keeps its TP
     shards (`parallel/tp.py`)."""
-    if mesh is not None:
-        tp_lib.shard_module(model, mesh)
-    return TrainState(model, optimizer.init(dict(model.named_parameters())), 0)
+    sharded = tp_lib.shard_module(model, mesh) if mesh is not None else {}
+    return TrainState(model, optimizer.init(dict(model.named_parameters())), 0, sharded)
 
 
 def make_train_step(cfg: SAM2Config, optimizer, mesh=None):
     """`step(state, images, gt_masks) -> (state, metrics)` on the global
     batch (every rank is handed the same); under a mesh each rank computes
-    its rows, and the loss and the gradients are averaged over "data"."""
+    its rows, and the loss and the gradients are averaged over "data"
+    (`tp.reduce_step`)."""
 
     def step(state: TrainState, images, gt_masks):
         model = state.model
@@ -100,17 +101,14 @@ def make_train_step(cfg: SAM2Config, optimizer, mesh=None):
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         scalars = torch.stack([loss.detach()] + [aux[k].detach() for k in METRICS])
-        scalars, *grads = mesh_lib.all_reduce_mean(mesh, [scalars, *grads])
-        scalars = mesh_lib.all_reduce_mean(mesh, [scalars], axis="model")[0]
-        sharded = tp_lib.sharded_params(model)
-        grads = tp_lib.average_replicated(mesh, dict(zip(names, grads)), sharded)
-        norm = {"grad_norm": tp_lib.global_grad_norm(grads, sharded, mesh)} if sharded else {}
+        scalars, grads, norm = tp_lib.reduce_step(mesh, scalars, dict(zip(names, grads)),
+                                                  state.sharded)
         updates, opt_state = optimizer.update(grads, state.opt_state, dict(zip(names, params)),
                                               optimizer.lr_at(0.0), **norm)
         with torch.no_grad():
             for n, p in zip(names, params):
                 p.add_(updates[n])
         metrics = {"loss": scalars[0], **dict(zip(METRICS, scalars[1:]))}
-        return TrainState(model, opt_state, state.step + 1), metrics
+        return state._replace(opt_state=opt_state, step=state.step + 1), metrics
 
     return step

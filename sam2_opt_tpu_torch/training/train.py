@@ -149,8 +149,9 @@ def main(argv=None):
         def val_loader(epoch):
             if mesh is None:
                 return data_loader(vds, 1, shuffle=False, drop_last=False)
-            # a video per data rank (a ragged last batch is dropped)
-            return data_loader(vds, dp, shuffle=False,
+            # a video per data rank; a ragged last batch is padded and its
+            # padding counts for nothing (`row_valid`)
+            return data_loader(vds, dp, shuffle=False, drop_last=False,
                                batch_rows=mesh_lib.process_local_batch_rows(mesh, dp))
 
     steps_per_epoch = max(len(ds) // args.batch_size, 1)

@@ -17,9 +17,10 @@ optimizer update) as a plain function, with
   linears of the TP rule are column-parallel over "model" (`parallel/tp.py`);
   `comms_dtype="bfloat16"` rounds the gradients to bf16 for that all-reduce
   (JAX `trainer.py:189-235`);
-- randomness per video: every video draws its clicks from a generator keyed
-  by the seed, the step and its global row, so a DP layout takes the step
-  one process takes over the same global batch;
+- randomness per video: every training video draws its clicks from a
+  generator keyed by the seed, the step and its global row, every val video
+  from one keyed by the seed and its index, so a DP layout takes the step
+  (and the val loss) one process takes over the same videos;
 - meters, rank 0's TensorBoard logging where available, atomic checkpoints
   (rank 0 writes, every rank restores) with resume discovery, a hard stop on
   a non-finite loss, and a val loop.
@@ -92,13 +93,16 @@ class TrainConfig:
     comms_dtype: Optional[str] = None
 
 
-def row_generators(seed: int, step: int, rows, device) -> list:
-    """One generator per video, keyed by the seed, the step and the video's
-    global row, so the draws do not depend on which rank runs the row (JAX
-    splits one key per global row, `trainer.py:159`)."""
-    return [torch.Generator(device=device).manual_seed(
-        int(np.random.SeedSequence([seed, step, row]).generate_state(1, np.uint64)[0] >> 1))
-        for row in rows]
+TRAIN_STREAM, VAL_STREAM = 0, 1
+
+
+def row_generators(seed: int, step: int, rows, device, stream: int = TRAIN_STREAM) -> list:
+    """One generator per video, keyed by the seed, the stream (training or
+    val), the step and the video's global row, so the draws do not depend on
+    which rank runs the row (JAX splits one key per global row,
+    `trainer.py:159`). Every key is a non-negative integer."""
+    return [torch.Generator(device=device).manual_seed(int(np.random.SeedSequence(
+        [seed, stream, step, row]).generate_state(1, np.uint64)[0] >> 1)) for row in rows]
 
 
 class _LossAndGrads(nn.Module):
@@ -117,8 +121,8 @@ class _LossAndGrads(nn.Module):
 
 
 def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=None, *,
-                     use_box: bool = False, use_mask: bool = False, n_init: int = 1,
-                     correct_frames=()):
+                     sharded: Optional[Dict[str, int]] = None, use_box: bool = False,
+                     use_mask: bool = False, n_init: int = 1, correct_frames=()):
     """The training step, `step(model, opt_state, images, masks, obj_valid,
     gens, lr) -> (opt_state, metrics)`: images [B, T, S, S, 3] float in
     [0, 1], masks [B, T, N, S, S] bool, obj_valid [B, N] bool on the model's
@@ -129,7 +133,9 @@ def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=N
     `grad_accum_steps` runs strided micro-batches (rows a, a + A, ...)
     before the one update. Under a mesh the loss, its parts and the
     gradients are averaged over "data" before the update, and the clip norm
-    counts every TP shard once."""
+    counts every TP shard once: `sharded` is {name: dim} of the model's TP
+    shards, as `tp.shard_module` returned it (`tp.reduce_step`)."""
+    sharded = sharded or {}
     cfg = model_cfg
     remat_blocks = tcfg.remat in ("blocks", "blocks_frames")
     use_remat = tcfg.remat == "encoder"
@@ -180,31 +186,12 @@ def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=N
                 wrapper, cast, (batch_loss, masters, images.to(compute_dtype), masks, obj_valid,
                                 gens))
         # comms_dtype: each rank's gradients are rounded to bf16 here,
-        # reduced so (all_reduce_grads) and upcast after, as the JAX
+        # reduced so (tp.reduce_step) and upcast after, as the JAX
         # package rounds its per-shard gradients before the pmean
         keep = comms_dtype or torch.float32
         grads = {n: torch.zeros_like(p, dtype=keep) if g is None else g.to(keep)
                  for n, p, g in zip(names, masters, grads)}
         return loss, aux, grads
-
-    def all_reduce_grads(model, loss, aux, grads):
-        """The mean over "data" of the loss, its parts and the gradients;
-        the gradients in `comms_dtype` where set (bucketed, `all_reduce_mean`),
-        then fp32 for the clip norm and the optimizer. Under TP the loss and
-        the replicated gradients are also averaged over "model"
-        (`tp.average_replicated`)."""
-        if mesh is None:
-            return loss, aux, {n: g.float() for n, g in grads.items()}
-        keys = list(aux)
-        scalars = torch.stack([torch.as_tensor(loss, dtype=torch.float32)]
-                              + [torch.as_tensor(aux[k], dtype=torch.float32) for k in keys])
-        names = list(grads)
-        reduced = mesh_lib.all_reduce_mean(mesh, [scalars] + [grads[n] for n in names])
-        scalars = mesh_lib.all_reduce_mean(mesh, reduced[:1], axis="model")[0]
-        grads = tp_lib.average_replicated(
-            mesh, {n: g.float() for n, g in zip(names, reduced[1:])},
-            tp_lib.sharded_params(model))
-        return scalars[0], dict(zip(keys, scalars[1:])), grads
 
     def accum_grads(model, images, masks, obj_valid, gens):
         B = images.shape[0]
@@ -231,16 +218,17 @@ def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=N
         model.image_encoder.trunk.remat_blocks = remat_blocks
         if isinstance(gens, torch.Generator):
             gens = [gens] * images.shape[0]
-        loss, aux, grads = all_reduce_grads(model, *accum_grads(model, images, masks, obj_valid,
-                                                                gens))
+        loss, aux, grads = accum_grads(model, images, masks, obj_valid, gens)
         params = dict(model.named_parameters())
         if frozen:
             # zero the frozen encoder's gradients so they neither enter the
             # clip norm nor move the moments ...
             grads = {n: torch.zeros_like(g) if n.startswith("image_encoder") else g
                      for n, g in grads.items()}
-        sharded = tp_lib.sharded_params(model)
-        norm = {"grad_norm": tp_lib.global_grad_norm(grads, sharded, mesh)} if sharded else {}
+        keys = list(aux)
+        scalars = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=loss.device)
+                               for v in [loss] + [aux[k] for k in keys]])
+        scalars, grads, norm = tp_lib.reduce_step(mesh, scalars, grads, sharded)
         updates, opt_state = optimizer.update(grads, opt_state, params, lr, **norm)
         with torch.no_grad():
             for n, p in params.items():
@@ -248,7 +236,7 @@ def build_train_step(model_cfg: SAM2Config, tcfg: TrainConfig, optimizer, mesh=N
                 # shrink them (the reference freezes with requires_grad=False)
                 if not (frozen and n.startswith("image_encoder")):
                     p.add_(updates[n])
-        return opt_state, {"loss": loss, **aux}
+        return opt_state, {"loss": scalars[0], **dict(zip(keys, scalars[1:]))}
 
     return step
 
@@ -318,11 +306,9 @@ class Trainer:
         self._step_fns = {}
         self._pyrng = random.Random(train_cfg.seed)
 
-    def row_generators(self, rows, step: Optional[int] = None):
-        """The per-video generators of global rows `rows` at `step` (this
-        step when None)."""
-        return row_generators(self.tcfg.seed, self.steps if step is None else step, rows,
-                              self.device)
+    def row_generators(self, rows):
+        """The per-video generators of this step's global rows `rows`."""
+        return row_generators(self.tcfg.seed, self.steps, rows, self.device)
 
     def save_checkpoint(self):
         """Every rank gathers the TP shards into whole tensors; rank 0 writes;
@@ -425,7 +411,8 @@ class Trainer:
             if step_fn is None:
                 use_box, use_mask, n_init, correct_frames = skey
                 step_fn = self._step_fns[skey] = build_train_step(
-                    self.cfg, self.tcfg, self.optimizer, self.mesh, use_box=use_box,
+                    self.cfg, self.tcfg, self.optimizer, self.mesh, sharded=self.sharded,
+                    use_box=use_box,
                     use_mask=use_mask, n_init=n_init, correct_frames=correct_frames)
             t0 = time.time()
             self.opt_state, metrics = step_fn(self.model, self.opt_state, images, masks,
@@ -451,17 +438,30 @@ class Trainer:
     @torch.no_grad()
     def val_epoch(self, loader):
         """Forward-only validation loss (reference val_epoch :583-650): point
-        prompt, no correction clicks, fp32; each rank its rows, the mean
-        over "data"."""
+        prompt, no correction clicks, fp32; the mean over every video of the
+        loader. Under a mesh each rank runs its rows and the sums are added
+        over "data"; rows a loader marks invalid (`row_valid`, the padding of
+        a ragged last global batch) count for nothing. The clicks of video v
+        come from `row_generators(seed, 0, [v], stream=VAL_STREAM)`, as in
+        one process."""
         loss_meter = AverageMeter("val_loss", fmt=":.4f")
-        for i, batch in enumerate(loader):
+        first = 0  # the global index of the batch's first video
+        for batch in loader:
             images, masks, obj_valid, rows = self._place_batch(batch, batch["masks"].shape[2])
-            gens = self.row_generators(rows, step=-1 - i)
-            losses = [sam2_train.video_train_loss(
+            gens = row_generators(self.tcfg.seed, 0, [first + r for r in rows], self.device,
+                                  stream=VAL_STREAM)
+            first += int(batch.get("global_batch_size", 0)) or images.shape[0]
+            losses = torch.stack([sam2_train.video_train_loss(
                 self.model, self.cfg, images[b], masks[b], gens[b], obj_valid=obj_valid[b],
-                num_correction_clicks=0)[0] for b in range(images.shape[0])]
-            loss = mesh_lib.all_reduce_mean(self.mesh, [sum(losses) / len(losses)])[0]
-            loss_meter.update(float(loss), n=len(rows) * mesh_lib.axis_size(self.mesh, "data"))
+                num_correction_clicks=0)[0].float() for b in range(images.shape[0])])
+            valid = torch.as_tensor(np.asarray(batch.get("row_valid", np.ones(len(rows), bool))),
+                                    device=losses.device)
+            stats = torch.stack([torch.where(valid, losses, 0.0).sum(), valid.sum().float()])
+            # the mean over "data" of (sum, count): their ratio is the global one
+            total, count = mesh_lib.all_reduce_mean(self.mesh, [stats])[0].tolist()
+            if count > 0:
+                loss_meter.update(total / count,
+                                  n=round(count * mesh_lib.axis_size(self.mesh, "data")))
         self.tb.log("val/loss", loss_meter.avg, self.steps)
         self.best_val_loss = min(self.best_val_loss, loss_meter.avg)
         return loss_meter.avg

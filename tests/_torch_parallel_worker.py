@@ -93,7 +93,7 @@ def train_grads(mesh, *, B=2, clicks=True, dtype="float32", comms=None):
                        compute_dtype=dtype, comms_dtype=comms, remat="none")
     opt = CaptureOptimizer()
     kwargs = dict(correct_frames=(1,)) if clicks else dict(use_mask=True)
-    step = build_train_step(cfg, tcfg, opt, mesh, **kwargs)
+    step = build_train_step(cfg, tcfg, opt, mesh, sharded=sharded, **kwargs)
     images, masks, valid = video_batch(B)
     rows = mesh_lib.process_local_batch_rows(mesh, B)
     take = slice(rows[0], rows[-1] + 1)
@@ -123,8 +123,12 @@ def comms_raises(mesh):
     return out
 
 
-def make_png_dataset(root, num_videos=2, num_frames=3):
-    """A DAVIS-layout folder of PNG frames and palette annotations."""
+def make_png_dataset(root, num_videos=2, num_frames=3, val_videos=3):
+    """A DAVIS-layout folder of PNG frames and palette annotations, and one of
+    `val_videos` under `root/val` (odd: the last global val batch of dp 2 is
+    ragged)."""
+    if val_videos:
+        make_png_dataset(f"{root}/val", val_videos, num_frames, val_videos=0)
     from PIL import Image
 
     rng = np.random.default_rng(5)
@@ -143,13 +147,15 @@ def cli_args(root, ckpt, extra=()):
     return ["--img_folder", f"{root}/JPEGImages", "--gt_folder", f"{root}/Annotations",
             "--variant", "hiera_t", "--image-size", str(S), *OVERRIDES, "--num-epochs", "1",
             "--batch-size", "2", "--num-frames", "2", "--max-objects", "1",
-            "--checkpoint-dir", ckpt, "--log-dir", f"{ckpt}_logs", "--device", "cpu", *extra]
+            "--val_img_folder", f"{root}/val/JPEGImages", "--val_gt_folder",
+            f"{root}/val/Annotations", "--checkpoint-dir", ckpt, "--log-dir", f"{ckpt}_logs",
+            "--device", "cpu", *extra]
 
 
 def cli(root):
-    """`train.py --dp 2` (one step of a global batch of 2 videos), then a
-    fresh trainer on every rank restoring the checkpoint; counts each rank's
-    checkpoint writes."""
+    """`train.py --dp 2` (one step of a global batch of 2 videos, then the
+    val loop over 3 videos), then a fresh trainer on every rank restoring the
+    checkpoint; counts each rank's checkpoint writes."""
     from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
     from sam2_opt_tpu_torch.training import checkpoints
     from sam2_opt_tpu_torch.training.train import main
@@ -178,8 +184,24 @@ def cli(root):
         restored = mesh_lib.fetch_global(fresh.model.state_dict(), fresh.mesh, fresh.sharded)
     finally:
         checkpoints.CheckpointManager.save, Trainer._place_batch = save, place
-    return {"losses": trainer.step_losses, "writes": writes, "loaded": loaded,
-            "resumed": resumed, "steps": fresh.steps, "params": params, "restored": restored}
+    return {"losses": trainer.step_losses, "val_loss": trainer.best_val_loss, "writes": writes,
+            "loaded": loaded, "resumed": resumed, "steps": fresh.steps, "params": params,
+            "restored": restored}
+
+
+def cli_one_process(root):
+    """`train.py` without a mesh on the same folders as `cli`: its step
+    losses and val loss, and the val loss of its trained model again over a
+    loader of 2 videos a batch (a ragged last batch of 1)."""
+    from sam2_opt_tpu_torch.training.data import EvalSampler, PNGRawDataset, VOSDataset, data_loader
+    from sam2_opt_tpu_torch.training.train import main
+
+    trainer = main(cli_args(root, f"{root}/ckpt_one"))
+    vds = VOSDataset(PNGRawDataset(f"{root}/val/JPEGImages", f"{root}/val/Annotations"),
+                     EvalSampler(), image_size=S, max_num_objects=1, hflip_prob=0.0)
+    again = trainer.val_epoch(data_loader(vds, 2, shuffle=False, drop_last=False))
+    return {"losses": trainer.step_losses, "val_loss": trainer.best_val_loss,
+            "val_loss_batch2": again}
 
 
 def cli_global_batches(root):
@@ -261,7 +283,6 @@ def image_step(mesh, B=2):
     """`training/step.py`: (loss, whole reduced gradients, global norm) of
     one `make_train_step` step on a global batch of B images."""
     from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
-    from sam2_opt_tpu_torch.parallel import tp as tp_lib
     from sam2_opt_tpu_torch.training import step as st
 
     cfg = tiny_cfg()
@@ -274,36 +295,37 @@ def image_step(mesh, B=2):
     gt[0, :, 20:80, 30:90] = 1
     gt[1:, :, 60:120, 10:50] = 1
     _, metrics = st.make_train_step(cfg, opt, mesh)(state, images, gt)
-    grads = mesh_lib.fetch_global(opt.grads, mesh, tp_lib.sharded_params(model))
+    grads = mesh_lib.fetch_global(opt.grads, mesh, state.sharded)
     norm = opt.grad_norm if opt.grad_norm is not None else torch.sqrt(
         sum((g ** 2).sum() for g in opt.grads.values()))
     return {"loss": float(metrics["loss"]), "grads": grads, "norm": float(norm)}
 
 
-def fused_mlp_encode(mesh):
-    """The bf16 image encoder under SAM2_TPU_FUSED_MLP=1 (K8's plain version
-    on the CPU) on a TP-sharded model's compute copy: its features, and how
-    many block MLPs took the fused route."""
-    from sam2_opt_tpu_torch.models import hiera
-
+def fused_mlp_refused(mesh):
+    """A TP-sharded model: its "cuda" backends run eagerly (fp32 set before
+    the sharding, bf16 after), and under SAM2_TPU_FUSED_MLP=1 its bf16
+    encoder refuses K8, which takes whole weights."""
     sam = tiny_model(tiny_cfg())
-    if mesh is not None:
-        sam.shard(mesh)
-    sam.set_runtime_backend("cuda", {"dtype": torch.bfloat16, "graphs": False})
-    calls, fused = [], hiera.fused_mlp
-    hiera.fused_mlp = lambda *a, **k: (calls.append(a[1].shape), fused(*a, **k))[1]
+    sam.set_runtime_backend("cuda", {"dtype": torch.float32})
+    graphs = [sam._use_graphs]
+    sam.shard(mesh)
+    graphs.append(sam._use_graphs)
+    sam.set_runtime_backend("cuda", {"dtype": torch.bfloat16})
+    graphs.append(sam._use_graphs)
     saved = os.environ.get("SAM2_TPU_FUSED_MLP")
     os.environ["SAM2_TPU_FUSED_MLP"] = "1"
+    refused = None
     try:
         images = torch.from_numpy(np.random.default_rng(4).random((1, 3, S, S)).astype(np.float32))
-        feats = sam.encode_image(images)
+        sam.encode_image(images)
+    except ValueError as e:
+        refused = str(e)
     finally:
-        hiera.fused_mlp = fused
         if saved is None:
             os.environ.pop("SAM2_TPU_FUSED_MLP")
         else:
             os.environ["SAM2_TPU_FUSED_MLP"] = saved
-    return {"feats": [f.float() for f in feats], "fused_w1_shapes": calls}
+    return {"use_graphs": graphs, "refused": refused}
 
 
 # job name -> (dp, tp, fn(mesh, root)); the meshes cover the world
@@ -319,7 +341,7 @@ JOBS = {
     "image_dp2": (2, 1, lambda mesh, root: image_predictor(mesh)),
     "image_tp2": (1, 2, lambda mesh, root: image_predictor(mesh)),
     "video_dp2": (2, 1, lambda mesh, root: video_predictor(mesh)),
-    "k8_tp2": (1, 2, lambda mesh, root: fused_mlp_encode(mesh)),
+    "k8_tp2": (1, 2, lambda mesh, root: fused_mlp_refused(mesh)),
     "step_dp2": (2, 1, lambda mesh, root: image_step(mesh)),
     "step_tp2": (1, 2, lambda mesh, root: image_step(mesh)),
 }

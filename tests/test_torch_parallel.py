@@ -14,13 +14,15 @@ on the same global batch.
   global max), and its errors for tp != 1 and grad_accum_steps > 1;
 - `train.py --dp 2` under two ranks: each loads its row of the global batch
   one process builds, rank 0 alone writes the checkpoints, and both ranks
-  resume to the trained parameters, bit for bit;
+  resume to the trained parameters, bit for bit; its step loss and its val
+  loss over 3 videos (a ragged last global batch) within 1e-5 of
+  `train.py` in one process, whose val loss does not depend on the val
+  batch size;
 - `SAM2ImagePredictor(mesh=)` at dp 2 and tp 2 and `SAM2VideoPredictor(mesh=)`
   at dp 2 (one object per rank and step): logits within 1e-4 of their scale
   of one process, on every rank;
-- under `SAM2_TPU_FUSED_MLP=1`, a tp 2 model's bf16 encoder takes K8's
-  route (its plain version here) with the whole weights, bit for bit one
-  process's features.
+- a tp 2 model runs its "cuda" backends eagerly, and under
+  `SAM2_TPU_FUSED_MLP=1` its bf16 encoder refuses K8.
 """
 
 import numpy as np
@@ -51,6 +53,11 @@ def ranks(png_root):
     out = w.launch(2, TWO_RANK_JOBS, png_root)
     out.update(w.launch(4, ["dp2tp2"], f"{png_root}/four"))
     return out
+
+
+@pytest.fixture(scope="module")
+def cli_one_process(png_root):
+    return w.cli_one_process(png_root)
 
 
 @pytest.fixture(scope="module")
@@ -149,14 +156,17 @@ def test_layout_matches_one_process(ranks, one_process, layout, ref):
 def test_clicks_follow_global_rows(one_process):
     """The per-row generators key the clicks by global row: the two videos
     of the batch draw differently, so a rank running row 1 alone must use
-    row 1's generator to give one process's step."""
-    from sam2_opt_tpu_torch.training.trainer import row_generators
+    row 1's generator to give one process's step. The val stream draws
+    apart from the training stream at the same step and row."""
+    from sam2_opt_tpu_torch.training.trainer import VAL_STREAM, row_generators
 
+    draw = lambda g: torch.rand(4, generator=g)  # noqa: E731
     g0, g1 = row_generators(0, 0, [0, 1], "cpu")
-    assert not torch.equal(torch.rand(4, generator=g0), torch.rand(4, generator=g1))
+    assert not torch.equal(draw(g0), draw(g1))
     again = row_generators(0, 0, [1], "cpu")[0]
-    assert torch.equal(torch.rand(4, generator=again),
-                       torch.rand(4, generator=row_generators(0, 0, [0, 1], "cpu")[1]))
+    assert torch.equal(draw(again), draw(row_generators(0, 0, [0, 1], "cpu")[1]))
+    val = row_generators(0, 0, [1], "cpu", stream=VAL_STREAM)[0]
+    assert not torch.equal(draw(val), draw(row_generators(0, 0, [1], "cpu")[0]))
 
 
 def test_bf16_comms_matches_plain_bf16(ranks):
@@ -184,7 +194,12 @@ def test_cli_two_ranks_checkpoint_and_resume(ranks, png_root):
     r0, r1 = ranks["cli"]
     # each rank loads its row of the global batch one process builds
     (row0, row1), = w.cli_global_batches(png_root)
-    assert r0["loaded"] == [[row0]] and r1["loaded"] == [[row1]] and row0 != row1
+    (train0, *val0), (train1, *val1) = r0["loaded"], r1["loaded"]
+    assert train0 == [row0] and train1 == [row1] and row0 != row1
+    # then the val loop: 3 videos in global batches of 2, the ragged last one
+    # padded on rank 1 with a copy of video 2
+    assert len(val0) == len(val1) == 2 and val1[1] == val0[1]
+    assert len({val0[0][0], val1[0][0], val0[1][0]}) == 3
     assert r0["writes"] and not r1["writes"], "rank 0 alone writes the checkpoints"
     assert r0["losses"] == r1["losses"] and np.isfinite(r0["losses"]).all()
     for got in (r0, r1):
@@ -192,6 +207,25 @@ def test_cli_two_ranks_checkpoint_and_resume(ranks, png_root):
         for name, p in got["params"].items():
             assert torch.equal(got["restored"][name], p), name
             assert torch.equal(p, r0["params"][name]), name
+
+
+def test_cli_val_loop_one_process(cli_one_process):
+    """`train.py` with a val folder runs the val loop after the epoch; the
+    val loss is the mean over the videos whatever the val batch size (each
+    video draws from its own index's generator)."""
+    got = cli_one_process
+    assert len(got["losses"]) == 1 and np.isfinite(got["val_loss"])
+    np.testing.assert_allclose(got["val_loss_batch2"], got["val_loss"], rtol=LOSS_RTOL)
+
+
+def test_cli_val_loop_two_ranks_matches_one_process(ranks, cli_one_process):
+    """Under --dp 2 the 3 val videos make a global batch of 2 and a ragged
+    one of 1 (its padding row counts for nothing): every rank's step and
+    val losses are one process's within 1e-5."""
+    want = cli_one_process
+    for got in ranks["cli"]:
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["val_loss"], want["val_loss"], rtol=LOSS_RTOL)
 
 
 # ------------------------------------------------------------------ #
@@ -223,13 +257,10 @@ def test_video_predictor_mesh_matches_one_process(ranks):
             assert (a - b).abs().max().item() <= LOGIT_TOL * b.abs().max().item()
 
 
-def test_fused_mlp_under_tp_gathers_the_weights(ranks):
-    """Under SAM2_TPU_FUSED_MLP=1 a sharded block MLP hands K8 (its plain
-    version here) the whole weights: every block MLP takes the fused route
-    with the unsharded shapes, and the bf16 features equal one process's
-    (the same bf16 arithmetic on the same weights)."""
-    want = w.fused_mlp_encode(None)
+def test_fused_mlp_refused_under_tp(ranks):
+    """A sharded model's "cuda" backends run eagerly (a graph cannot capture
+    its collectives), and K8, which takes whole weights, refuses its
+    sharded block MLPs."""
     for got in ranks["k8_tp2"]:
-        assert got["fused_w1_shapes"] == want["fused_w1_shapes"] and want["fused_w1_shapes"]
-        for a, b in zip(got["feats"], want["feats"]):
-            assert torch.equal(a, b)
+        assert got["use_graphs"] == [True, False, False]
+        assert got["refused"] and "tensor-parallel shards" in got["refused"]
