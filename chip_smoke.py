@@ -199,7 +199,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    trainer's bf16 steps on a dp 1 mesh, its gradient all-reduce counted
    over the NCCL group (at least the parameter count a step, each bucket
    unchanged by the sum over one rank).
-Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 9-10, 15-24; each
+25. inputs (slice 14), on phase 6's video predictor: (a) the 8-frame video
+   written as an mp4 with cv2, tracked from the file with
+   `offload_state_to_cpu` and `async_loading_frames` and from the ndarray of
+   what cv2 decoded, fp32 (masks bitwise equal) and bf16 (per-frame mask
+   IoU >= 0.999), K1 3 per encoded frame and K2 8 per tracked frame on the
+   mp4 runs; (b) `AsyncVideoFrameLoader` over a JPEG folder of those
+   frames, every frame equal to a synchronous decode, a forward seek beyond
+   the lookahead included; (c) hiera-L built from the yaml
+   `config_to_yaml` writes, same weights: `config_from_yaml` equal to
+   `model_config("hiera_l")`, `set_image` logits bitwise equal; (d)
+   `save_params` -> `build_from_any`: weights and logits bitwise equal;
+   (e) a 2-video SA-V tree (32 JPEG frames of 720x1280 a video, JSON/RLE
+   manifests at 6 fps) through `SAVRawDataset` -> `VOSDataset` ->
+   `data_loader` -> `Trainer.run`, 2 bf16 steps of hiera-b+ at 1024², T =
+   8, the image encoder frozen: finite losses, phase 10's launches per step,
+   `assert_frozen_unchanged` on the encoder; the host seconds of the mp4
+   decode and of the async loader, and the walls of (a)-(e). Where cv2 or
+   yaml does not import, (a) or (c) logs "not run" and the rest runs.
+Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 25, 9-10, 15-24; each
 phase that sets a switch restores it and logs its wall seconds, which the
 summary line before the kernels line gathers under "phase_seconds". Since slice 6, K8 (phases 12-14) is a
 warp-specialised wgmma/TMA kernel; phase 14 also gives the bound of the
@@ -631,11 +649,12 @@ def synthetic_video(seed, T=VIDEO_FRAMES, H=720, W=1280):
     return (np.stack(frames) * 255).astype(np.uint8)
 
 
-def track(predictor, video, n_frames, points, counts=None, normalize_coords=True):
-    """init_state, points on frame 0 for object 1, propagate over `n_frames`
-    frames. Returns (state, [video-res masks per frame]); with `counts` (the
-    two wrappers), also the K1/K2 launches of each yielded frame."""
-    state = predictor.init_state(video)
+def track(predictor, video, n_frames, points, counts=None, normalize_coords=True, **flags):
+    """init_state (with `flags`), points on frame 0 for object 1, propagate
+    over `n_frames` frames. Returns (state, [video-res masks per frame]);
+    with `counts` (the two wrappers), also the K1/K2 launches of each
+    yielded frame."""
+    state = predictor.init_state(video, **flags)
     predictor.add_new_points_or_box(state, 0, 1, points=points, labels=np.array([1], np.int32),
                                     normalize_coords=normalize_coords)
     masks, per_frame = [], []
@@ -1146,6 +1165,290 @@ def phase_video_times(predictor, video, points, flash_attention_rope,
     k2 = memory_attention_times({"K2": (flash_attention_rope, flash_attention_rope_ref)},
                                 rope_rotate=rope_rotate, tiling=True)
     return times, k2
+
+
+# --------------------------------------------------------------------------- #
+# slice 14: the input side
+# --------------------------------------------------------------------------- #
+
+# mp4 vs the ndarray of what cv2 decoded, bf16 per-frame mask IoU
+INPUTS_BF16_MIOU_MIN = 0.999
+SAV_FRAMES = 32  # 24 fps frames a video, annotated at 6 fps: TRAIN_FRAMES (8) annotated
+
+
+def write_mp4(path, video):
+    """uint8 RGB [T, H, W, 3] -> an mp4 (OpenCV's mp4v) at 24 fps."""
+    import cv2
+
+    T, H, W, _ = video.shape
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24, (W, H))
+    for frame in video:
+        writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+    writer.release()
+
+
+def write_sav_tree(root, names, T=SAV_FRAMES, H=720, W=1280, seed=SEED):
+    """An SA-V-format tree: JPEGImages_24fps/<video>/<frame:05d>.jpg and
+    <video>.json manifests of COCO RLEs every 4th frame ("fps": 6), two
+    objects per video: textured squares (H / 3 and 2H / 9 a side) moving
+    over 40 x 40 random blocks."""
+    from PIL import Image
+
+    from sam2_opt_tpu_torch.training.data import encode_coco_rle
+
+    rng = np.random.default_rng(seed)
+    for name in names:
+        vdir = f"{root}/JPEGImages_24fps/{name}"
+        os.makedirs(vdir)
+        bg = np.kron(rng.integers(0, 256, (H // 40, W // 40, 3), dtype=np.uint8),
+                     np.ones((40, 40, 1), np.uint8))
+        squares = [(np.kron(rng.integers(128, 256, (8, 8, 3), dtype=np.uint8),
+                            np.ones((n // 8, n // 8, 1), np.uint8)), y, x, dx)
+                   for n, y, x, dx in ((H // 24 * 8, H // 6, 5 * W // 32, W // 100),
+                                       (2 * H // 72 * 8, 7 * H // 12, 45 * W // 64, -W // 128))]
+        masklet = []
+        for t in range(T):
+            frame = bg.copy()
+            masks = []
+            for tex, y, x, dx in squares:
+                n = tex.shape[0]
+                x0 = x + dx * t
+                frame[y:y + n, x0:x0 + n] = tex
+                m = np.zeros((H, W), bool)
+                m[y:y + n, x0:x0 + n] = True
+                masks.append(m)
+            Image.fromarray(frame).save(f"{vdir}/{t:05d}.jpg", quality=90)
+            if t % 4 == 0:
+                masklet.append([encode_coco_rle(m) for m in masks])
+        with open(f"{root}/{name}.json", "w") as f:
+            json.dump({"masklet": masklet, "fps": 6}, f)
+
+
+@phase
+def phase_inputs(predictor, video, points, counters):
+    """Slice 14 on the card: (a) the video predictor on an mp4 with
+    offload_state_to_cpu and async_loading_frames, against the ndarray of
+    what cv2 decoded, fp32 and bf16, with its launches; (b) the async frame
+    loader; (c) hiera-L built from a yaml; (d) a native checkpoint round
+    trip; (e) two bf16 Trainer.run steps of hiera-b+ fed by SAVRawDataset,
+    the image encoder frozen."""
+    import dataclasses
+    import importlib.util
+    import tempfile
+
+    from PIL import Image
+
+    from sam2_opt_tpu_torch.config import model_config
+    from sam2_opt_tpu_torch.io import checkpoints as io_ckpt
+    from sam2_opt_tpu_torch.build_sam import build_sam2
+    from sam2_opt_tpu_torch.io.video import _read_mp4, _resize_uint8
+    from sam2_opt_tpu_torch.predictors.image import SAM2ImagePredictor
+    from sam2_opt_tpu_torch.training import checkpoints as train_ckpt
+    from sam2_opt_tpu_torch.training.data import (
+        RandomUniformSampler,
+        SAVRawDataset,
+        VOSDataset,
+        data_loader,
+    )
+    from sam2_opt_tpu_torch.training.trainer import Trainer
+    from sam2_opt_tpu_torch.utils.misc import AsyncVideoFrameLoader
+
+    root = tempfile.mkdtemp(prefix="sam2_chip_smoke_inputs_")
+    have = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "yaml")}
+    out, walls = {"cv2": have["cv2"], "yaml": have["yaml"]}, {}
+    T, H, W, _ = video.shape
+    flash_attention, flash_attention_rope = counters["K1"], counters["K2"]
+
+    # (a) the video from an mp4, both init_state flags, against the ndarray
+    # of the decoded frames (mp4 is lossy: not against the source pixels)
+    t0 = time.perf_counter()
+    if not have["cv2"]:
+        log("inputs (a) not run: cv2 absent")
+        decoded = video
+    else:
+        mp4 = f"{root}/video.mp4"
+        write_mp4(mp4, video)
+        t1 = time.perf_counter()
+        decoded = np.stack(_read_mp4(mp4))
+        out["mp4_decode_s"] = time.perf_counter() - t1
+        check(decoded.shape == video.shape, "the mp4 decodes to the video's frames")
+        out["mp4_mean_abs_vs_source"] = float(np.abs(decoded.astype(np.float32) - video).mean())
+        flags = dict(offload_state_to_cpu=True, async_loading_frames=True)
+        runs, launches = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            set_backend(predictor, "eager" if dtype == torch.float32 else "cuda", dtype)
+            _, from_array, _ = track(predictor, decoded, T, points)
+            # the path of this part: counts to 0 just before, read just after
+            flash_attention.launches = flash_attention_rope.launches = 0
+            state, from_mp4, per_frame = track(predictor, mp4, T, points,
+                                               counts=(flash_attention, flash_attention_rope),
+                                               **flags)
+            torch.cuda.synchronize()
+            k1, k2 = flash_attention.launches, flash_attention_rope.launches
+            name = str(dtype).replace("torch.", "")
+            launches[name] = {"K1": k1, "K2": k2}
+            check(state["offload_state_to_cpu"] and state["async_loading_frames"]
+                  and (state["video_height"], state["video_width"]) == (H, W),
+                  "init_state records both flags and the mp4's size")
+            check(k1 == 3 * T and k2 == 8 * (T - 1)
+                  and all(f == (3, 8) for f in per_frame[1:]),
+                  f"{name} mp4 run: K1 3 per encoded frame and K2 8 per tracked frame, got "
+                  f"K1 {k1}, K2 {k2}, per frame {per_frame}")
+            check(len(from_mp4) == len(from_array) == T, "every frame yielded")
+            if dtype == torch.float32:
+                same = all(torch.equal(a, b) for a, b in zip(from_mp4, from_array))
+                log(f"inputs (a) fp32: mp4 masks bitwise equal to the ndarray run: {same}")
+                check(same, "fp32 masks from the mp4 differ from the decoded ndarray's")
+                runs[name] = 1.0
+            else:
+                ious = [miou(a[0, 0].cpu().numpy() > 0, b[0, 0].cpu().numpy() > 0)
+                        for a, b in zip(from_mp4, from_array)]
+                log(f"inputs (a) bf16: mp4 vs ndarray per-frame mask IoU "
+                    f"{[round(float(x), 6) for x in ious]} (limit >= {INPUTS_BF16_MIOU_MIN})")
+                check(min(ious) >= INPUTS_BF16_MIOU_MIN, "bf16 masks from the mp4 drift")
+                runs[name] = float(min(ious))
+        out.update(mp4_launches=launches, mp4_agreement=runs)
+        log(f"inputs (a): {T} frames {H}x{W}, mp4 decode {out['mp4_decode_s']:.3f} s on the "
+            f"host, mean |decoded - source| {out['mp4_mean_abs_vs_source']:.2f}; launches "
+            f"{launches}")
+    walls["a"] = time.perf_counter() - t0
+
+    # (b) the async loader over a JPEG directory of those frames: every
+    # frame as a synchronous decode gives it, a forward seek included
+    t0 = time.perf_counter()
+    jpeg_dir = f"{root}/jpeg"
+    os.makedirs(jpeg_dir)
+    paths = [f"{jpeg_dir}/{t:05d}.jpg" for t in range(T)]
+    for p, frame in zip(paths, decoded):
+        Image.fromarray(frame).save(p)
+    t1 = time.perf_counter()
+    sync = []
+    for p in paths:
+        with Image.open(p) as img:
+            sync.append(_resize_uint8(np.asarray(img.convert("RGB")), 1024))
+    sync_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    loader = AsyncVideoFrameLoader(paths, 1024, lookahead=2)
+    order = [0, 1, 6, 7, 2, 3, 4, 5]  # 6: a seek beyond the window; 2-5 behind it
+    same = [bool(np.array_equal(loader[i], sync[i])) for i in order]
+    async_s = time.perf_counter() - t1
+    loader.thread.join(timeout=60)
+    check(all(same) and len(loader) == T and not loader.thread.is_alive(),
+          f"async loader frames differ from a synchronous decode: {dict(zip(order, same))}")
+    out.update(sync_decode_s=sync_s, async_loader_s=async_s)
+    log(f"inputs (b): AsyncVideoFrameLoader, {T} JPEG frames at 1024, order {order}: every "
+        f"frame equal to a synchronous decode; host {async_s:.3f} s (synchronous "
+        f"{sync_s:.3f} s)")
+    walls["b"] = time.perf_counter() - t0
+
+    # (c) hiera-L from a yaml, the same weights: config and logits; (d) the
+    # native checkpoint round trip: logits
+    t0 = time.perf_counter()
+    set_backend(predictor, "eager")
+    image = structured_image(SEED)
+    weights = {k: v.detach() for k, v in predictor.model.module.state_dict().items()}
+
+    def logits(model):
+        """set_image, then a click: (logits at the image's size, IoUs,
+        low-res logits)."""
+        p = SAM2ImagePredictor(model)
+        p.set_image(image)
+        return p.predict(**PROMPTS["point"], multimask_output=True, return_logits=True)
+
+    def bitwise(a, b):
+        return all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+
+    want = logits(predictor.model)
+    if not have["yaml"]:
+        log("inputs (c) not run: yaml absent")
+    else:
+        from sam2_opt_tpu_torch.io.hydra_config import config_from_yaml, config_to_yaml
+
+        yaml_path = f"{root}/sam2.1_hiera_l.yaml"
+        with open(yaml_path, "w") as f:
+            f.write(config_to_yaml(model_config("hiera_l")))
+        check(config_from_yaml(yaml_path) == model_config("hiera_l"),
+              "the yaml's config differs from model_config('hiera_l')")
+        from_yaml = build_sam2(yaml_path, state_dict=weights)
+        same = bitwise(logits(from_yaml), want)
+        log(f"inputs (c): hiera-L from {os.path.basename(yaml_path)}, config equal to "
+            f"model_config('hiera_l'), set_image logits bitwise equal: {same}")
+        check(same, "the yaml-built model's logits differ")
+        out["yaml_bitwise"] = same
+        del from_yaml
+    native = f"{root}/hiera_l.pth"
+    t1 = time.perf_counter()
+    io_ckpt.save_params(native, weights)
+    save_s = time.perf_counter() - t1
+    reloaded = io_ckpt.build_from_any("hiera_l", native)
+    same_weights = all(torch.equal(v, weights[k].to(v.device))
+                       for k, v in reloaded.module.state_dict().items())
+    same = same_weights and bitwise(logits(reloaded), want)
+    log(f"inputs (d): save_params {os.path.getsize(native) / 2 ** 30:.2f} GiB in {save_s:.2f} s, "
+        f"build_from_any: weights and set_image logits bitwise equal: {same}")
+    check(same, "the native checkpoint does not give back the model")
+    out["checkpoint_bitwise"] = same
+    del reloaded, weights
+    torch.cuda.empty_cache()
+    walls["c+d"] = time.perf_counter() - t0
+
+    # (e) SA-V-fed training: two videos, JPEG frames and JSON/RLE manifests,
+    # through SAVRawDataset -> VOSDataset -> data_loader -> Trainer.run
+    t0 = time.perf_counter()
+    sav = f"{root}/sav"
+    write_sav_tree(sav, ["sav_000001", "sav_000002"])
+    raw = SAVRawDataset(sav)
+    check(len(raw) == 2 and len(raw.get_video(0).frames) == TRAIN_FRAMES,
+          "SAVRawDataset lists the annotated frames")
+    cfg = model_config("hiera_b+")
+    ds = VOSDataset(raw, RandomUniformSampler(num_frames=TRAIN_FRAMES,
+                                              max_num_objects=TRAIN_OBJECTS),
+                    image_size=cfg.image_size, max_num_objects=TRAIN_OBJECTS, seed=SEED)
+    write_s = time.perf_counter() - t0
+    tcfg = dataclasses.replace(train_config("bfloat16", f"{root}/train"),
+                               freeze_image_encoder=True)
+    trainer = Trainer(cfg, b_plus("cuda"), tcfg)
+    frozen = ["image_encoder.*"]
+    before = {n: p.detach().clone()
+              for n, p in train_ckpt.filter_params(trainer.model, include=frozen).items()}
+    others = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
+              if n not in before}
+    steps = len(ds)
+
+    def loader(epoch):
+        ds.set_epoch(epoch)
+        return data_loader(ds, 1, seed=SEED + epoch)
+
+    expect = launches_per_step()
+    # the main path of this part: counts to 0 just before, read just after
+    for c in counters.values():
+        c.launches = 0
+    trainer.run(loader, steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    losses = trainer.step_losses
+    log(f"inputs (e): SA-V tree of 2 videos x {SAV_FRAMES} frames {H}x{W} written in "
+        f"{write_s:.1f} s; Trainer.run bf16 hiera-b+ 1024², T = {TRAIN_FRAMES}, image encoder "
+        f"frozen: {len(losses)} steps, losses {[round(x, 4) for x in losses]}, ms per step "
+        f"{[round(1e3 * x, 1) for x in trainer.step_seconds]}, launches {got}")
+    check(len(losses) == steps == 2 and all(np.isfinite(losses)), "SA-V training losses")
+    check(got == {k: steps * v for k, v in expect.items()},
+          f"SA-V training launched {got}, expected {steps} x {expect}")
+    train_ckpt.assert_frozen_unchanged(before, trainer.model, frozen)
+    moved = sum(not torch.equal(p, others[n]) for n, p in trainer.model.named_parameters()
+                if n in others)
+    check(moved > 0, "no parameter outside the frozen encoder moved")
+    log(f"inputs (e): {len(before)} image-encoder parameters unchanged "
+        f"(assert_frozen_unchanged), {moved} of {len(others)} others moved")
+    out.update(sav_losses=losses, sav_step_ms=[1e3 * x for x in trainer.step_seconds],
+               sav_launches=got, frozen_unchanged=len(before), moved=moved)
+    del trainer, before, others
+    torch.cuda.empty_cache()
+    walls["e"] = time.perf_counter() - t0
+    out["walls_s"] = walls
+    log(f"inputs walls (s): {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+    return out
+
 
 
 # --------------------------------------------------------------------------- #
@@ -4116,12 +4419,14 @@ def main(argv):
         flash_attention, flash_attention_rope)
     video_times, k2 = phase_video_times(video_predictor, video, points, flash_attention_rope,
                                         flash_attention_rope_ref, rope_rotate)
+    counters = {"K1": flash_attention, "K2": flash_attention_rope,
+                "K3a": flash_attention_bwd_dkdv, "K3b": flash_attention_bwd_dq}
+    # slice 14: the input side, on the video predictor built above
+    inputs = phase_inputs(video_predictor, video, points, counters)
     del video_predictor
     torch.cuda.empty_cache()
 
     train_cpu = phase_train_vs_cpu()
-    counters = {"K1": flash_attention, "K2": flash_attention_rope,
-                "K3a": flash_attention_bwd_dkdv, "K3b": flash_attention_bwd_dq}
     train_runs, train_launches = phase_trainer(counters)
     cli_loss = phase_train_cli()
 
@@ -4232,6 +4537,10 @@ def main(argv):
         })
     for entry, key in zip(entries, ("K1", "K2", "K3a", "K3b")):
         entry["dp_training_launches_per_rank_step"] = [run[key] // PAR_STEPS for run in dp_runs]
+        # slice 14: the mp4 runs (fp32 and bf16) and the SA-V-fed steps
+        entry["inputs_mp4_launches"] = {dt: c[key] for dt, c in
+                                        inputs.get("mp4_launches", {}).items() if key in c}
+        entry["inputs_sav_training_launches"] = inputs["sav_launches"][key]
     # K5-K8: one kernel behind K5, K6 and K7; each row at the shape that
     # launches most on its main path, the other shapes beside it
     source = "sam2_opt_tpu_torch/csrc/window_attention.cu"
@@ -4329,7 +4638,8 @@ def main(argv):
                     "training": train_runs, "training_vs_cpu": train_cpu,
                     "training_cli_loss": cli_loss, "switches_default_launches": switch_launches,
                     "graphs": graphs, "serve": serve, "variants": variants,
-                    "parallel": parallel, "phase_seconds": PHASE_SECONDS, "card": smi[0]}))
+                    "parallel": parallel, "inputs": inputs, "phase_seconds": PHASE_SECONDS,
+                    "card": smi[0]}))
     log(json.dumps({"int8": int8, "card": smi[0]}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -2,11 +2,14 @@
 hydra); counterpart of `sam2_opt_tpu/build_sam.py`.
 
 Reference config names such as "configs/sam2.1/sam2.1_hiera_l.yaml" map to
-their variant. Everything runs on CUDA unless `device` says otherwise.
+their variant; the path of a yaml file on disk is ingested field by field
+(`io/hydra_config.py`). Everything runs on CUDA unless `device` says
+otherwise.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Optional
 
@@ -20,9 +23,14 @@ def _variant_from_config_name(name: str) -> str:
 
 def build_sam2(config_or_variant: str = "hiera_l", ckpt_path: Optional[str] = None,
                seed: int = 0, device=None, **kwargs) -> SAM2Model:
-    """Build the core model (reference build_sam2, build_sam.py:71-97):
+    """Build the core model (reference build_sam2, build_sam.py:71-97) of a
+    variant name, a reference config name or a reference yaml's path:
     weights from `ckpt_path` (a reference `.pt`), a given `state_dict`, or
     random from `seed`."""
+    if config_or_variant.endswith((".yaml", ".yml")) and os.path.exists(config_or_variant):
+        from sam2_opt_tpu_torch.io.hydra_config import config_from_yaml
+
+        kwargs["cfg"] = config_from_yaml(config_or_variant)
     return _build_model(_variant_from_config_name(config_or_variant),
                         checkpoint_path=ckpt_path, seed=seed, device=device, **kwargs)
 

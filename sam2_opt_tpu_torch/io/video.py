@@ -5,8 +5,9 @@ Frames are resized to the model resolution with torch (bilinear with
 antialias, as `utils/transforms.py::resize_to_model`) on the model's device,
 one at a time, and kept as uint8 [T, 3, S, S], as the JAX package keeps
 uint8 frames. Sources: an ndarray [T, H, W, 3] (uint8, or float in [0, 1]
-or [0, 255]) or a directory of JPEG or PNG frames read through Pillow, as
-the JAX loader reads them. No mp4.
+or [0, 255]), a directory of JPEG or PNG frames read through Pillow, or a
+video file (mp4) decoded through OpenCV, as the JAX loader reads them. cv2
+is imported only when a video file is read.
 """
 
 from __future__ import annotations
@@ -59,6 +60,42 @@ def _read_frame(path: str) -> np.ndarray:
         return np.asarray(img.convert("RGB"))
 
 
+def _resize_uint8(img: np.ndarray, size: int) -> np.ndarray:
+    """HWC uint8 RGB -> (size, size): OpenCV's area (down) or bilinear (up)
+    interpolation, Pillow's bilinear without OpenCV. The frames of
+    `utils.misc.AsyncVideoFrameLoader`, as the JAX package resizes them."""
+    try:
+        import cv2
+    except ImportError:
+        from PIL import Image
+
+        return np.asarray(Image.fromarray(img).resize((size, size), Image.BILINEAR))
+    interp = cv2.INTER_AREA if img.shape[0] > size else cv2.INTER_LINEAR
+    return cv2.resize(img, (size, size), interpolation=interp)
+
+
+def _read_mp4(path: str):
+    """uint8 [H, W, 3] RGB frames of a video file, decoded through OpenCV
+    (the reference decodes with decord, misc.py:280-309)."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise RuntimeError(f"cannot open video {path}")
+    frames = []
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    finally:
+        cap.release()
+    if not frames:
+        raise RuntimeError(f"no frames decoded from {path}")
+    return frames
+
+
 def _resize_frame(frame_hwc: np.ndarray, image_size: int, device) -> torch.Tensor:
     """uint8 [H, W, 3] -> uint8 [3, S, S], resized on `device`."""
     x = torch.as_tensor(np.array(frame_hwc), device=device).permute(2, 0, 1)[None]
@@ -78,9 +115,11 @@ def load_video_frames(video_path, image_size: int = 1024, offload_video_to_cpu: 
         frames = list(_to_uint8(video_path))
     elif isinstance(video_path, str) and os.path.isdir(video_path):
         frames = [_read_frame(p) for p in _frame_paths(video_path)]
+    elif isinstance(video_path, str):
+        frames = _read_mp4(video_path)
     else:
-        raise NotImplementedError(f"unsupported video source {video_path!r}: an ndarray "
-                                  f"[T, H, W, 3] or a JPEG or PNG directory (no mp4)")
+        raise NotImplementedError(f"unsupported video source {type(video_path)}: an ndarray "
+                                  f"[T, H, W, 3], a JPEG or PNG directory or a video file")
     video_h, video_w = frames[0].shape[:2]
     store = "cpu" if offload_video_to_cpu else device
     out = torch.stack([_resize_frame(f, image_size, device).to(store) for f in frames])

@@ -81,8 +81,11 @@ def state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A reference `.pt` checkpoint's `sd["model"]` (build_sam.py:164-174),
-    already in the port's layout, as fp32."""
+    """The state_dict of a checkpoint file, on the CPU: a reference `.pt`'s
+    `sd["model"]` (build_sam.py:164-174), already in the port's layout, as
+    fp32; a native file (`io/checkpoints.py`, a bare state_dict) as saved,
+    so an int8 model's quantized layers stay int8."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = sd.get("model", sd)
-    return {k: v.float() for k, v in sd.items()}
+    if "model" not in sd:
+        return sd
+    return {k: v.float() for k, v in sd["model"].items()}

@@ -123,10 +123,12 @@ class SAM2VideoPredictor:
     @torch.inference_mode()
     def init_state(self, video_path, offload_video_to_cpu: bool = False,
                    offload_state_to_cpu: bool = False, async_loading_frames: bool = False):
-        """Initialize an inference state (reference :147-205)."""
-        if offload_state_to_cpu or async_loading_frames:
-            raise NotImplementedError("offload_state_to_cpu and async_loading_frames are not "
-                                      "ported; see ROADMAP.md")
+        """Initialize an inference state (reference :147-205).
+        `offload_state_to_cpu` and `async_loading_frames` are recorded in
+        the state and change nothing else, as in the JAX package: the
+        memory bank stays on the model's device, and the video is loaded
+        whole before tracking starts (`utils.misc.AsyncVideoFrameLoader`
+        streams JPEG frames for a caller that wants them one at a time)."""
         frames, video_height, video_width = load_video_frames(
             video_path, self.image_size, offload_video_to_cpu, device=self.device)
         inference_state = {
@@ -134,6 +136,7 @@ class SAM2VideoPredictor:
             "num_frames": len(frames),
             "offload_video_to_cpu": offload_video_to_cpu,
             "offload_state_to_cpu": offload_state_to_cpu,
+            "async_loading_frames": async_loading_frames,
             "video_height": video_height,
             "video_width": video_width,
             "device": self.device,

@@ -1,21 +1,201 @@
 """VOS training data pipeline (host side, numpy).
 
-A copy of the parts of `sam2_opt_tpu/training/data.py` that the trainer's
-PNG path runs (the port imports nothing of the JAX package): the DAVIS/MOSE
-folder reader, the frame samplers, the per-video augmentations, the dataset
-and the batching (reference sam2/training/dataset/). The SA-V readers
-(per-object PNG trees, JSON/RLE manifests) and the mixed-dataset loader are
-not ported yet. Pillow is imported where images are read.
+A copy of `sam2_opt_tpu/training/data.py` (the port imports nothing of the
+JAX package; reference sam2/training/dataset/): the COCO RLE codec, the
+segment loaders (palettised PNG, per-object PNG, SA-V JSON/RLE manifests),
+the DAVIS/MOSE folder reader and the SA-V reader, the frame samplers, the
+per-video augmentations, the dataset, the mixed-dataset loader and the
+batching. Pillow is imported where images are read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob as _glob
+import json
 import os
 import random
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+
+# COCO RLE codec (pure numpy; the reference decodes SA-V manifests with
+# pycocotools, vos_segment_loader.py:17-19,70-73)
+
+def _leb_decode_counts(s) -> List[int]:
+    """Decode COCO's compressed LEB128-style counts string."""
+    if isinstance(s, str):
+        s = s.encode("ascii")
+    counts: List[int] = []
+    i, n = 0, len(s)
+    while i < n:
+        x = k = 0
+        more = True
+        while more:
+            c = s[i] - 48
+            x |= (c & 0x1F) << (5 * k)
+            more = bool(c & 0x20)
+            i += 1
+            k += 1
+            if not more and (c & 0x10):
+                x |= -1 << (5 * k)
+        if len(counts) > 2:
+            x += counts[-2]
+        counts.append(x)
+    return counts
+
+
+def _leb_encode_counts(counts: Sequence[int]) -> str:
+    """Inverse of `_leb_decode_counts`."""
+    out = bytearray()
+    for i, x in enumerate(counts):
+        if i > 2:
+            x -= counts[i - 2]
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = x != -1 if (c & 0x10) else x != 0
+            if more:
+                c |= 0x20
+            out.append(c + 48)
+    return out.decode("ascii")
+
+
+def decode_coco_rle(rle: Dict) -> np.ndarray:
+    """{"size": [H, W], "counts": str | bytes | list} -> bool [H, W]. Runs
+    are column-major (Fortran order), starting with background."""
+    h, w = rle["size"]
+    counts = rle["counts"]
+    if isinstance(counts, (str, bytes)):
+        counts = _leb_decode_counts(counts)
+    flat = np.zeros(h * w, bool)
+    pos, val = 0, False
+    for c in counts:
+        if val:
+            flat[pos:pos + c] = True
+        pos += c
+        val = not val
+    return flat.reshape((w, h)).T
+
+
+def encode_coco_rle(mask: np.ndarray) -> Dict:
+    """bool [H, W] -> compressed COCO RLE dict."""
+    h, w = mask.shape
+    flat = np.asarray(mask, bool).T.reshape(-1)  # column-major
+    change = np.flatnonzero(flat[1:] != flat[:-1]) + 1
+    counts = np.diff(np.concatenate([[0], change, [flat.size]])).tolist()
+    if flat.size and flat[0]:
+        counts = [0] + counts
+    return {"size": [h, w], "counts": _leb_encode_counts(counts)}
+
+
+# segment loaders (reference vos_segment_loader.py)
+
+class PalettisedPNGSegmentLoader:
+    """Masks stored as one palettised PNG per frame; pixel value = object id
+    (reference PalettisedPNGSegmentLoader :103-148)."""
+
+    def __init__(self, video_png_root: str):
+        self.root = video_png_root
+        self.frame_id_to_png = {}
+        for fn in os.listdir(video_png_root):
+            stem, ext = os.path.splitext(fn)
+            if ext.lower() == ".png":
+                self.frame_id_to_png[int(stem)] = os.path.join(video_png_root, fn)
+
+    def load(self, frame_id: int) -> Dict[int, np.ndarray]:
+        from PIL import Image
+
+        with Image.open(self.frame_id_to_png[frame_id]) as img:
+            arr = np.asarray(img.convert("P"))
+        return {int(v): arr == v for v in np.unique(arr) if v != 0}
+
+
+class MultiplePNGSegmentLoader:
+    """SA-V layout: one binary PNG per object per frame under
+    <video>/<obj_id>/<frame:05d>.png; a missing file is an empty mask
+    (reference MultiplePNGSegmentLoader :151-227).
+
+    Object ids are <dir name> + 1, the palette convention where 0 is the
+    background; `JSONSegmentLoader`'s ids are 0-based masklet indices (the
+    SA-V JSON has no background entry), so the two layouts' ids are
+    consistent within a video but not comparable across layouts."""
+
+    def __init__(self, video_png_root: str):
+        from PIL import Image
+
+        self.root = video_png_root
+        sample = _glob.glob(os.path.join(video_png_root, "*", "*.png"))
+        if not sample:
+            raise FileNotFoundError(f"no per-object masks under {video_png_root}")
+        with Image.open(sample[0]) as img:
+            self.H, self.W = np.asarray(img).shape[:2]
+        self.obj_dirs = sorted(d for d in _glob.glob(os.path.join(video_png_root, "*"))
+                               if os.path.isdir(d))
+
+    def load(self, frame_id: int) -> Dict[int, np.ndarray]:
+        from PIL import Image
+
+        out = {}
+        for d in self.obj_dirs:
+            obj_id = int(os.path.basename(d)) + 1  # the background is 0
+            path = os.path.join(d, f"{frame_id:05d}.png")
+            if os.path.exists(path):
+                with Image.open(path) as img:
+                    out[obj_id] = np.asarray(img) > 0
+            else:
+                out[obj_id] = np.zeros((self.H, self.W), bool)
+        return out
+
+
+class JSONSegmentLoader:
+    """SA-V manifest: <video>.json with per-frame lists of COCO RLEs (field
+    "masklet"), annotated every `ann_every` frames (6 fps annotations on 24
+    fps video: ann_every = 4; reference JSONSegmentLoader :23-101). Object
+    ids are 0-based masklet indices (see `MultiplePNGSegmentLoader`)."""
+
+    def __init__(self, video_json_path: str, ann_every: int = 1, frames_fps: int = 24):
+        self.ann_every = ann_every
+        with open(video_json_path) as f:
+            data = json.load(f)
+        if isinstance(data, list):
+            self.frame_annots = data
+        else:
+            self.frame_annots = data["masklet" if "masklet" in data else "masks"]
+            if "fps" in data:
+                fps = data["fps"]
+                ann_fps = int(fps[0] if isinstance(fps, list) else fps)
+                if frames_fps % ann_fps:
+                    raise ValueError(f"{video_json_path}: annotations at {ann_fps} fps do not "
+                                     f"divide the frames' {frames_fps} fps")
+                self.ann_every = frames_fps // ann_fps
+
+    def load(self, frame_id: int, obj_ids: Optional[Sequence[int]] = None
+             ) -> Dict[int, np.ndarray]:
+        if frame_id % self.ann_every:
+            raise ValueError(f"frame {frame_id} is not annotated (every {self.ann_every})")
+        rles = self.frame_annots[frame_id // self.ann_every]
+        out = {}
+        for oid in (range(len(rles)) if obj_ids is None else obj_ids):
+            rle = rles[oid] if oid < len(rles) else None
+            if rle is not None:
+                out[int(oid)] = decode_coco_rle(rle)
+        return out
+
+    def get_valid_obj_frames_ids(self, num_frames_min: Optional[int] = None):
+        """Per object, the annotated frame ids with a mask (reference
+        :83-101); objects with fewer than `num_frames_min` are dropped."""
+        num_objects = len(self.frame_annots[0])
+        res = {oid: [] for oid in range(num_objects)}
+        for ann_idx, annot in enumerate(self.frame_annots):
+            for oid in range(num_objects):
+                if annot[oid] is not None:
+                    res[oid].append(int(ann_idx * self.ann_every))
+        if num_frames_min is not None:
+            res = {oid: f for oid, f in res.items() if len(f) >= num_frames_min}
+        return res
 
 
 @dataclasses.dataclass
@@ -70,6 +250,42 @@ class PNGRawDataset(VOSRawDataset):
                 for p in frames
             ]
         return VOSVideo(name, frames, masks)
+
+
+class SAVRawDataset(VOSRawDataset):
+    """SA-V layout: JPEGImages_24fps/<video>/<frame>.jpg with annotations
+    either as per-object PNG trees (Annotations_6fps/<video>/<obj>/<frame>.png)
+    or as per-video JSON/RLE manifests (<sav_root>/<video>.json). The
+    annotations run at 6 fps on 24 fps frames, so only every `ann_every`-th
+    frame is listed (reference JSONRawDataset and vos_segment_loader.py)."""
+
+    def __init__(self, sav_root: str, ann_every: int = 4):
+        self.img_root = os.path.join(sav_root, "JPEGImages_24fps")
+        self.ann_root = os.path.join(sav_root, "Annotations_6fps")
+        self.json_root = sav_root
+        self.ann_every = ann_every
+        self.video_names = sorted(os.listdir(self.img_root))
+
+    def __len__(self):
+        return len(self.video_names)
+
+    def get_video(self, idx: int) -> VOSVideo:
+        name = self.video_names[idx]
+        vdir = os.path.join(self.img_root, name)
+        frames, frame_ids = [], []
+        for p in sorted(p for p in os.listdir(vdir) if p.lower().endswith(".jpg")):
+            fid = int(os.path.splitext(p)[0])
+            if fid % self.ann_every == 0:
+                frames.append(os.path.join(vdir, p))
+                frame_ids.append(fid)
+        loader = None
+        png_dir = os.path.join(self.ann_root, name)
+        json_path = os.path.join(self.json_root, f"{name}.json")
+        if os.path.isdir(png_dir):
+            loader = MultiplePNGSegmentLoader(png_dir)
+        elif os.path.exists(json_path):
+            loader = JSONSegmentLoader(json_path, ann_every=self.ann_every)
+        return VOSVideo(name, frames, None, segment_loader=loader, frame_ids=frame_ids)
 
 
 @dataclasses.dataclass
@@ -402,6 +618,81 @@ class VOSDataset:
         images, masks = self.transforms(images, masks, rng)
         return {"images": images, "masks": masks, "obj_valid": obj_valid,
                 "video_name": video.video_name}
+
+
+class TorchTrainMixedDataset:
+    """Several datasets mixed (reference sam2_datasets.py:70-170): each
+    batch comes from one dataset, drawn by probability (by default in
+    proportion to its batch count), and an exhausted loader drops out of
+    the mix. `phases_per_epoch` splits each dataset's epoch into consecutive
+    chunks, so a large dataset interleaves with small ones below an epoch."""
+
+    def __init__(self, datasets: Sequence[VOSDataset], batch_sizes=None,
+                 dataset_prob: Optional[Sequence[float]] = None,
+                 phases_per_epoch: int = 1, drop_last: bool = True):
+        if not datasets:
+            raise ValueError("need at least one dataset")
+        self.datasets = list(datasets)
+        self.batch_sizes = list(batch_sizes) if batch_sizes is not None else [1] * len(datasets)
+        if len(self.batch_sizes) != len(self.datasets):
+            raise ValueError("one batch size per dataset")
+        self.drop_last = drop_last
+        self.phases_per_epoch = max(int(phases_per_epoch), 1)
+        self._chunks: List[Optional[List[List[int]]]] = [None] * len(self.datasets)
+        if dataset_prob is None:
+            lens = [len(d) // bs if drop_last else -(-len(d) // bs)
+                    for d, bs in zip(self.datasets, self.batch_sizes)]
+            total = max(sum(lens), 1)
+            dataset_prob = [n / total for n in lens]
+        if abs(sum(dataset_prob) - 1.0) >= 1e-6:
+            raise ValueError("dataset probabilities must sum to 1")
+        self.dataset_prob = list(dataset_prob)
+
+    def __len__(self):
+        return sum(len(d) for d in self.datasets)
+
+    def _phase_indices(self, d_idx: int, epoch: int, rng) -> List[int]:
+        """This epoch's chunk of dataset d_idx's indices (the reference
+        get_loader's phases, sam2_datasets.py:137-155)."""
+        n = len(self.datasets[d_idx])
+        if self.phases_per_epoch == 1:
+            order = list(range(n))
+            rng.shuffle(order)
+            return order
+        phase = epoch % self.phases_per_epoch
+        if phase == 0 or self._chunks[d_idx] is None:
+            order = list(range(n))
+            random.Random(rng.random()).shuffle(order)
+            size = -(-n // self.phases_per_epoch)
+            self._chunks[d_idx] = [order[i * size:(i + 1) * size]
+                                   for i in range(self.phases_per_epoch)]
+        return list(self._chunks[d_idx][phase])
+
+    def get_loader(self, epoch: int, seed: int = 0) -> Iterator[Dict]:
+        """Collated batches of one epoch of the mix."""
+        rng = random.Random(seed + epoch)
+        iters = []
+        for d_idx, (ds, bs) in enumerate(zip(self.datasets, self.batch_sizes)):
+            idxs = self._phase_indices(d_idx, epoch, rng)
+
+            def batches(ds=ds, bs=bs, idxs=idxs):
+                batch = []
+                for i in idxs:
+                    batch.append(ds[i])
+                    if len(batch) == bs:
+                        yield collate_videos(batch)
+                        batch = []
+                if batch and not self.drop_last:
+                    yield collate_videos(batch)
+
+            iters.append(batches())
+        alive = list(range(len(iters)))
+        while alive:
+            pick = rng.choices(alive, weights=[self.dataset_prob[i] for i in alive])[0]
+            try:
+                yield next(iters[pick])
+            except StopIteration:
+                alive.remove(pick)
 
 
 def collate_videos(samples: List[Dict]) -> Dict[str, np.ndarray]:

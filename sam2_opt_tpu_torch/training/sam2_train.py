@@ -83,6 +83,44 @@ def sample_box_points(u, masks, noise: float = 0.1, noise_bound: int = 20):
     return coords, labels
 
 
+def get_next_point(gt_masks: np.ndarray, pred_masks, method: str = "uniform", rng=None):
+    """The host's next-click sampler of eval-style interactive correction
+    (reference sam2_utils.py:317 get_next_point), outside the training
+    step: "uniform" draws a pixel of the error region (of the ground truth
+    where the prediction has no error) with `rng` (an
+    `np.random.RandomState`, numpy's global one by default, as the JAX
+    package draws, or an `np.random.Generator`); "center" takes the pixel
+    farthest inside it (OpenCV's distance transform). gt/pred [B, 1, H, W]
+    bool (pred may be None). Returns (coords [B, 1, 2] float32 xy, labels
+    [B, 1] int32: 1 in a missed region, 0 in a false one, -1 where the
+    ground truth is empty and there is no error)."""
+    rng = np.random if rng is None else rng
+    B, _, H, W = gt_masks.shape
+    coords = np.zeros((B, 1, 2), np.float32)
+    labels = np.zeros((B, 1), np.int32)
+    for b in range(B):
+        gt = gt_masks[b, 0].astype(bool)
+        pred = np.zeros_like(gt) if pred_masks is None else pred_masks[b, 0].astype(bool)
+        fn = gt & ~pred
+        error = (~gt & pred) | fn
+        pool = error if error.any() else gt
+        if not pool.any():
+            labels[b, 0] = -1
+            continue
+        if method == "center":
+            import cv2
+
+            dist = cv2.distanceTransform(pool.astype(np.uint8), cv2.DIST_L2, 0)
+            y, x = np.unravel_index(np.argmax(dist), dist.shape)
+        else:
+            ys, xs = np.nonzero(pool)
+            i = rng.integers(len(ys)) if hasattr(rng, "integers") else rng.randint(len(ys))
+            y, x = ys[i], xs[i]
+        coords[b, 0] = (x, y)
+        labels[b, 0] = 1 if (fn[y, x] or not error.any()) else 0
+    return coords, labels
+
+
 def _init_prompt(u, gt_masks, use_box: bool):
     """Initial prompt in a static [B, 2] layout: the two jittered box corners
     (labels 2/3), or one positive click from the GT mask plus one padding

@@ -142,8 +142,9 @@ def test_unported_options_raise(predictors, tiny128_cfg):
     _, port_pred = predictors
     with pytest.raises(ValueError, match="unknown quant scope"):
         port_pred.model.speedup("int8", quant_scope="decoder")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SAM2VideoPredictor(port_pred.model).init_state(_image()[None], async_loading_frames=True)
+    state = SAM2VideoPredictor(port_pred.model).init_state(_image()[None],
+                                                           async_loading_frames=True)
+    assert state["async_loading_frames"] and not state["offload_state_to_cpu"]
     with pytest.raises(ValueError):  # the reference's engine names are not accepted
         port_pred.speedup("tensorrt")
     with pytest.raises(ValueError):  # bf16 on "cuda" is the one reduced precision

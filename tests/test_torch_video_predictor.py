@@ -188,7 +188,8 @@ def test_bf16_video_mask_miou(tiny128_cfg, weights):
 
 def test_video_loader_sources(tmp_path):
     """ndarray uint8 and float frames, and a JPEG directory, resized to the
-    model size with torch (bilinear, antialias) and kept as uint8."""
+    model size with torch (bilinear, antialias) and kept as uint8; a path
+    that is neither a directory nor a video file that opens raises."""
     from PIL import Image
 
     rng = np.random.default_rng(1)
@@ -203,7 +204,7 @@ def test_video_loader_sources(tmp_path):
     from_dir, h, w = load_video_frames(str(tmp_path), 32, device="cpu")
     assert (h, w) == (60, 90)
     assert torch.equal(from_dir, load_video_frames(decoded, 32, device="cpu")[0])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="cannot open video"):
         load_video_frames(str(tmp_path / "clip.mp4"), 32, device="cpu")
 
 
