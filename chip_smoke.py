@@ -106,8 +106,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    predictor over 3 frames in fp32 and bf16 with exact launches per
    tracked frame (K1, K2, K4): (3, 4, 4) under `SAM2_TPU_FUSED_KV_PROJ=1`,
    (11, 0, 0) under `SAM2_TPU_FUSED_ROPE=0`; fp32 logits held to the
-   default route, bf16 masks by mIoU; ms per tracked frame and the device
-   split of all three routes;
+   default route, bf16 masks by mIoU (its per-route timings went in slice
+   15);
 17. training under the switch: `Trainer.run` at hiera-b+ 1024², two fp32
    and two bf16 steps with exact launches per step (K1 6, K2 28, K4 28, K3a 59, K3b
    59), the fp32 first-step loss held to phase 10's default route; then
@@ -217,7 +217,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    `assert_frozen_unchanged` on the encoder; the host seconds of the mp4
    decode and of the async loader, and the walls of (a)-(e). Where cv2 or
    yaml does not import, (a) or (c) logs "not run" and the rest runs.
-Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 25, 9-10, 15-24; each
+26. export and the last modules (slice 15), on phase 6's video predictor,
+   phase 5's image and phase 25's JPEG frames: (a) `export_all` in bf16
+   writes the four seams as `torch.export` programs (and `track_step` once
+   more under `SAM2_TPU_FUSED_KV_PROJ=1`); a new process that builds no
+   model loads and runs each on real inputs: kernel nodes and launches per
+   call (K1 3 in `set_image_e2e`, K2 8 in `track_step`, K2 4 + K4 4 under
+   the switch), every output within 2^-8 of its scale of the same seam run
+   eagerly here and masks at IoU >= 0.999 (bitwise equality expected and
+   reported); the export, save and load walls and the file sizes; (b)
+   `native.available()`, the 8 frames decoded natively against Pillow
+   (host seconds), a bf16 video run from the folder (K1 3 per encoded
+   frame, K2 8 per tracked frame) whose frames equal the decode of the path
+   that ran (Pillow where the library does not build); (c)
+   `utils.profiling.trace` around a graph-replayed tracked frame names K1's
+   and K2's kernels, `fps_benchmark` and `timed` on it; (d)
+   `examples.image` and `examples.video` (3 frames) on a checkpoint of the
+   same weights write their outputs, their masks at IoU >= 0.999 against
+   the same calls in this process.
+Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 25, 26, 9-10, 15-24; each
 phase that sets a switch restores it and logs its wall seconds, which the
 summary line before the kernels line gathers under "phase_seconds". Since slice 6, K8 (phases 12-14) is a
 warp-specialised wgmma/TMA kernel; phase 14 also gives the bound of the
@@ -1335,7 +1353,7 @@ def phase_inputs(predictor, video, points, counters):
     loader.thread.join(timeout=60)
     check(all(same) and len(loader) == T and not loader.thread.is_alive(),
           f"async loader frames differ from a synchronous decode: {dict(zip(order, same))}")
-    out.update(sync_decode_s=sync_s, async_loader_s=async_s)
+    out.update(sync_decode_s=sync_s, async_loader_s=async_s, jpeg_dir=jpeg_dir)
     log(f"inputs (b): AsyncVideoFrameLoader, {T} JPEG frames at 1024, order {order}: every "
         f"frame equal to a synchronous decode; host {async_s:.3f} s (synchronous "
         f"{sync_s:.3f} s)")
@@ -1449,6 +1467,326 @@ def phase_inputs(predictor, video, points, counters):
     log(f"inputs walls (s): {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
     return out
 
+
+
+# --------------------------------------------------------------------------- #
+# slice 15: export, the native decode, profiling and the examples
+# --------------------------------------------------------------------------- #
+
+EXPORT_IOU_MIN = 0.999       # exported vs eager masks, per seam output
+EXPORT_LOGIT_RTOL = 2.0 ** -8  # of each output's scale; the same ops in one order: 0 expected
+EXPORT_TIMEOUT_S = 300
+# exported kernel nodes and launches per call: K1 in the trunk's 3 global
+# blocks, K2 in memory attention's 4 self and 4 cross attentions (K4 takes
+# the 4 cross ones under SAM2_TPU_FUSED_KV_PROJ=1)
+EXPORT_LAUNCHES = {"set_image_e2e": {"flash_attention": 3},
+                   "track_step": {"flash_attention_rope": 8},
+                   "track_step_k4": {"flash_attention_rope": 4, "flash_attention_kv_proj": 4},
+                   "memory_encoder": {}, "predict_masks": {}}
+EXAMPLE_FRAMES = 3
+
+
+def export_seam_inputs(module, cfg, video, points):
+    """Real inputs of the four seams at their exported shapes: frame 0 of
+    the video through set_image_e2e, the click's track_step_init, whose
+    memory and pointer fill slot 0 of frame 1's MemoryInput (the other
+    slots masked), frame 1's features, its mask for the memory encoder and
+    the click for predict_masks. Returns {seam: args}, on the card."""
+    from sam2_opt_tpu_torch.export import export_program as ex
+    from sam2_opt_tpu_torch.io.video import load_video_frames
+    from sam2_opt_tpu_torch.models import video_core as vc
+
+    S, dtype = cfg.image_size, next(module.parameters()).dtype
+    frames, H, W = load_video_frames(video[:2], S, device="cuda")
+    images = frames.to(dtype) / 255.0
+    with torch.inference_mode():
+        f_0 = ex.set_image_e2e(module, cfg, images[:1])
+        f_1 = ex.set_image_e2e(module, cfg, images[1:2])
+        coords = torch.as_tensor(points * np.array([S / W, S / H], np.float32), device="cuda")
+        labels = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+        first = vc.track_step_init(module, cfg, f_0, coords[None], labels, None,
+                                   multimask_output=True, run_mem_encoder=True)
+    zeros = ex.example_inputs(cfg, dtype, "cuda")
+    mem = zeros["track_step"][3]
+    valid, ptr_valid = mem.valid.clone(), mem.ptr_valid.clone()
+    valid[0, 0] = ptr_valid[0, 0] = True
+    mem = mem._replace(feats=(first["maskmem_features"], *mem.feats[1:]), valid=valid,
+                       ptrs=(first["obj_ptr"], *mem.ptrs[1:]), ptr_valid=ptr_valid,
+                       tpos_idx=torch.arange(cfg.num_maskmem, device="cuda")[None],
+                       ptr_pos=torch.arange(len(mem.ptrs), dtype=torch.float32,
+                                            device="cuda")[None] / len(mem.ptrs))
+    high = F.interpolate(first["pred_masks"].float(), (S, S), mode="bilinear")
+    return {"set_image_e2e": (images[1:2],), "track_step": (*f_1, mem),
+            "track_step_k4": (*f_1, mem),
+            "memory_encoder": (f_1[2], high, first["object_score_logits"]),
+            "predict_masks": (f_1[2], f_1[0], f_1[1], coords[None], labels)}
+
+
+def exported_worker(out):
+    """The fresh process of phase 26 (a): loads every program under `out`
+    (`load_exported`; no model is built here), runs each once on
+    `out/inputs.pt`, the kernel counters set to 0 just before each call and
+    read just after; writes `out/outputs.pt` and `out/worker.json` (load
+    seconds, graph nodes and launches per program)."""
+    import traceback
+
+    from sam2_opt_tpu_torch.models import sam2_base
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("the exported programs' process builds no model")
+
+    sam2_base.SAM2Base.__init__ = refuse
+    try:
+        from sam2_opt_tpu_torch.export import export_program as ex
+        from sam2_opt_tpu_torch.kernels import flash_attention as fa
+
+        counters = {"flash_attention": fa.flash_attention,
+                    "flash_attention_rope": fa.flash_attention_rope,
+                    "flash_attention_kv_proj": fa.flash_attention_kv_proj}
+        inputs = torch.load(f"{out}/inputs.pt", map_location="cuda", weights_only=False)
+        result, outputs = {}, {}
+        for name, args in inputs.items():
+            t0 = time.perf_counter()
+            program = ex.load_exported(f"{out}/{name}.pt2")
+            fn = program.module()
+            load_s = time.perf_counter() - t0
+            for c in counters.values():
+                c.launches = 0
+            with torch.inference_mode():
+                got = fn(*args)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items() if c.launches}
+            outputs[name] = tuple(t.cpu() for t in got)
+            result[name] = dict(load_s=load_s, nodes=ex.kernel_nodes(program),
+                                launches=launches)
+            del program, fn
+        torch.save(outputs, f"{out}/outputs.pt")
+        with open(f"{out}/worker.json", "w") as f:
+            json.dump(result, f)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+
+
+def run_exported_worker(out):
+    """exported_worker(out) in a new process; its log, its exit code checked."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.exported_worker(sys.argv[1])",
+         out], cwd=here, capture_output=True, text=True, timeout=EXPORT_TIMEOUT_S)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        log(f"  [exported] {line}")
+    check(proc.returncode == 0, f"the exported programs' process exited {proc.returncode}")
+    with open(f"{out}/worker.json") as f:
+        result = json.load(f)
+    return result, torch.load(f"{out}/outputs.pt", weights_only=False), time.perf_counter() - t0
+
+
+def same_outputs(got, want, what):
+    """Largest |got - want| over each output's scale, masks (logit outputs
+    with a spatial extent) by IoU of their positive parts; checked against
+    EXPORT_LOGIT_RTOL and EXPORT_IOU_MIN."""
+    worst, ious = 0.0, []
+    for a, b in zip(got, want):
+        a, b = a.float().cpu(), b.float().cpu()
+        check(a.shape == b.shape, f"{what}: shape {tuple(a.shape)} vs {tuple(b.shape)}")
+        scale = max(1.0, float(b.abs().max()))
+        worst = max(worst, float((a - b).abs().max()) / scale)
+        if a.dim() == 4 and a.shape[1] <= 3:
+            ious.append(float(miou(a.numpy() > 0, b.numpy() > 0)))
+    check(worst <= EXPORT_LOGIT_RTOL and all(x >= EXPORT_IOU_MIN for x in ious),
+          f"{what}: exported vs eager max|d|/scale {worst:.3e}, mask IoUs {ious}")
+    return worst, ious
+
+
+@phase
+def phase_export(predictor, image, video, points, jpeg_dir, counters):
+    """Slice 15 on the card, on phase 6's video predictor (bias raised),
+    phase 5's image, phase 6's video and phase 25's JPEG frames: (a) the
+    four seams exported in bf16 by `export_all` (and track_step again
+    under SAM2_TPU_FUSED_KV_PROJ=1), loaded and run in a new process that
+    builds no model, held against the same seams run eagerly here, with
+    their kernel nodes and launches; (b) the native JPEG decode and a video
+    run from the folder; (c) `utils.profiling` around a graph-replayed
+    tracked frame; (d) `examples.image` and `examples.video` against the
+    same calls in this process."""
+    import tempfile
+
+    from PIL import Image
+
+    from sam2_opt_tpu_torch.examples import image as ex_image
+    from sam2_opt_tpu_torch.examples import video as ex_video
+    from sam2_opt_tpu_torch.export import export_program as ex
+    from sam2_opt_tpu_torch.io import native
+    from sam2_opt_tpu_torch.io.video import _frame_paths, _read_frame, _resize_uint8
+    from sam2_opt_tpu_torch.predictors.image import SAM2ImagePredictor
+    from sam2_opt_tpu_torch.utils import profiling
+
+    root = tempfile.mkdtemp(prefix="sam2_chip_smoke_export_")
+    out, walls = {}, {}
+    model, cfg = predictor.model, predictor.model.cfg
+    flash_attention, flash_attention_rope = counters["K1"], counters["K2"]
+
+    # (a) export_all in bf16 (the JAX default), save timed apart; track_step
+    # once more under K4's switch
+    t0 = time.perf_counter()
+    save_s, real_save = {}, torch.export.save
+
+    def timed_save(program, path, *args, **kwargs):
+        t1 = time.perf_counter()
+        real_save(program, path, *args, **kwargs)
+        save_s[os.path.basename(path)] = time.perf_counter() - t1
+
+    torch.export.save = timed_save
+    try:
+        paths = ex.export_all(model, root, dtype=torch.bfloat16)
+    finally:
+        torch.export.save = real_save
+    export_s = time.perf_counter() - t0 - sum(save_s.values())
+    check(sorted(paths) == sorted(ex.SEAMS), f"export_all wrote {sorted(paths)}")
+    module = ex.compute_module(model, torch.bfloat16)
+    inputs = export_seam_inputs(module, cfg, video, points)
+    t1 = time.perf_counter()
+    with switches(K4_SWITCH):
+        real_save(ex.export_seam(module, cfg, "track_step", inputs["track_step_k4"]),
+                  f"{root}/track_step_k4.pt2")
+    k4_export_s = time.perf_counter() - t1
+    sizes = {name: os.path.getsize(f"{root}/{name}.pt2") for name in inputs}
+    log(f"export (a): export_all bf16 {export_s:.1f} s tracing, save {json.dumps(save_s)} s; "
+        f"track_step under SAM2_TPU_FUSED_KV_PROJ=1 {k4_export_s:.1f} s; sizes (MB) "
+        f"{json.dumps({k: round(v / 1e6, 1) for k, v in sizes.items()})}")
+    eager = {}
+    with torch.inference_mode():
+        for name, args in inputs.items():
+            fn = getattr(ex, name.replace("_k4", ""))
+            with switches(K4_SWITCH if name.endswith("_k4") else {}):
+                eager[name] = tuple(t.cpu() for t in ex.Seam(module, cfg, fn)(*args))
+    torch.save({k: v for k, v in inputs.items()}, f"{root}/inputs.pt")
+    del module
+    torch.cuda.empty_cache()
+    worker, exported, worker_s = run_exported_worker(root)
+    agree = {}
+    for name, want in EXPORT_LAUNCHES.items():
+        got = worker[name]
+        log(f"  {name}: load {got['load_s']:.2f} s, kernel nodes {got['nodes']}, launches "
+            f"{got['launches']}")
+        check(got["nodes"] == want and got["launches"] == want,
+              f"{name}: kernel nodes {got['nodes']} and launches {got['launches']}, want {want}")
+        worst, ious = same_outputs(exported[name], eager[name], name)
+        bitwise = all(torch.equal(a, b) for a, b in zip(exported[name], eager[name]))
+        agree[name] = dict(max_rel=worst, ious=ious, bitwise=bitwise)
+        log(f"  {name}: exported vs eager max|d|/scale {worst:.3e}, mask IoUs {ious}, bitwise "
+            f"{bitwise}")
+    out.update(export_s=export_s, save_s=save_s, k4_export_s=k4_export_s, sizes=sizes,
+               worker=worker, worker_s=worker_s, agreement=agree)
+    walls["a"] = time.perf_counter() - t0
+
+    # (b) the native decode of phase 25's JPEG frames, against Pillow, and a
+    # video run from the folder
+    t0 = time.perf_counter()
+    paths_jpg = _frame_paths(jpeg_dir)
+    t1 = time.perf_counter()
+    pillow = np.stack([_resize_uint8(_read_frame(p), cfg.image_size) for p in paths_jpg])
+    pillow_s = time.perf_counter() - t1
+    out["native_available"] = native.available()
+    if out["native_available"]:
+        t1 = time.perf_counter()
+        decoded = native.decode_jpeg_batch(paths_jpg, cfg.image_size)
+        out["native_decode_s"] = time.perf_counter() - t1
+        check(decoded is not None, "the native decode failed")
+        out["native_vs_pillow_mean_abs"] = float(np.abs(decoded.astype(np.float32)
+                                                        - pillow).mean())
+        path = "native"
+    else:
+        decoded, path = pillow, "pillow"
+        log(f"decode (b): native library unavailable: {native.build_error()}")
+    out.update(decode_path=path, pillow_decode_s=pillow_s)
+    set_backend(predictor, "cuda", torch.bfloat16)
+    T = len(paths_jpg)
+    flash_attention.launches = flash_attention_rope.launches = 0
+    state, masks, per_frame = track(predictor, jpeg_dir, T, points,
+                                    counts=(flash_attention, flash_attention_rope))
+    torch.cuda.synchronize()
+    k1, k2 = flash_attention.launches, flash_attention_rope.launches
+    check(np.array_equal(state["images"].permute(0, 2, 3, 1).cpu().numpy(), decoded),
+          f"the loaded frames are not the {path} decode")
+    check(k1 == 3 * T and k2 == 8 * (T - 1) and all(f == (3, 8) for f in per_frame[1:]),
+          f"video from the JPEG folder: K1 {k1}, K2 {k2}, per frame {per_frame}")
+    out["jpeg_launches"] = {"K1": k1, "K2": k2}
+    log(f"decode (b): {T} JPEG frames at {cfg.image_size} on the {path} path: "
+        + (f"native {out['native_decode_s']:.3f} s, " if path == "native" else "")
+        + f"Pillow + _resize_uint8 {pillow_s:.3f} s (host); the video run from the folder: "
+        f"K1 {k1}, K2 {k2}")
+    walls["b"] = time.perf_counter() - t0
+
+    # (c) utils.profiling on a graph-replayed tracked frame
+    t0 = time.perf_counter()
+    predictor.speedup()
+    state = predictor.init_state(video)
+    predictor.add_new_points_or_box(state, 0, 1, points=points, labels=np.array([1], np.int32))
+    list(predictor.propagate_in_video(state))  # captures every graph
+
+    def frame():
+        """Frame 1 tracked again and encoded afresh: the predictor keeps the
+        last frame's features, which would skip the encoder (K1)."""
+        state["cached_features"].clear()
+        return list(predictor.propagate_in_video(state, 1, 0))
+
+    frame()
+    log_dir = f"{root}/trace"
+    with profiling.trace(log_dir):
+        frame()
+    with open(f"{log_dir}/trace.json") as f:
+        names = {ev.get("name", "") for ev in json.load(f).get("traceEvents", [])
+                 if ev.get("cat") == "kernel"}
+    traced = {k: sorted(n for n in names if re.search(pat, n)) for k, pat in GRAPH_KERNELS.items()}
+    check(all(traced.values()), f"the trace names no K1 or K2 kernel: {traced}")
+    fps = profiling.fps_benchmark(frame, warmup=2, iters=10)
+    timed_frame = profiling.timed("tracked frame")(frame)
+    for _ in range(3):
+        timed_frame()
+    out.update(trace_kernels=traced, fps=fps, timed_ms=[1e3 * x for x in timed_frame.timings])
+    log(f"profiling (c): trace.json names {traced}; fps_benchmark {fps:.2f} tracked frames/s; "
+        f"timed {[round(1e3 * x, 3) for x in timed_frame.timings]} ms")
+    walls["c"] = time.perf_counter() - t0
+
+    # (d) the examples on the same weights (the object-score bias raised),
+    # against the same calls here, both through speedup()'s graphs
+    t0 = time.perf_counter()
+    ckpt = f"{root}/hiera_l.pt"
+    torch.save({"model": model.module.state_dict()}, ckpt)
+    image_path = f"{root}/image.png"
+    Image.fromarray(image).save(image_path)
+    got_masks, got_ious = ex_image.main(image_path, ckpt, "hiera_l", f"{root}/image_demo",
+                                        device="cuda")
+    here = SAM2ImagePredictor(model)
+    here.set_image(image)
+    masks_here, ious_here, _ = here.predict(point_coords=ex_image.POINTS,
+                                            point_labels=np.array([1, 1], np.int32))
+    image_ious = [float(miou(a, b)) for a, b in zip(got_masks, masks_here)]
+    check(min(image_ious) >= EXPORT_IOU_MIN and os.listdir(f"{root}/image_demo"),
+          f"examples.image: mask IoUs {image_ious} against this process")
+    results = ex_video.main(jpeg_dir, ckpt, "hiera_l", f"{root}/video_demo.mp4",
+                            max_frames=EXAMPLE_FRAMES, device="cuda")
+    state = predictor.init_state(ex_video.first_frames(jpeg_dir, EXAMPLE_FRAMES))
+    predictor.add_new_points_or_box(state, 0, 1, points=ex_video.POINT,
+                                    labels=np.array([1], np.int32))
+    here_video = [m.float().cpu().numpy() for _, _, m in predictor.propagate_in_video(state)]
+    video_ious = [float(miou(a > 0, b > 0)) for (_, a), b in zip(results, here_video)]
+    check(len(results) == EXAMPLE_FRAMES and min(video_ious) >= EXPORT_IOU_MIN
+          and os.path.getsize(f"{root}/video_demo.mp4") > 0,
+          f"examples.video: {len(results)} frames, mask IoUs {video_ious} against this process")
+    out.update(example_image_ious=image_ious, example_video_ious=video_ious,
+               example_image_bitwise=bool(np.array_equal(got_masks, masks_here)))
+    log(f"examples (d): image mask IoUs {image_ious}, video per-frame IoUs {video_ious} against "
+        "this process")
+    set_backend(predictor, "cuda", torch.bfloat16)
+    walls["d"] = time.perf_counter() - t0
+    out["walls_s"] = walls
+    log(f"export walls (s): {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -2547,9 +2885,9 @@ def phase_route_video(counters):
     and the unfused one (`SAM2_TPU_FUSED_ROPE=0`: K rotated in torch, K1 at
     D = 256), no hole filling on any (a logit on the threshold could move a
     small component): exact launches per frame, fp32 low-res logits within
-    1e-3 of their scale of the default route's, bf16 masks by mIoU; then ms
-    per tracked frame and the device split of every route over the 8
-    frames. Returns ({route: {kernel: launches of the checked runs}}, times);
+    1e-3 of their scale of the default route's, bf16 masks by mIoU. (Its
+    per-route timings over the 8 frames went in slice 15, to make room for
+    phase 26.) Returns {route: {kernel: launches of the checked runs}};
     "K1 D=256" counts the K1 launches of the tracked frames past the trunk's
     3 per frame."""
     from sam2_opt_tpu_torch import build_sam2_video_predictor
@@ -2563,7 +2901,6 @@ def phase_route_video(counters):
     routes = {"K4": (K4_SWITCH, K4_FRAME_LAUNCHES),
               "rope off": (ROPE_OFF_SWITCH, ROPE_OFF_FRAME_LAUNCHES)}
     launches = {route: {**dict.fromkeys(counters, 0), "K1 D=256": 0} for route in routes}
-    times = {}
     for dtype, backend in ((torch.float32, "eager"), (torch.bfloat16, "cuda")):
         set_backend(predictor, backend)
         predictor.fill_hole_area = 0
@@ -2598,17 +2935,9 @@ def phase_route_video(counters):
                     f"{[round(float(x), 4) for x in ious]} (limit > {VIDEO_BF16_MIOU_MIN})")
                 check(min(ious) > VIDEO_BF16_MIOU_MIN,
                       f"bf16 video masks on the {route} route drift from the default")
-        predictor.fill_hole_area = 8
-        key = str(dtype).replace("torch.", "")
-        times[key] = {"default": propagation_times(predictor, video, points,
-                                                   f"{dtype} default route")}
-        for route, (env, _) in routes.items():
-            with switches(env):
-                times[key][route] = propagation_times(predictor, video, points,
-                                                      f"{dtype} {route} route")
     del predictor
     torch.cuda.empty_cache()
-    return launches, times
+    return launches
 
 
 @phase
@@ -4423,6 +4752,8 @@ def main(argv):
                 "K3a": flash_attention_bwd_dkdv, "K3b": flash_attention_bwd_dq}
     # slice 14: the input side, on the video predictor built above
     inputs = phase_inputs(video_predictor, video, points, counters)
+    # slice 15: export, the native decode, profiling and the examples
+    export = phase_export(video_predictor, image, video, points, inputs["jpeg_dir"], counters)
     del video_predictor
     torch.cuda.empty_cache()
 
@@ -4436,7 +4767,7 @@ def main(argv):
     k4_grads = phase_k4_grads(flash_attention_kv_proj, flash_attention_kv_proj_ref)
     k4 = phase_k4_times(flash_attention_kv_proj, flash_attention_kv_proj_ref, kv_proj_rotate)
     k1_wide_err, k1_wide = phase_k1_wide(flash_attention, flash_attention_ref)
-    route_video_launches, route_video_times = phase_route_video(
+    route_video_launches = phase_route_video(
         {"K1": flash_attention, "K2": flash_attention_rope, "K4": flash_attention_kv_proj})
     k4_train_launches, k4_train = phase_k4_train(
         {**counters, "K4": flash_attention_kv_proj}, train_runs["float32"]["losses"][0])
@@ -4502,6 +4833,13 @@ def main(argv):
     }]
     entries[0]["training_launches"] = train_launches["K1"]
     entries[1]["training_launches"] = train_launches["K2"]
+    # slice 15: per call of the exported programs, in a process that loaded them
+    entries[0]["export_launches"] = {
+        "set_image_e2e": export["worker"]["set_image_e2e"]["launches"]["flash_attention"]}
+    entries[1]["export_launches"] = {
+        "track_step": export["worker"]["track_step"]["launches"]["flash_attention_rope"],
+        "track_step under SAM2_TPU_FUSED_KV_PROJ=1":
+            export["worker"]["track_step_k4"]["launches"]["flash_attention_rope"]}
     # per rank and training step under bf16 DP (phase parallel (b)), and per
     # rank in its hiera-L inference (e)
     dp_runs = [r["b"]["runs"]["None"]["launches"] for r in parallel["ranks"]]
@@ -4586,6 +4924,8 @@ def main(argv):
         "unfused_route": "2 F.linear + K2 (unfused_ms)",
         "fp32": k4[torch.float32],
         "training_launches": k4_train_launches,
+        "export_launches": {"track_step under SAM2_TPU_FUSED_KV_PROJ=1": export["worker"][
+            "track_step_k4"]["launches"]["flash_attention_kv_proj"]},
     }, {
         "name": "flash_attention_fwd at D = 256 (K1, SAM2_TPU_FUSED_ROPE=0)",
         "route": "cuda",
@@ -4632,13 +4972,14 @@ def main(argv):
     log(json.dumps({"slice": {str(dt).replace("torch.", ""): t for dt, t in times.items()},
                     "routes": route_times,
                     "video": {str(dt).replace("torch.", ""): t for dt, t in video_times.items()},
-                    "video_memory_routes": route_video_times, "training_k4_route": k4_train,
+                    "training_k4_route": k4_train,
                     "training_rope_off_route": rope_off_train,
                     "k4_gradient_errors": k4_grads,
                     "training": train_runs, "training_vs_cpu": train_cpu,
                     "training_cli_loss": cli_loss, "switches_default_launches": switch_launches,
                     "graphs": graphs, "serve": serve, "variants": variants,
-                    "parallel": parallel, "inputs": inputs, "phase_seconds": PHASE_SECONDS,
+                    "parallel": parallel, "inputs": inputs, "export": export,
+                    "phase_seconds": PHASE_SECONDS,
                     "card": smi[0]}))
     log(json.dumps({"int8": int8, "card": smi[0]}))
     log(json.dumps({"kernels": entries}))

@@ -1,13 +1,19 @@
 """Video frame loading (counterpart of `sam2_opt_tpu/io/video.py`; reference
 sam2/sam2/utils/misc.py:172-309).
 
-Frames are resized to the model resolution with torch (bilinear with
-antialias, as `utils/transforms.py::resize_to_model`) on the model's device,
-one at a time, and kept as uint8 [T, 3, S, S], as the JAX package keeps
-uint8 frames. Sources: an ndarray [T, H, W, 3] (uint8, or float in [0, 1]
-or [0, 255]), a directory of JPEG or PNG frames read through Pillow, or a
-video file (mp4) decoded through OpenCV, as the JAX loader reads them. cv2
-is imported only when a video file is read.
+The frames are the JAX loader's uint8 frames, byte for byte, decoded and
+resized on the host as it does them, then uploaded to the model's device as
+uint8 [T, 3, S, S]:
+- a directory of JPEG frames: the native threaded libjpeg decode and its
+  half-pixel bilinear resize (`io/native.py`, the shared `csrc/sam2io.cpp`)
+  when that library builds, else Pillow and `_resize_uint8`. Which of the
+  two runs follows the JAX package's choice, which depends on the library
+  too (`native.available()` says which);
+- a directory holding PNG frames: Pillow and `_resize_uint8`;
+- a video file (mp4): OpenCV's decode and `_resize_uint8`;
+- an ndarray [T, H, W, 3] (uint8, or float in [0, 1] or [0, 255]):
+  `_resize_uint8` where its frames are not already S x S.
+cv2 is imported only where it resizes or decodes.
 """
 
 from __future__ import annotations
@@ -19,8 +25,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sam2_opt_tpu_torch.io import native
 from sam2_opt_tpu_torch.models.model import default_device
-from sam2_opt_tpu_torch.utils.transforms import resize_to_model
 
 
 def _to_uint8(arr: np.ndarray) -> np.ndarray:
@@ -96,11 +102,43 @@ def _read_mp4(path: str):
     return frames
 
 
-def _resize_frame(frame_hwc: np.ndarray, image_size: int, device) -> torch.Tensor:
-    """uint8 [H, W, 3] -> uint8 [3, S, S], resized on `device`."""
-    x = torch.as_tensor(np.array(frame_hwc), device=device).permute(2, 0, 1)[None]
-    x = resize_to_model(x.float(), image_size)
-    return x[0].round().clamp(0, 255).to(torch.uint8)
+def _jpeg_dir_native(paths, image_size: int):
+    """(frames, h, w) of a JPEG directory from the native decode, or None
+    where it is unavailable or a file fails (the JAX `_load_jpeg_dir` fast
+    path)."""
+    if not all(p.lower().endswith((".jpg", ".jpeg")) for p in paths):
+        return None
+    dims = native.jpeg_dims(paths[0])
+    if dims is None:
+        return None
+    frames = native.decode_jpeg_batch(paths, image_size)
+    return None if frames is None else (frames, *dims)
+
+
+def _host_frames(video_path, image_size: int):
+    """(uint8 [T, S, S, 3] frames, video_height, video_width) on the host,
+    as the JAX loader makes them."""
+    if isinstance(video_path, np.ndarray):
+        if video_path.ndim != 4 or video_path.shape[-1] != 3:
+            raise ValueError(f"video array must be [T, H, W, 3], got {video_path.shape}")
+        frames = _to_uint8(video_path)
+        h, w = frames.shape[1:3]
+        if (h, w) != (image_size, image_size):
+            frames = np.stack([_resize_uint8(f, image_size) for f in frames])
+        return frames, h, w
+    if isinstance(video_path, str) and os.path.isdir(video_path):
+        paths = _frame_paths(video_path)
+        decoded = _jpeg_dir_native(paths, image_size)
+        if decoded is not None:
+            return decoded
+        frames = [_read_frame(p) for p in paths]
+    elif isinstance(video_path, str):
+        frames = _read_mp4(video_path)
+    else:
+        raise NotImplementedError(f"unsupported video source {type(video_path)}: an ndarray "
+                                  f"[T, H, W, 3], a JPEG or PNG directory or a video file")
+    h, w = frames[0].shape[:2]
+    return np.stack([_resize_uint8(f, image_size) for f in frames]), h, w
 
 
 def load_video_frames(video_path, image_size: int = 1024, offload_video_to_cpu: bool = False,
@@ -109,18 +147,7 @@ def load_video_frames(video_path, image_size: int = 1024, offload_video_to_cpu: 
     [T, 3, S, S], video_height, video_width); the frames stay on `device`
     (the card unless the caller names another) unless `offload_video_to_cpu`."""
     device = default_device(device)
-    if isinstance(video_path, np.ndarray):
-        if video_path.ndim != 4 or video_path.shape[-1] != 3:
-            raise ValueError(f"video array must be [T, H, W, 3], got {video_path.shape}")
-        frames = list(_to_uint8(video_path))
-    elif isinstance(video_path, str) and os.path.isdir(video_path):
-        frames = [_read_frame(p) for p in _frame_paths(video_path)]
-    elif isinstance(video_path, str):
-        frames = _read_mp4(video_path)
-    else:
-        raise NotImplementedError(f"unsupported video source {type(video_path)}: an ndarray "
-                                  f"[T, H, W, 3], a JPEG or PNG directory or a video file")
-    video_h, video_w = frames[0].shape[:2]
+    frames, video_h, video_w = _host_frames(video_path, image_size)
     store = "cpu" if offload_video_to_cpu else device
-    out = torch.stack([_resize_frame(f, image_size, device).to(store) for f in frames])
+    out = torch.from_numpy(frames).to(store).permute(0, 3, 1, 2).contiguous()
     return out, video_h, video_w

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and register their wrappers as
+operators.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled with `nvcc` for
 Hopper (`sm_90a`) into a shared library under `<repo>/build/`, on first use,
@@ -6,6 +7,10 @@ then loaded with `ctypes`. PyTorch's headers are never included, so a build
 takes seconds. The library's file name carries a hash of its source, of every
 header in `csrc/` (the sources share `hopper.cuh`) and of the flags, so an
 edited source or header is rebuilt and never mixed with a stale binary.
+
+Every launch wrapper is an operator of the `sam2_opt_tpu_torch` namespace
+(`operator`), so `torch.export` traces a kernel call as one graph node and
+an exported program launches the kernel through the same wrapper.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sam2_opt_tpu_torch"
 NVCC_FLAGS = (
@@ -27,6 +34,18 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+NAMESPACE = "sam2_opt_tpu_torch"
+
+
+def operator(name: str, schema: str):
+    """Decorator: the function becomes the CPU implementation of the
+    operator `sam2_opt_tpu_torch::<name>` (`torch.library.custom_op`), the
+    kernel's plain version. The kernel module registers the CUDA
+    implementation (the launch, counted there), the fake (the CUDA outputs'
+    shapes and strides, for tracing) and, where the kernel has one, the
+    backward. No other device has an implementation."""
+    return torch.library.custom_op(f"{NAMESPACE}::{name}", mutates_args=(), device_types="cpu",
+                                   schema=schema)
 
 
 def kernel_names():

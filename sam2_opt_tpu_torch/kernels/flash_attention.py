@@ -1,5 +1,5 @@
-"""Masked flash attention: CUDA kernel wrappers, plain versions and the
-autograd Functions that join them.
+"""Masked flash attention: CUDA kernel wrappers, their plain versions and
+the operators that join them.
 
 - K1, `flash_attention`: the port of
   `sam2_opt_tpu/kernels/flash_attention.py::_kernel`;
@@ -14,15 +14,19 @@ autograd Functions that join them.
   projects the memory and rotates K, once per call, then K1's attention
   body (`kv_proj_rotate` runs the first kernel alone).
 
-`flash_attention`, `flash_attention_rope` and `flash_attention_kv_proj` are
-differentiable: each runs through a `torch.autograd.Function` (the
-counterparts of the JAX custom-VJP seams `_attn_core`, `_attn_core_rope` and
-`_attn_core_rope_kvproj`) whose backward is K3. On a CUDA tensor each wrapper launches its
+Each wrapper checks its arguments and calls an operator of the same name
+in the `sam2_opt_tpu_torch` namespace (`_build.operator`), so `torch.export`
+traces it as one node. On a CUDA tensor the operator launches the
 hand-written kernel in `csrc/flash_attention.cu` or
-`csrc/flash_attention_bwd.cu` or raises; on a CPU tensor it runs its plain
-version (`flash_attention_ref`, `flash_attention_rope_ref`,
-`flash_attention_kv_proj_ref`, `flash_attention_bwd_ref`), the unfused form
-of the same math. There is no fallback from one to the other.
+`csrc/flash_attention_bwd.cu` (and counts the launch) or raises; on a CPU
+tensor it runs the plain version (`flash_attention_ref`,
+`flash_attention_rope_ref`, `flash_attention_kv_proj_ref`,
+`flash_attention_bwd_ref`), the unfused form of the same math, its outputs
+laid out as the kernel's. There is no fallback from one to the other.
+`flash_attention`, `flash_attention_rope` and `flash_attention_kv_proj` are
+differentiable: each operator's registered backward (the counterparts of
+the JAX custom-VJP seams `_attn_core`, `_attn_core_rope` and
+`_attn_core_rope_kvproj`) is K3.
 """
 
 from __future__ import annotations
@@ -195,25 +199,42 @@ def flash_attention(q, k, v, kv_mask=None):
     """q [B,H,Sq,D], k/v [B,H,Skv,D] (unit stride along D, any other
     strides), kv_mask [B,Skv] bool or None. Returns (out [B,H,Sq,D], lse
     [B,H,Sq] fp32), as `flash_attention_ref`; out is differentiable in q, k
-    and v (backward: K3), lse is not.
+    and v (backward: K3), lse is not. The operator
+    `sam2_opt_tpu_torch::flash_attention`.
 
     CUDA tensors launch the kernel (fp32 or bf16, D a multiple of 8 up to
     128, or 256; rows 16-byte aligned); `out` is a [B,H,Sq,D] view of a
     [B,Sq,H,D] buffer, so the caller's merge of heads back into channels
-    costs no copy. Where one CTA per 128 query rows would leave SMs idle
-    (memory attention at D = 256 with the rotation fusion off), the kernel
-    splits the kv axis and a second kernel on the same stream merges the
-    splits through their LSEs (fp32 scratch allocated here).
+    costs no copy (the plain version's is laid out alike). Where one CTA per
+    128 query rows would leave SMs idle (memory attention at D = 256 with
+    the rotation fusion off), the kernel splits the kv axis and a second
+    kernel on the same stream merges the splits through their LSEs (fp32
+    scratch allocated here).
     """
     _check(q, k, v, kv_mask)
-    return _FlashAttention.apply(q, k, v, kv_mask)
+    return _flash_op(q, k, v, kv_mask)
 
 
-def _flash_forward(q, k, v, kv_mask):
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, kv_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+def _heads_last(out):
+    """out [B,H,S,D] as a view of a [B,S,H,D] buffer, the kernels' layout."""
+    return out.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def _attention_fake(q, *_):
+    B, H, Sq, D = q.shape
+    return (q.new_empty((B, Sq, H, D)).transpose(1, 2),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+@_build.operator("flash_attention", "(Tensor q, Tensor k, Tensor v, Tensor? kv_mask) -> "
+                                    "(Tensor, Tensor)")
+def _flash_op(q, k, v, kv_mask):
+    out, lse = flash_attention_ref(q, k, v, kv_mask)
+    return _heads_last(out), lse
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_cuda(q, k, v, kv_mask):
     _check_cuda(q, k, v, kv_mask, (*range(8, 129, 8), 256), "flash_attention")
     B, H, Sq, D = q.shape
     n_split = _kv_splits(q.device.index, _DTYPES[q.dtype], B, H, Sq, k.shape[2], D)
@@ -224,23 +245,22 @@ def _flash_forward(q, k, v, kv_mask):
 
 
 flash_attention.launches = 0
+_flash_op.register_fake(_attention_fake)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K1 forward, K3 backward (the JAX `_attn_core`, :751-776)."""
+def _save_attention(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, *output)
+    ctx.mark_non_differentiable(output[1])
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_mask):
-        out, lse = _flash_forward(q, k, v, kv_mask)
-        ctx.save_for_backward(q, k, v, out, lse, kv_mask)
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, out, lse, kv_mask = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, kv_mask)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+def _flash_backward(ctx, dout, _dlse):
+    """K3 (the JAX `_attn_core`, :751-776)."""
+    q, k, v, kv_mask, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, kv_mask)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_save_attention)
 
 
 def flash_attention_rope_ref(q, k, v, cos_k, sin_k, kv_mask=None):
@@ -270,14 +290,18 @@ def flash_attention_rope(q, k, v, cos_k, sin_k, kv_mask=None):
             raise ValueError(f"{name} must be [{Skv}, {D // 2}], got {tuple(t.shape)}")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must have q's dtype and device")
-    return _FlashAttentionRope.apply(q, k, v, cos_k, sin_k, kv_mask)
+    return _flash_rope_op(q, k, v, cos_k, sin_k, kv_mask)
 
 
-def _flash_rope_forward(q, k, v, cos_k, sin_k, kv_mask):
-    if q.device.type == "cpu":
-        return flash_attention_rope_ref(q, k, v, cos_k, sin_k, kv_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+@_build.operator("flash_attention_rope", "(Tensor q, Tensor k, Tensor v, Tensor cos_k, "
+                                         "Tensor sin_k, Tensor? kv_mask) -> (Tensor, Tensor)")
+def _flash_rope_op(q, k, v, cos_k, sin_k, kv_mask):
+    out, lse = flash_attention_rope_ref(q, k, v, cos_k, sin_k, kv_mask)
+    return _heads_last(out), lse
+
+
+@_flash_rope_op.register_kernel("cuda")
+def _flash_rope_cuda(q, k, v, cos_k, sin_k, kv_mask):
     _check_cuda(q, k, v, kv_mask, (64, 128, 256), "flash_attention_rope")
     _check_tables(cos_k, sin_k)
     B, H, Sq, D = q.shape
@@ -291,6 +315,22 @@ def _flash_rope_forward(q, k, v, cos_k, sin_k, kv_mask):
 
 
 flash_attention_rope.launches = 0
+_flash_rope_op.register_fake(_attention_fake)
+
+
+def _flash_rope_backward(ctx, dout, _dlse):
+    """K3 (the JAX `_attn_core_rope`, :548-585). The rotation is linear, so
+    K3 runs on K rotated as the forward rotates it (in fp32, rounded once to
+    K's dtype) and dK is dK_rot rotated by -theta in fp32."""
+    q, k, v, cos_k, sin_k, kv_mask, out, lse = ctx.saved_tensors
+    c32, s32 = cos_k.float(), sin_k.float()
+    kr = apply_rotary_split(k.float(), c32, s32).to(k.dtype)
+    dq, dkr, dv = flash_attention_bwd(q, kr, v, out, lse, dout, kv_mask)
+    dk = apply_rotary_split(dkr, c32, -s32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+_flash_rope_op.register_autograd(_flash_rope_backward, setup_context=_save_attention)
 
 
 def _check_tables(cos_k, sin_k):
@@ -312,10 +352,16 @@ def rope_rotate(k, cos_k, sin_k):
     if sin_k.shape != cos_k.shape or k.dtype not in _DTYPES or any(
             t.dtype != k.dtype or t.device != k.device for t in (cos_k, sin_k)):
         raise ValueError("cos_k and sin_k must match k's dtype (float32 or bfloat16) and device")
-    if k.device.type == "cpu":
-        return apply_rotary_split(k.float(), cos_k.float(), sin_k.float()).to(k.dtype)
-    if k.device.type != "cuda":
-        raise ValueError(f"unsupported device {k.device}")
+    return _rope_rotate_op(k, cos_k, sin_k)
+
+
+@_build.operator("rope_rotate", "(Tensor k, Tensor cos_k, Tensor sin_k) -> Tensor")
+def _rope_rotate_op(k, cos_k, sin_k):
+    return apply_rotary_split(k.float(), cos_k.float(), sin_k.float()).to(k.dtype).contiguous()
+
+
+@_rope_rotate_op.register_kernel("cuda")
+def _rope_rotate_cuda(k, cos_k, sin_k):
     if not _rows_aligned(k):
         raise ValueError("k rows must be 16-byte aligned")
     _check_tables(cos_k, sin_k)
@@ -337,29 +383,8 @@ def rope_rotate(k, cos_k, sin_k):
 
 
 rope_rotate.launches = 0
-
-
-class _FlashAttentionRope(torch.autograd.Function):
-    """K2 forward, K3 backward (the JAX `_attn_core_rope`, :548-585). The
-    rotation is linear, so K3 runs on K rotated as the forward rotates it (in
-    fp32, rounded once to K's dtype) and dK is dK_rot rotated by -theta in
-    fp32."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, cos_k, sin_k, kv_mask):
-        out, lse = _flash_rope_forward(q, k, v, cos_k, sin_k, kv_mask)
-        ctx.save_for_backward(q, k, v, cos_k, sin_k, out, lse, kv_mask)
-        ctx.mark_non_differentiable(lse)
-        return out, lse
-
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, cos_k, sin_k, out, lse, kv_mask = ctx.saved_tensors
-        c32, s32 = cos_k.float(), sin_k.float()
-        kr = apply_rotary_split(k.float(), c32, s32).to(k.dtype)
-        dq, dkr, dv = flash_attention_bwd(q, kr, v, out, lse, dout, kv_mask)
-        dk = apply_rotary_split(dkr, c32, -s32)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+_rope_rotate_op.register_fake(lambda k, cos_k, sin_k: torch.empty_like(
+    k, memory_format=torch.contiguous_format))
 
 
 # --------------------------------------------------------------------------- #
@@ -442,7 +467,7 @@ def flash_attention_kv_proj(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_ma
     then K1's attention body runs on it, with K1's kv split and merge. One
     launch on the count per call. CPU tensors run the plain version."""
     _kv_proj_check(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
-    return _FlashAttentionKVProj.apply(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
+    return _kv_proj_op(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
 
 
 def _aligned_rows(t):
@@ -492,10 +517,21 @@ def kv_proj_rotate(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k):
                          "float32 or bfloat16")
     if any(t.device != mem_k.device for t in (mem_v, wv)):
         raise ValueError("mem_v and wv must be on mem_k's device")
-    if mem_k.device.type == "cpu":
-        return kv_proj_rotate_ref(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k)
-    if mem_k.device.type != "cuda":
-        raise ValueError(f"unsupported device {mem_k.device}")
+    return _kv_proj_rotate_op(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k)
+
+
+@_build.operator("kv_proj_rotate", "(Tensor mem_k, Tensor wk, Tensor bk, Tensor mem_v, "
+                                   "Tensor wv, Tensor bv, Tensor cos_k, Tensor sin_k) -> "
+                                   "(Tensor, Tensor)")
+def _kv_proj_rotate_op(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k):
+    return tuple(t.contiguous() for t in kv_proj_rotate_ref(mem_k, wk, bk, mem_v, wv, bv, cos_k,
+                                                            sin_k))
+
+
+@_kv_proj_rotate_op.register_kernel("cuda")
+def _kv_proj_rotate_cuda(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k):
+    B, Skv, Dm = mem_k.shape
+    D = wk.shape[0]
     mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k, kr, vp = _proj_operands(
         mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k, "kv_proj_rotate")
     fn = _build.load("flash_attention").sam2_flash_attention_kvproj_project
@@ -517,11 +553,21 @@ def kv_proj_rotate(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k):
 kv_proj_rotate.launches = 0
 
 
-def _kv_proj_forward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
-    if q.device.type == "cpu":
-        return flash_attention_kv_proj_ref(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+@_kv_proj_rotate_op.register_fake
+def _kv_proj_rotate_fake(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k):
+    shape = (*mem_k.shape[:2], wk.shape[0])
+    return wk.new_empty(shape), wk.new_empty(shape)
+
+
+@_build.operator("flash_attention_kv_proj", "(Tensor q, Tensor mem_k, Tensor mem_v, Tensor wk, "
+                                            "Tensor bk, Tensor wv, Tensor bv, Tensor cos_k, "
+                                            "Tensor sin_k, Tensor? kv_mask) -> (Tensor, Tensor)")
+def _kv_proj_op(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
+    return flash_attention_kv_proj_ref(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
+
+
+@_kv_proj_op.register_kernel("cuda")
+def _kv_proj_cuda(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
     B, _, Sq, D = q.shape
     Skv, Dm = mem_k.shape[1:]
     if B > 65535:
@@ -559,32 +605,30 @@ def _kv_proj_forward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
 flash_attention_kv_proj.launches = 0
 
 
-class _FlashAttentionKVProj(torch.autograd.Function):
-    """K4 forward, K3 backward: the JAX `_attn_rope_kvproj_bwd` (:647-685).
-    The projections are recomputed at the kernel's precision, K3 runs on
-    (q, rotated K, V), dK is rotated back by -theta in fp32, and the
-    cotangents of the projections, rounded to the input dtype, go through
-    the four weight and input products in torch (XLA computes them in the
-    JAX package, outside any Pallas kernel); the bias gradients are sums of
-    the fp32 cotangents."""
+@_kv_proj_op.register_fake
+def _kv_proj_fake(q, *_):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3], dtype=torch.float32)
 
-    @staticmethod
-    def forward(ctx, q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask):
-        out, lse = _kv_proj_forward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask)
-        ctx.save_for_backward(q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, out, lse, kv_mask)
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, out, lse, kv_mask = ctx.saved_tensors
-        dt = q.dtype
-        c32, s32 = cos_k.float(), sin_k.float()
-        kr, vp = kv_proj_rotate_ref(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k)
-        dq, dkr, dvp = flash_attention_bwd(q, kr[:, None], vp[:, None], out, lse, dout, kv_mask)
-        dmk, dwk, dbk = _projection_grads(mem_k, wk, bk, apply_rotary_split(dkr[:, 0], c32, -s32))
-        dmv, dwv, dbv = _projection_grads(mem_v, wv, bv, dvp[:, 0])
-        return dq.to(dt), dmk, dmv, dwk, dbk, dwv, dbv, None, None, None
+def _kv_proj_backward(ctx, dout, _dlse):
+    """K3: the JAX `_attn_rope_kvproj_bwd` (:647-685). The projections are
+    recomputed at the kernel's precision, K3 runs on (q, rotated K, V), dK
+    is rotated back by -theta in fp32, and the cotangents of the
+    projections, rounded to the input dtype, go through the four weight and
+    input products in torch (XLA computes them in the JAX package, outside
+    any Pallas kernel); the bias gradients are sums of the fp32
+    cotangents."""
+    q, mem_k, mem_v, wk, bk, wv, bv, cos_k, sin_k, kv_mask, out, lse = ctx.saved_tensors
+    dt = q.dtype
+    c32, s32 = cos_k.float(), sin_k.float()
+    kr, vp = kv_proj_rotate_ref(mem_k, wk, bk, mem_v, wv, bv, cos_k, sin_k)
+    dq, dkr, dvp = flash_attention_bwd(q, kr[:, None], vp[:, None], out, lse, dout, kv_mask)
+    dmk, dwk, dbk = _projection_grads(mem_k, wk, bk, apply_rotary_split(dkr[:, 0], c32, -s32))
+    dmv, dwv, dbv = _projection_grads(mem_v, wv, bv, dvp[:, 0])
+    return dq.to(dt), dmk, dmv, dwk, dbk, dwv, dbv, None, None, None
+
+
+_kv_proj_op.register_autograd(_kv_proj_backward, setup_context=_save_attention)
 
 
 def _projection_grads(x, w, b, g):
@@ -774,20 +818,27 @@ def _bwd_launch(symbol, q, k, v, do, lse, delta, kv_mask, what):
     return (dq, None, None) if is_dq else (None, dk, dv)
 
 
-def _bwd_device(q):
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {q.device}")
-    return q.device.type == "cuda"
+_BWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, Tensor delta, "
+               "Tensor? kv_mask) -> ")
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, kv_mask=None):
     """K3a: (dK, dV) [B,H,Skv,D] fp32 from q/k/v/dO [B,H,S,D] (unit stride
     along D, any other strides), the forward's lse and delta = rowsum(dO*O)
     [B,H,Sq] fp32. CUDA tensors launch the kernel (fp32 or bf16, D a
-    multiple of 8 up to 256); CPU tensors run `flash_attention_bwd_dkdv_ref`."""
+    multiple of 8 up to 256); CPU tensors run `flash_attention_bwd_dkdv_ref`.
+    The operator `sam2_opt_tpu_torch::flash_attention_bwd_dkdv`."""
     _bwd_check(q, k, v, do, lse, delta, kv_mask)
-    if not _bwd_device(q):
-        return flash_attention_bwd_dkdv_ref(q, k, v, do, lse, delta, kv_mask)
+    return _bwd_dkdv_op(q, k, v, do, lse, delta, kv_mask)
+
+
+@_build.operator("flash_attention_bwd_dkdv", _BWD_SCHEMA + "(Tensor, Tensor)")
+def _bwd_dkdv_op(q, k, v, do, lse, delta, kv_mask):
+    return flash_attention_bwd_dkdv_ref(q, k, v, do, lse, delta, kv_mask)
+
+
+@_bwd_dkdv_op.register_kernel("cuda")
+def _bwd_dkdv_cuda(q, k, v, do, lse, delta, kv_mask):
     _, dk, dv = _bwd_launch("sam2_flash_attention_bwd_dkdv", q, k, v, do, lse, delta, kv_mask,
                             "flash_attention_bwd_dkdv")
     flash_attention_bwd_dkdv.launches += 1
@@ -795,14 +846,25 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, kv_mask=None):
 
 
 flash_attention_bwd_dkdv.launches = 0
+_bwd_dkdv_op.register_fake(lambda q, k, *_: (k.new_empty(k.shape, dtype=torch.float32),
+                                             k.new_empty(k.shape, dtype=torch.float32)))
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_mask=None):
     """K3b: dQ [B,H,Sq,D] fp32; arguments as `flash_attention_bwd_dkdv`.
-    CPU tensors run `flash_attention_bwd_dq_ref`."""
+    CPU tensors run `flash_attention_bwd_dq_ref`. The operator
+    `sam2_opt_tpu_torch::flash_attention_bwd_dq`."""
     _bwd_check(q, k, v, do, lse, delta, kv_mask)
-    if not _bwd_device(q):
-        return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, kv_mask)
+    return _bwd_dq_op(q, k, v, do, lse, delta, kv_mask)
+
+
+@_build.operator("flash_attention_bwd_dq", _BWD_SCHEMA + "Tensor")
+def _bwd_dq_op(q, k, v, do, lse, delta, kv_mask):
+    return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, kv_mask)
+
+
+@_bwd_dq_op.register_kernel("cuda")
+def _bwd_dq_cuda(q, k, v, do, lse, delta, kv_mask):
     dq, _, _ = _bwd_launch("sam2_flash_attention_bwd_dq", q, k, v, do, lse, delta, kv_mask,
                            "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
@@ -810,6 +872,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_mask=None):
 
 
 flash_attention_bwd_dq.launches = 0
+_bwd_dq_op.register_fake(lambda q, *_: q.new_empty(q.shape, dtype=torch.float32))
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, kv_mask=None):

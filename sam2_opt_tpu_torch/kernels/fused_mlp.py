@@ -1,5 +1,5 @@
 """Fused two-layer GELU MLP (K8): the CUDA kernel's wrapper, its plain
-version and the autograd Function that joins them.
+version and the operator that joins them.
 
 The port of `sam2_opt_tpu/kernels/fused_mlp.py` (`_kernel`, :40): y =
 gelu_tanh(x . w1 + b1) . w2 + b2 with the hidden activation kept in
@@ -8,9 +8,11 @@ from the Hiera block MLPs under `SAM2_TPU_FUSED_MLP=1` in bf16. The weights
 keep `nn.Linear`'s [out, in] layout: w1 [H, C], w2 [C_out, H] (the JAX
 package's are [in, out]).
 
-On a CUDA tensor `fused_mlp` launches the kernel (bf16 only; fp32 raises) or
-raises; on a CPU tensor it runs `fused_mlp_ref`. It is differentiable
-through `_FusedMLP`, whose backward is the JAX `_bwd` (:142-166, an XLA
+`fused_mlp` checks its arguments and calls the operator
+`sam2_opt_tpu_torch::fused_mlp` (`_build.operator`), which `torch.export`
+traces as one node: on a CUDA tensor it launches the kernel (bf16 only; fp32
+raises) or raises; on a CPU tensor it runs `fused_mlp_ref`. It is
+differentiable: the operator's backward is the JAX `_bwd` (:142-166, an XLA
 recompute there) in plain torch.
 """
 
@@ -86,11 +88,14 @@ def _library():
     return fn
 
 
-def _forward_2d(x, w1, b1, w2, b2, fast_act):
-    if x.device.type == "cpu":
-        return fused_mlp_ref(x, w1, b1, w2, b2, fast_act)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+@_build.operator("fused_mlp", "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+                              "bool fast_act) -> Tensor")
+def _fused_mlp_op(x, w1, b1, w2, b2, fast_act):
+    return fused_mlp_ref(x, w1, b1, w2, b2, fast_act)
+
+
+@_fused_mlp_op.register_kernel("cuda")
+def _fused_mlp_cuda(x, w1, b1, w2, b2, fast_act):
     if x.dtype != torch.bfloat16 or not fast_act:
         raise ValueError("fused_mlp: the kernel runs bf16 with fast_act=True (the route's "
                          f"numerics), got {x.dtype}, fast_act={fast_act}")
@@ -119,18 +124,20 @@ def _forward_2d(x, w1, b1, w2, b2, fast_act):
     return out
 
 
-class _FusedMLP(torch.autograd.Function):
-    """K8 forward, the plain recompute backward (the JAX `_fused_mlp_core`
-    custom VJP)."""
+_fused_mlp_op.register_fake(lambda x, w1, b1, w2, b2, fast_act: x.new_empty(
+    (x.shape[0], w2.shape[0])))
 
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, fast_act):
-        ctx.save_for_backward(x, w1, b1, w2)
-        return _forward_2d(x, w1, b1, w2, b2, fast_act)
 
-    @staticmethod
-    def backward(ctx, dy):
-        return (*_fused_mlp_bwd(*ctx.saved_tensors, dy), None)
+def _save_mlp(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:4])
+
+
+def _fused_mlp_backward(ctx, dy):
+    """The plain recompute backward (the JAX `_fused_mlp_core` custom VJP)."""
+    return (*_fused_mlp_bwd(*ctx.saved_tensors, dy), None)
+
+
+_fused_mlp_op.register_autograd(_fused_mlp_backward, setup_context=_save_mlp)
 
 
 def fused_mlp(x, w1, b1, w2, b2, fast_act: bool = False):
@@ -145,7 +152,7 @@ def fused_mlp(x, w1, b1, w2, b2, fast_act: bool = False):
     ts = (x, w1, b1, w2, b2)
     if len({t.dtype for t in ts}) != 1 or len({t.device for t in ts}) != 1:
         raise ValueError("fused_mlp: x, weights and biases must share one dtype and device")
-    out = _FusedMLP.apply(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, fast_act)
+    out = _fused_mlp_op(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, fast_act)
     return out.reshape(*x.shape[:-1], w2.shape[0])
 
 

@@ -28,10 +28,14 @@ Numerics (the Pallas kernels' `_kernel`, :25-40): logits q.k in fp32 times
 rounded to v's dtype; p.v in fp32, rounded to q's dtype. No masking: the
 zero-padded tokens of `window_partition` attend, as in the JAX package.
 
-On a CUDA tensor each wrapper launches the kernel or raises; on a CPU tensor
-it runs `window_attention_ref`. K6 and K7 are differentiable through
-`_WindowAttention`, whose backward is the JAX `_packed_vjp_bwd` (:230-244, an
-XLA recompute there) in plain torch. K5 under autograd on the card raises.
+Each wrapper checks its arguments and calls an operator of the same name
+in the `sam2_opt_tpu_torch` namespace (`_build.operator`), which
+`torch.export` traces as one node: on a CUDA tensor it launches the kernel
+(and counts the launch) or raises; on a CPU tensor it runs
+`window_attention_ref`, its output laid out as the kernel's. K6 and K7 are
+differentiable: their operators' backward is the JAX `_packed_vjp_bwd`
+(:230-244, an XLA recompute there) in plain torch. K5, K9 and K10 under
+autograd raise on the card and run the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -123,11 +127,9 @@ def _launch(q, k, v, out, strides, what):
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
-def _nshd_forward(q, k, v, wrapper, what):
-    """K6/K7 forward on [N, S, heads, d]: the kernel on CUDA tensors (out
-    [N, Sq, heads, d] contiguous), the plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return window_attention_nshd_ref(q, k, v)
+def _nshd_cuda(q, k, v, wrapper, what):
+    """K6/K7/K9 on [N, S, heads, d] CUDA tensors: out [N, Sq, heads, d]
+    contiguous."""
     N, Sq, H, D = q.shape
     out = torch.empty((N, Sq, H, D), dtype=q.dtype, device=q.device)
     sd = lambda t: (t.stride(0), t.stride(2), t.stride(1))  # noqa: E731  (window, head, row)
@@ -150,18 +152,25 @@ def _packed_vjp_bwd(q, k, v, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-class _WindowAttention(torch.autograd.Function):
-    """K6 or K7 forward, the plain recompute backward (the JAX custom VJPs
+def _nshd_operator(name, wrapper, differentiable):
+    """The operator `sam2_opt_tpu_torch::<name>` on [N, S, heads, d]: the
+    plain version on the CPU (contiguous, as the kernel writes it), the
+    kernel on the card counted on `wrapper`; K6 and K7 (`differentiable`)
+    with the plain recompute backward (the JAX custom VJPs
     `_window_flash_3d_vjp` and `packed_window_attention`)."""
+    @_build.operator(name, "(Tensor q, Tensor k, Tensor v) -> Tensor")
+    def op(q, k, v):
+        return window_attention_nshd_ref(q, k, v).contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, wrapper, what):
-        ctx.save_for_backward(q, k, v)
-        return _nshd_forward(q, k, v, wrapper, what)
+    op.register_kernel("cuda")(lambda q, k, v: _nshd_cuda(q, k, v, wrapper, name))
+    op.register_fake(lambda q, k, v: torch.empty_like(q, memory_format=torch.contiguous_format))
+    if differentiable:
+        def save(ctx, inputs, output):
+            ctx.save_for_backward(*inputs)
 
-    @staticmethod
-    def backward(ctx, dout):
-        return (*_packed_vjp_bwd(*ctx.saved_tensors, dout), None, None)
+        op.register_autograd(lambda ctx, dout: _packed_vjp_bwd(*ctx.saved_tensors, dout),
+                             setup_context=save)
+    return op
 
 
 def _check_nshd(q, k, v, what, same_len):
@@ -179,20 +188,34 @@ def window_flash_3d(q, k, v):
     d], contiguous, so the output projection reads it without a copy.
     Differentiable (backward: `_packed_vjp_bwd`)."""
     _check_nshd(q, k, v, "window_flash_3d", same_len=True)
-    return _WindowAttention.apply(q, k, v, window_flash_3d, "window_flash_3d")
+    return _window_flash_3d_op(q, k, v)
 
 
 window_flash_3d.launches = 0
+_window_flash_3d_op = _nshd_operator("window_flash_3d", window_flash_3d, differentiable=True)
 
 
 def packed_window_attention(q, k, v):
     """K7: q [N, Sq, heads, d], k/v [N, Skv, heads, d] -> [N, Sq, heads, d];
     Sq may differ from Skv. Differentiable, as K6."""
     _check_nshd(q, k, v, "packed_window_attention", same_len=False)
-    return _WindowAttention.apply(q, k, v, packed_window_attention, "packed_window_attention")
+    return _packed_window_op(q, k, v)
 
 
 packed_window_attention.launches = 0
+_packed_window_op = _nshd_operator("packed_window_attention", packed_window_attention,
+                                   differentiable=True)
+
+
+def _no_backward(q, k, v, what):
+    """True where autograd needs the gradient of a kernel that has none
+    (K5, K9, K10): on the card that raises, on the CPU the caller runs the
+    plain version, which is differentiable."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return False
+    if q.device.type == "cuda":
+        raise RuntimeError(f"{what} has no backward, as in the JAX package")
+    return True
 
 
 def window_attention(q, k, v):
@@ -202,16 +225,30 @@ def window_attention(q, k, v):
     caller's merge of heads back into channels costs no copy.
 
     Not differentiable, as in the JAX package: on a CUDA tensor under
-    autograd it raises (its plain version, on the CPU, is differentiable)."""
+    autograd it raises (use window_flash_3d or packed_window_attention
+    under autograd); on the CPU under autograd the plain version runs."""
     _check(q, k, v, "window_attention")
     if q.dim() not in (3, 4) or q.shape != k.shape:
         raise ValueError("window_attention: q, k and v must be [N, S, D] or [B, heads, S, D] "
                          f"of one shape, got q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if q.device.type == "cpu":
+    if _no_backward(q, k, v, "window_attention (K5)"):
         return window_attention_ref(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("window_attention (K5) has no backward, as in the JAX package; "
-                           "use window_flash_3d or packed_window_attention under autograd")
+    return _window_attention_op(q, k, v)
+
+
+def _window_attention_layout(out):
+    """K5's output layout: contiguous [N, S, D], or a [B, heads, S, D] view
+    of a [B, S, heads, D] buffer."""
+    return out.contiguous() if out.dim() == 3 else out.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@_build.operator("window_attention", "(Tensor q, Tensor k, Tensor v) -> Tensor")
+def _window_attention_op(q, k, v):
+    return _window_attention_layout(window_attention_ref(q, k, v))
+
+
+@_window_attention_op.register_kernel("cuda")
+def _window_attention_cuda(q, k, v):
     if q.dim() == 3:
         N, S, D = q.shape
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -227,11 +264,7 @@ def window_attention(q, k, v):
 
 
 window_attention.launches = 0
-
-
-def _no_grad_launch(q, k, v, what):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(f"{what} has no backward, as the JAX tool's kernel has none")
+_window_attention_op.register_fake(lambda q, k, v: _window_attention_layout(torch.empty_like(q)))
 
 
 def window_attention_heads(q, k, v):
@@ -241,13 +274,14 @@ def window_attention_heads(q, k, v):
     here the heads are a stride of the same launch. Not differentiable: on a
     CUDA tensor under autograd it raises."""
     _check_nshd(q, k, v, "window_attention_heads", same_len=True)
-    if q.device.type == "cpu":
+    if _no_backward(q, k, v, "window_attention_heads (K9)"):
         return window_attention_nshd_ref(q, k, v)
-    _no_grad_launch(q, k, v, "window_attention_heads (K9)")
-    return _nshd_forward(q, k, v, window_attention_heads, "window_attention_heads")
+    return _window_heads_op(q, k, v)
 
 
 window_attention_heads.launches = 0
+_window_heads_op = _nshd_operator("window_attention_heads", window_attention_heads,
+                                  differentiable=False)
 
 
 def window_attention_3d(q, k, v):
@@ -257,10 +291,19 @@ def window_attention_3d(q, k, v):
     layout, and its output is copied back to [N, S, heads, d]. Not
     differentiable: on a CUDA tensor under autograd it raises."""
     _check_nshd(q, k, v, "window_attention_3d", same_len=True)
-    N, S, H, D = q.shape
-    if q.device.type == "cpu":
+    if _no_backward(q, k, v, "window_attention_3d (K10)"):
         return window_attention_nshd_ref(q, k, v)
-    _no_grad_launch(q, k, v, "window_attention_3d (K10)")
+    return _window_3d_op(q, k, v)
+
+
+@_build.operator("window_attention_3d", "(Tensor q, Tensor k, Tensor v) -> Tensor")
+def _window_3d_op(q, k, v):
+    return window_attention_nshd_ref(q, k, v).contiguous()
+
+
+@_window_3d_op.register_kernel("cuda")
+def _window_3d_cuda(q, k, v):
+    N, S, H, D = q.shape
     flat = [t.transpose(1, 2).reshape(N * H, S, D) for t in (q, k, v)]
     out = torch.empty_like(flat[0])
     launch_3d(*flat, out)
@@ -269,6 +312,7 @@ def window_attention_3d(q, k, v):
 
 
 window_attention_3d.launches = 0
+_window_3d_op.register_fake(lambda q, k, v: torch.empty_like(q, memory_format=torch.contiguous_format))
 
 
 def launch_3d(q, k, v, out):

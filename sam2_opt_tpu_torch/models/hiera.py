@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import os
 from collections import OrderedDict
-from functools import lru_cache
 from typing import List
 
 import torch
@@ -174,7 +173,7 @@ class MultiScaleBlock(nn.Module):
         return self.mlp(xn)
 
 
-@lru_cache(maxsize=16)
+@ops.constant_cache(maxsize=16)
 def _cubic_resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
     """[n_out, n_in] weights of `jax.image.resize(method="cubic")` along one
     axis: the Keys kernel with a = -0.5 at half-pixel sample positions,

@@ -32,7 +32,6 @@ and plain attention runs (`ops.scaled_dot_product_attention`).
 from __future__ import annotations
 
 import os
-from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -53,7 +52,7 @@ from sam2_opt_tpu_torch.ops import posenc
 from sam2_opt_tpu_torch.quant.int8 import QuantLinear
 
 
-@lru_cache(maxsize=16)
+@ops.constant_cache(maxsize=16)
 def _rope_half_tables(dim: int, end_x: int, end_y: int, theta: float, reps: int, n_extra: int,
                     device, dtype):
     """Split-layout tables [reps*end_x*end_y + n_extra, dim/2] on `device` in
@@ -111,7 +110,9 @@ class RoPEAttention(ops.Attention):
         first use."""
         projs = (self.q_proj, self.k_proj)
         tensors = tuple(t for p in projs for t in _proj_tensors(p) if t is not None)
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or torch.compiler.is_compiling():
+            # under torch.export the weights are the trace's fakes, which
+            # have no storage to key a cache on
             return tuple(_permuted(p, self._perm(tensors[0].device)) for p in projs)
         # the key holds the tensors themselves, so a freed storage cannot
         # come back at the same address and pass for a cached one

@@ -10,7 +10,6 @@ convolutions and is not ported.
 from __future__ import annotations
 
 import math
-from functools import lru_cache
 
 import torch
 from torch import nn
@@ -38,7 +37,7 @@ class CXBlock(nn.Module):
         return x + y.movedim(-1, 1)
 
 
-@lru_cache(maxsize=8)
+@ops.constant_cache(maxsize=8)
 def _sine_pe(h: int, w: int, c: int, device, dtype):
     """[1, c, h, w] sine PE, a constant per shape (built outside inference
     mode, so training can use what a predictor cached)."""

@@ -14,6 +14,7 @@ signature (`_get_jit`); "eager" runs op by op in fp32.
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Optional
 
 import torch
@@ -208,21 +209,15 @@ class SAM2Model:
     def encode_image(self, images01):
         """[B, 3, S, S] float images in [0,1] -> (hrf0, hrf1, embed) NCHW,
         without the no-mem embedding."""
-        return self.run("encode_image", self._encode, (self._images(images01),))
-
-    def _encode(self, images):
-        out = base.forward_image(self._m, base.image_normalize(images))
-        return tuple(out["backbone_fpn"])
+        return self.run("encode_image", functools.partial(encode, self._m),
+                        (self._images(images01),))
 
     @torch.inference_mode()
     def encode_image_e2e(self, images01):
         """set_image path (reference sam2_image_predictor.py:252-266): encode
         and add no_mem_embed to the lowest-res map."""
-        def fn(images):
-            hrf0, hrf1, embed = self._encode(images)
-            return hrf0, hrf1, embed + self._m.no_mem_embed[0, 0].to(embed.dtype)[:, None, None]
-
-        return self.run("encode_image_e2e", fn, (self._images(images01),))
+        return self.run("encode_image_e2e", functools.partial(encode_e2e, self._m),
+                        (self._images(images01),))
 
     @torch.inference_mode()
     def predict_masks(self, embed, hrf0, hrf1, coords, labels, mask_input=None,
@@ -235,20 +230,37 @@ class SAM2Model:
         labels = torch.as_tensor(labels, dtype=torch.int32, device=self.device)
         if mask_input is not None:
             mask_input = torch.as_tensor(mask_input, device=self.device).to(self.compute_dtype)
-
-        def fn(embed, hrf0, hrf1, coords, labels, mask_input):
-            m = self._m
-            sparse, dense = m.sam_prompt_encoder(coords, labels, mask_input)
-            s = self.cfg.image_embedding_size
-            image_pe = m.sam_prompt_encoder.get_dense_pe((s, s)).to(embed.dtype)
-            masks, iou, _, _ = m.sam_mask_decoder(
-                embed, image_pe, sparse.to(embed.dtype), dense.to(embed.dtype),
-                multimask_output=multimask_output, high_res_features=(hrf0, hrf1),
-                repeat_image=coords.shape[0] > embed.shape[0])
-            return masks.float(), iou.float()
-
+        fn = functools.partial(decode_masks, self._m, self.cfg,
+                               multimask_output=multimask_output)
         return self.run(("predict_masks", multimask_output, mask_input is not None), fn,
                         (embed, hrf0, hrf1, coords, labels, mask_input))
+
+
+def encode(m: base.SAM2Base, images):
+    """The encoder seam: [B, 3, S, S] images in [0, 1] -> (hrf0, hrf1,
+    embed) NCHW."""
+    return tuple(base.forward_image(m, base.image_normalize(images))["backbone_fpn"])
+
+
+def encode_e2e(m: base.SAM2Base, images):
+    """The `set_image` seam: `encode`, with no_mem_embed added to the
+    lowest-res map."""
+    hrf0, hrf1, embed = encode(m, images)
+    return hrf0, hrf1, embed + m.no_mem_embed[0, 0].to(embed.dtype)[:, None, None]
+
+
+def decode_masks(m: base.SAM2Base, cfg: SAM2Config, embed, hrf0, hrf1, coords, labels,
+                 mask_input=None, multimask_output: bool = True):
+    """The prompt-encode + mask-decode seam: fp32 (low_res_masks,
+    iou_predictions)."""
+    sparse, dense = m.sam_prompt_encoder(coords, labels, mask_input)
+    s = cfg.image_embedding_size
+    image_pe = m.sam_prompt_encoder.get_dense_pe((s, s)).to(embed.dtype)
+    masks, iou, _, _ = m.sam_mask_decoder(
+        embed, image_pe, sparse.to(embed.dtype), dense.to(embed.dtype),
+        multimask_output=multimask_output, high_res_features=(hrf0, hrf1),
+        repeat_image=coords.shape[0] > embed.shape[0])
+    return masks.float(), iou.float()
 
 
 def build_sam2(variant: str = "hiera_l", checkpoint_path: Optional[str] = None,

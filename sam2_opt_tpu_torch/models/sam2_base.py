@@ -18,7 +18,6 @@ Feature maps are NCHW; masks are [B, M, H, W].
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Tuple
 
 import torch
@@ -90,7 +89,7 @@ def forward_image(model: SAM2Base, img):
     return {"backbone_fpn": fpn, "vision_pos_enc": list(out["vision_pos_enc"])}
 
 
-@lru_cache(maxsize=8)
+@ops.constant_cache(maxsize=8)
 def _channel_constants(values: tuple, device, dtype):
     """[C, 1, 1] per-channel constants on `device`, made once per device and
     dtype: a copy from host memory inside a step could not be captured into

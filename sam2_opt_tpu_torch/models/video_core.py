@@ -16,7 +16,6 @@ dtype. Memory features are stored in bf16 in both precisions (reference
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -25,6 +24,7 @@ import torch
 from sam2_opt_tpu_torch.config import SAM2Config
 from sam2_opt_tpu_torch.models import sam2_base as base
 from sam2_opt_tpu_torch.ops import posenc
+from sam2_opt_tpu_torch.ops.common import constant_cache
 
 
 class MemoryInput(NamedTuple):
@@ -51,7 +51,7 @@ def on_device(mem: MemoryInput, device) -> MemoryInput:
         ptr_valid=torch.as_tensor(mem.ptr_valid, device=device))
 
 
-@lru_cache(maxsize=8)
+@constant_cache(maxsize=8)
 def _sine_tokens(h: int, w: int, c: int, device, dtype):
     """[h*w, c] sine PE of a feature grid, a constant per shape (built
     outside inference mode, so training can use what a predictor cached)."""

@@ -12,13 +12,46 @@ and one-pass LayerNorm variance.
 
 from __future__ import annotations
 
+import collections
+import functools
 import math
 import os
+import threading
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def constant_cache(maxsize: int):
+    """An LRU cache for the per-shape constant tensors of a seam (tables,
+    encodings) that stores nothing while `torch.export` traces: a value
+    made then is the trace's fake tensor, which must not reach a later
+    eager call. A value cached before the trace is used by it and held in
+    the program as one constant (`export_program.export_seam` runs a seam
+    once eagerly first)."""
+    def decorate(fn):
+        cache = collections.OrderedDict()
+        lock = threading.Lock()
+
+        @functools.wraps(fn)
+        def wrapper(*args):
+            with lock:
+                if args in cache:
+                    cache.move_to_end(args)
+                    return cache[args]
+            value = fn(*args)
+            if not torch.compiler.is_compiling():
+                with lock:
+                    cache[args] = value
+                    if len(cache) > maxsize:
+                        cache.popitem(last=False)
+            return value
+
+        wrapper.cache_clear = cache.clear
+        return wrapper
+    return decorate
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):

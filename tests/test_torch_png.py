@@ -1,7 +1,7 @@
 """PNG frames in the port: a folder of `.png` frames (RGB, gray and palette
-images) through the port's `io/video.py`, held against the JAX loader's
-uint8 frames after the same resize (the port's, which
-tests/test_torch_video_predictor.py holds against the JAX package's)."""
+images) through the port's `io/video.py`, equal byte for byte to the JAX
+loader's uint8 frames at the same model size (both decode with Pillow and
+resize with `_resize_uint8`)."""
 
 import numpy as np
 import pytest
@@ -9,7 +9,7 @@ import torch
 from PIL import Image
 
 from sam2_opt_tpu.io.video import load_video_frames as jax_load_video_frames
-from sam2_opt_tpu_torch.io.video import _resize_frame, load_video_frames
+from sam2_opt_tpu_torch.io.video import load_video_frames
 
 
 def _frame_image(frame: np.ndarray, mode: str, rng) -> Image.Image:
@@ -28,11 +28,8 @@ def test_png_frame_folder_matches_jax_loader(tmp_path, mode):
     video = (rng.random((3, 64, 64, 3)) * 255).astype(np.uint8)
     for t, frame in enumerate(video):
         _frame_image(frame, mode, rng).save(tmp_path / f"{t:05d}.png")
-    # the JAX loader at the frames' own size does not resize (a resize to the
-    # same size is a copy): its decoded uint8 frames, then the port's resize
-    jax_frames, h, w = jax_load_video_frames(str(tmp_path), image_size=64)
+    jax_frames, h, w = jax_load_video_frames(str(tmp_path), image_size=32)
     assert (h, w) == (64, 64)
-    expected = torch.stack([_resize_frame(f, 32, "cpu") for f in jax_frames.frames])
     frames, h, w = load_video_frames(str(tmp_path), 32, device="cpu")
     assert (h, w) == (64, 64) and frames.shape == (3, 3, 32, 32) and frames.dtype == torch.uint8
-    np.testing.assert_allclose(frames.numpy(), expected.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(frames.permute(0, 2, 3, 1).numpy(), jax_frames.frames)

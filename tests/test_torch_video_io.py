@@ -3,8 +3,8 @@
 package's, on the CPU:
 
 - an mp4 written with OpenCV: the port's frames equal the JAX loader's
-  decoded frames after the port's resize (the PNG folder test's tolerance),
-  and a file that will not open raises;
+  byte for byte (the same decode and resize), and a file that will not
+  open raises;
 - `AsyncVideoFrameLoader`: the JAX package's own cases
   (`tests/test_utils_misc.py`: ordering, the bounded lookahead, a forward
   seek without deadlock, the error trampoline), and every frame equal to
@@ -30,7 +30,7 @@ from sam2_opt_tpu.io.video import load_video_frames as jax_load_video_frames
 from sam2_opt_tpu.models.model import SAM2Model as JaxSAM2Model
 from sam2_opt_tpu.predictors.video import SAM2VideoPredictor as JaxVideoPredictor
 from sam2_opt_tpu.utils import misc as jax_misc
-from sam2_opt_tpu_torch.io.video import _resize_frame, load_video_frames
+from sam2_opt_tpu_torch.io.video import load_video_frames
 from sam2_opt_tpu_torch.io.weights import state_dict_from_params
 from sam2_opt_tpu_torch.models.model import build_sam2
 from sam2_opt_tpu_torch.predictors.video import SAM2VideoPredictor
@@ -56,17 +56,16 @@ def test_mp4_frames_match_jax_loader(tmp_path):
     video = (np.kron(rng.random((4, 6, 6, 3)), np.ones((1, 8, 8, 1))) * 255).astype(np.uint8)
     path = tmp_path / "clip.mp4"
     _write_mp4(path, video)
-    # the JAX loader at the frames' own size does not resize (a resize to
-    # the same size is a copy): its decoded uint8 frames, then the port's
-    # resize (mp4 is lossy: the source pixels are not the reference)
-    jax_frames, h, w = jax_load_video_frames(str(path), image_size=48)
-    assert (h, w) == (48, 48) and jax_frames.frames.shape == (4, 48, 48, 3)
-    expected = torch.stack([_resize_frame(f, 32, "cpu") for f in jax_frames.frames])
+    # mp4 is lossy: the source pixels are not the reference, the JAX
+    # loader's frames are
+    jax_frames, h, w = jax_load_video_frames(str(path), image_size=32)
+    assert (h, w) == (48, 48) and jax_frames.frames.shape == (4, 32, 32, 3)
     frames, h, w = load_video_frames(str(path), 32, device="cpu")
     assert (h, w) == (48, 48) and frames.shape == (4, 3, 32, 32) and frames.dtype == torch.uint8
-    np.testing.assert_allclose(frames.numpy(), expected.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(frames.permute(0, 2, 3, 1).numpy(), jax_frames.frames)
     # the decode is close to the source, and kept on the CPU when asked
-    assert np.abs(jax_frames.frames.astype(int) - video).mean() < 8
+    decoded, _, _ = jax_load_video_frames(str(path), image_size=48)
+    assert np.abs(decoded.frames.astype(int) - video).mean() < 8
     kept, _, _ = load_video_frames(str(path), 32, offload_video_to_cpu=True, device="cpu")
     assert torch.equal(kept, frames)
     with pytest.raises(RuntimeError, match="cannot open"):

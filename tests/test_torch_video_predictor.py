@@ -188,22 +188,29 @@ def test_bf16_video_mask_miou(tiny128_cfg, weights):
 
 def test_video_loader_sources(tmp_path):
     """ndarray uint8 and float frames, and a JPEG directory, resized to the
-    model size with torch (bilinear, antialias) and kept as uint8; a path
-    that is neither a directory nor a video file that opens raises."""
+    model size as the JAX loader resizes them and kept as uint8, equal to
+    its frames byte for byte; a path that is neither a directory nor a
+    video file that opens raises."""
     from PIL import Image
+
+    from sam2_opt_tpu.io.video import load_video_frames as jax_load_video_frames
+
+    def jax_frames(source):
+        return torch.from_numpy(jax_load_video_frames(source, image_size=32)[0].frames).permute(
+            0, 3, 1, 2)
 
     rng = np.random.default_rng(1)
     video = (rng.random((3, 60, 90, 3)) * 255).astype(np.uint8)
     frames, h, w = load_video_frames(video, 32, device="cpu")
     assert (h, w) == (60, 90) and frames.shape == (3, 3, 32, 32) and frames.dtype == torch.uint8
+    assert torch.equal(frames, jax_frames(video))
     same, _, _ = load_video_frames(video.astype(np.float32) / 255.0, 32, device="cpu")
     assert torch.equal(frames, same)
     for i, f in enumerate(video):
         Image.fromarray(f).save(tmp_path / f"frame_{i:03d}.jpg")
-    decoded = np.stack([np.asarray(Image.open(tmp_path / f"frame_{i:03d}.jpg")) for i in range(3)])
     from_dir, h, w = load_video_frames(str(tmp_path), 32, device="cpu")
     assert (h, w) == (60, 90)
-    assert torch.equal(from_dir, load_video_frames(decoded, 32, device="cpu")[0])
+    assert torch.equal(from_dir, jax_frames(str(tmp_path)))
     with pytest.raises(RuntimeError, match="cannot open video"):
         load_video_frames(str(tmp_path / "clip.mp4"), 32, device="cpu")
 
