@@ -27,17 +27,26 @@ of kernels off the critical path.
 - A capture or replay that fails raises; nothing falls back to eager. When
   every tensor is on the CPU, which only an explicit `device="cpu"` gives,
   the seam runs eagerly: the CPU has no graphs. Tensors on both raise.
+- Counters, always on, added under the lock (`counters()`): per seam name
+  its replays, captures and the bytes copied in and out; the seconds callers
+  waited for the lock. With the tracer on (`utils/profiling.py`) each call
+  records the spans `graph.lock_wait`, `graph.copy_in`, `graph.replay`,
+  `graph.copy_out` (or `graph.capture`), each `:<seam>`, and a graph
+  captured then holds its seam's stage events, read before its next replay.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Callable, Hashable, Optional
 
 import torch
 from torch.utils import _pytree as pytree
+
+from sam2_opt_tpu_torch.utils import profiling
 
 
 class LRUCache:
@@ -86,16 +95,28 @@ class LRUCache:
         self._d.clear()
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
 class _Graph:
     """One captured signature: the graph, its static input buffers (None
-    where the input leaf is not a tensor), its static outputs, and the bytes
-    its capture added to the shared pool."""
+    where the input leaf is not a tensor), its static outputs, the bytes its
+    capture added to the shared pool, the bytes a call copies in and out,
+    and the stage events its replays record (empty with the tracer off)."""
 
-    __slots__ = ("graph", "inputs", "outputs", "out_spec", "pool_bytes")
+    __slots__ = ("graph", "inputs", "outputs", "out_spec", "pool_bytes", "in_bytes",
+                 "out_bytes", "events")
 
-    def __init__(self, graph, inputs, outputs, out_spec, pool_bytes):
+    def __init__(self, graph, inputs, outputs, out_spec, pool_bytes, events):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
-        self.out_spec, self.pool_bytes = out_spec, pool_bytes
+        self.out_spec, self.pool_bytes, self.events = out_spec, pool_bytes, events
+        self.in_bytes, self.out_bytes = _nbytes(inputs), _nbytes(outputs)
+
+
+def seam_name(name: Hashable) -> str:
+    """A seam's name without its static flags."""
+    return str(name[0] if isinstance(name, tuple) else name)
 
 
 def signature(name: Hashable, args) -> tuple:
@@ -103,14 +124,15 @@ def signature(name: Hashable, args) -> tuple:
     argument tree's structure, each tensor leaf's shape, dtype and strides
     (the static buffer keeps the layout, e.g. channels-last, that picks the
     eager call's kernels), every other leaf (None, a Python number) by
-    value, and the route switches (`SAM2_TPU_*`). The seams read the
-    switches while they run, so only at a capture: a switch changed later
-    keys a new graph instead of being ignored by the replays."""
+    value, the route switches (`SAM2_TPU_*`) and whether the tracer is on.
+    The seams read the switches while they run, so only at a capture: a
+    switch changed later keys a new graph instead of being ignored by the
+    replays; a graph captured with the tracer off holds no stage events."""
     leaves, spec = pytree.tree_flatten(args)
     switches = tuple(sorted((k, v) for k, v in os.environ.items() if k.startswith("SAM2_TPU_")))
     return (name, str(spec), tuple(
         (tuple(x.shape), x.dtype, x.stride(), x.device.type) if isinstance(x, torch.Tensor)
-        else ("=", x) for x in leaves), switches)
+        else ("=", x) for x in leaves), switches, profiling.enabled())
 
 
 class GraphExecutor:
@@ -127,6 +149,8 @@ class GraphExecutor:
         self._lock = threading.Lock()
         self._pool = None
         self.captures = 0
+        self._seams = {}
+        self._lock_wait_s = 0.0
 
     def __len__(self):
         return len(self._graphs)
@@ -148,6 +172,14 @@ class GraphExecutor:
         with self._lock:
             return self._graphs.keys()
 
+    def counters(self) -> dict:
+        """A copy of the counters: total captures, the seconds callers waited
+        for the lock, and per seam name its replays, captures and the bytes
+        copied into the static inputs and out of the static outputs."""
+        with self._lock:
+            return {"captures": self.captures, "lock_wait_s": self._lock_wait_s,
+                    "seams": {k: dict(v) for k, v in self._seams.items()}}
+
     def run(self, name: Hashable, fn: Callable, args: tuple) -> Any:
         leaves, spec = pytree.tree_flatten(args)
         devices = {x.device.type for x in leaves if isinstance(x, torch.Tensor)}
@@ -156,18 +188,40 @@ class GraphExecutor:
         if devices != {"cuda"}:
             raise ValueError(f"{name}: a seam's tensors must all be on the card or all on "
                              f"the CPU, got {sorted(devices)}")
-        key = signature(name, args)
+        key, seam = signature(name, args), seam_name(name)
+        t_call = time.perf_counter()
         with self._lock:
+            t_held = time.perf_counter()
+            self._lock_wait_s += t_held - t_call
+            if profiling.enabled():
+                profiling.record(f"graph.lock_wait:{seam}", t_call, t_held)
+            count = self._seams.get(seam)
+            if count is None:
+                count = self._seams[seam] = {"replays": 0, "captures": 0, "copy_in_bytes": 0,
+                                             "copy_out_bytes": 0}
             entry = self._graphs.get(key)
             if entry is None:
-                entry = self._capture(fn, leaves, spec)
+                with profiling.span("graph.capture", seam):
+                    entry = self._capture(fn, leaves, spec)
                 self._graphs[key] = entry
+                count["captures"] += 1
             else:
-                for buf, x in zip(entry.inputs, leaves):
-                    if buf is not None:
-                        buf.copy_(x)
-            entry.graph.replay()
-            outs = [o.clone() if isinstance(o, torch.Tensor) else o for o in entry.outputs]
+                with profiling.span("graph.copy_in", seam):
+                    for buf, x in zip(entry.inputs, leaves):
+                        if buf is not None:
+                            buf.copy_(x)
+            if entry.events:  # the last replay's, before this one records over them
+                profiling.TRACER.read(entry.events)
+            with profiling.span("graph.replay", seam):
+                t_launch = time.perf_counter()
+                entry.graph.replay()
+            if entry.events:
+                profiling.TRACER.launched(seam, t_launch, entry.events)
+            with profiling.span("graph.copy_out", seam):
+                outs = [o.clone() if isinstance(o, torch.Tensor) else o for o in entry.outputs]
+            count["replays"] += 1
+            count["copy_in_bytes"] += entry.in_bytes
+            count["copy_out_bytes"] += entry.out_bytes
         return pytree.tree_unflatten(outs, entry.out_spec)
 
     def _capture(self, fn, leaves, spec) -> _Graph:
@@ -184,12 +238,13 @@ class GraphExecutor:
         stream.wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
+        graph, events = torch.cuda.CUDAGraph(), []
         try:
             with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 # read inside the context: entering it empties the allocator's cache
                 reserved = torch.cuda.memory_reserved()
-                out = fn(*static_args)
+                with profiling.TRACER.collect(events):
+                    out = fn(*static_args)
         except BaseException:
             # the failed capture's hold on the pool is in doubt: later
             # captures start a new one (graphs already cached keep theirs)
@@ -197,4 +252,5 @@ class GraphExecutor:
             raise
         outputs, out_spec = pytree.tree_flatten(out)
         self.captures += 1
-        return _Graph(graph, inputs, outputs, out_spec, torch.cuda.memory_reserved() - reserved)
+        return _Graph(graph, inputs, outputs, out_spec, torch.cuda.memory_reserved() - reserved,
+                      events)

@@ -31,6 +31,7 @@ from sam2_opt_tpu_torch.kernels.fused_mlp import fused_mlp
 from sam2_opt_tpu_torch.kernels.window_attention import packed_window_attention, window_flash_3d
 from sam2_opt_tpu_torch.ops import common as ops
 from sam2_opt_tpu_torch.ops import posenc
+from sam2_opt_tpu_torch.utils import profiling
 
 
 def _packed_window_max_tokens() -> int:
@@ -223,6 +224,11 @@ class PatchEmbed(nn.Module):
         return self.proj(x)
 
 
+# the trunk's stage events (`utils/profiling.py`), one at each stage's end;
+# the first stage's reading starts at its seam's start
+STAGE_NAMES = ("trunk.stage1", "trunk.stage2", "trunk.stage3", "trunk.stage4")
+
+
 class Hiera(nn.Module):
     """Full trunk: [B, 3, H, W] image -> 4-scale NCHW feature pyramid,
     highest resolution first (reference hieradet.py:283-299)."""
@@ -256,6 +262,7 @@ class Hiera(nn.Module):
                 x = blk(x)
             if i in self.stage_ends:
                 outputs.append(x.permute(0, 3, 1, 2))
+                profiling.stage(STAGE_NAMES[len(outputs) - 1], x)
         return outputs
 
 
@@ -304,6 +311,7 @@ class ImageEncoder(nn.Module):
 
     def forward(self, x):
         features, pos = self.neck(self.trunk(x))
+        profiling.stage("neck", x)
         if self.scalp > 0:
             features, pos = features[: -self.scalp], pos[: -self.scalp]
         return {"vision_features": features[-1], "vision_pos_enc": pos,

@@ -15,14 +15,16 @@ from __future__ import annotations
 
 import copy
 import functools
+import time
 from typing import Optional
 
 import torch
 
 from sam2_opt_tpu_torch.config import SAM2Config, model_config
-from sam2_opt_tpu_torch.core.executor import GraphExecutor
+from sam2_opt_tpu_torch.core.executor import GraphExecutor, seam_name
 from sam2_opt_tpu_torch.models import sam2_base as base
 from sam2_opt_tpu_torch.models.init import init_params
+from sam2_opt_tpu_torch.utils import profiling
 
 def default_device(device=None) -> torch.device:
     """The port's entry points run on the card unless the caller names
@@ -193,17 +195,30 @@ class SAM2Model:
     def run(self, name, fn, args: tuple):
         """fn(*args): a graph replay per signature under the "cuda" backend
         (eager on CPU tensors), otherwise a plain call. `name` holds the
-        static flags that select what fn computes."""
-        if self._use_graphs:
-            return self.graphs.run(name, fn, args)
-        return fn(*args)
+        static flags that select what fn computes. With the tracer on, the
+        call is the span `seam:<name>`, and an eager call on the card records
+        its stage events too."""
+        if not profiling.enabled():
+            return self.graphs.run(name, fn, args) if self._use_graphs else fn(*args)
+        seam = seam_name(name)
+        with profiling.span("seam", seam):
+            if self._use_graphs:
+                return self.graphs.run(name, fn, args)
+            if self.device.type != "cuda":
+                return fn(*args)
+            events, t = [], time.perf_counter()
+            with profiling.TRACER.collect(events):
+                out = fn(*args)
+            profiling.TRACER.launched(seam, t, events)
+            return out
 
     @property
     def _m(self) -> base.SAM2Base:
         return self._compute
 
     def _images(self, images01):
-        return torch.as_tensor(images01, device=self.device).to(self.compute_dtype)
+        with profiling.span("image.resize"):
+            return torch.as_tensor(images01, device=self.device).to(self.compute_dtype)
 
     @torch.inference_mode()
     def encode_image(self, images01):
@@ -226,10 +241,12 @@ class SAM2Model:
         sam2_image_predictor.py:487-589). coords [B,P,2] model-frame pixels,
         labels [B,P], mask_input [B,1,256,256] or None. Returns fp32
         (low_res_masks, iou_predictions)."""
-        coords = torch.as_tensor(coords, dtype=torch.float32, device=self.device)
-        labels = torch.as_tensor(labels, dtype=torch.int32, device=self.device)
-        if mask_input is not None:
-            mask_input = torch.as_tensor(mask_input, device=self.device).to(self.compute_dtype)
+        with profiling.span("predict.prompts"):
+            coords = torch.as_tensor(coords, dtype=torch.float32, device=self.device)
+            labels = torch.as_tensor(labels, dtype=torch.int32, device=self.device)
+            if mask_input is not None:
+                mask_input = torch.as_tensor(mask_input,
+                                             device=self.device).to(self.compute_dtype)
         fn = functools.partial(decode_masks, self._m, self.cfg,
                                multimask_output=multimask_output)
         return self.run(("predict_masks", multimask_output, mask_input is not None), fn,
@@ -252,14 +269,17 @@ def encode_e2e(m: base.SAM2Base, images):
 def decode_masks(m: base.SAM2Base, cfg: SAM2Config, embed, hrf0, hrf1, coords, labels,
                  mask_input=None, multimask_output: bool = True):
     """The prompt-encode + mask-decode seam: fp32 (low_res_masks,
-    iou_predictions)."""
+    iou_predictions). Stages (`utils/profiling.py`): `prompt_encoder` (the
+    dense positional encoding included), `mask_decoder`."""
     sparse, dense = m.sam_prompt_encoder(coords, labels, mask_input)
     s = cfg.image_embedding_size
     image_pe = m.sam_prompt_encoder.get_dense_pe((s, s)).to(embed.dtype)
+    profiling.stage("prompt_encoder", image_pe)
     masks, iou, _, _ = m.sam_mask_decoder(
         embed, image_pe, sparse.to(embed.dtype), dense.to(embed.dtype),
         multimask_output=multimask_output, high_res_features=(hrf0, hrf1),
         repeat_image=coords.shape[0] > embed.shape[0])
+    profiling.stage("mask_decoder", masks)
     return masks.float(), iou.float()
 
 

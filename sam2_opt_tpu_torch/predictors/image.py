@@ -26,6 +26,7 @@ import torch.distributed as dist
 from sam2_opt_tpu_torch.config import SAM2Config
 from sam2_opt_tpu_torch.models.model import SAM2Model
 from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
+from sam2_opt_tpu_torch.utils import profiling
 from sam2_opt_tpu_torch.utils.transforms import postprocess_masks, resize_to_model
 
 
@@ -85,20 +86,27 @@ class SAM2ImagePredictor:
     def _resize_to_model(self, images: np.ndarray) -> torch.Tensor:
         """uint8/float [B,H,W,3] -> float [B,3,S,S] in [0,1] on the device
         (reference: torchvision Resize 1024² + /255, sam2_image_predictor.py:193)."""
-        x = torch.as_tensor(np.asarray(images), device=self.device)
-        x = x.permute(0, 3, 1, 2).float() / 255.0
-        return resize_to_model(x, self.cfg.image_size)
+        with profiling.span("image.upload"):
+            x = torch.as_tensor(np.asarray(images), device=self.device)
+        with profiling.span("image.resize"):
+            x = x.permute(0, 3, 1, 2).float() / 255.0
+            return resize_to_model(x, self.cfg.image_size)
 
     def set_image(self, image) -> None:
-        """image: np.ndarray HWC (RGB, 0-255) or PIL Image."""
+        """image: np.ndarray HWC (RGB, 0-255) or PIL Image. With the tracer
+        on (`utils/profiling.py`) its spans are `image.prepare` (the array
+        and its stacking), `image.upload` (the pageable copy to the card),
+        `image.resize` (to the model's size and dtype) and the encoder's
+        seam."""
         self.reset_predictor()
-        if hasattr(image, "size") and not isinstance(image, np.ndarray):  # PIL
-            w, h = image.size
-            self._orig_hw = [(h, w)]
-            image = np.array(image.convert("RGB"))
-        else:
-            image = np.asarray(image)
-            self._orig_hw = [image.shape[:2]]
+        with profiling.span("image.prepare"):
+            if hasattr(image, "size") and not isinstance(image, np.ndarray):  # PIL
+                w, h = image.size
+                self._orig_hw = [(h, w)]
+                image = np.array(image.convert("RGB"))
+            else:
+                image = np.asarray(image)
+                self._orig_hw = [image.shape[:2]]
         self._set_image_([image])
 
     def set_image_batch(self, image_list: List[np.ndarray]) -> None:
@@ -114,7 +122,9 @@ class SAM2ImagePredictor:
             x = torch.cat([self._resize_to_model(np.asarray(img, np.uint8)[None])
                            for img in images])
         else:
-            x = self._resize_to_model(np.stack(images).astype(np.uint8))
+            with profiling.span("image.prepare"):
+                batch = np.stack(images).astype(np.uint8)
+            x = self._resize_to_model(batch)
         dp = mesh_lib.axis_size(self.mesh, "data")
         if dp > 1 and x.shape[0] % dp == 0:
             self._local_rows = mesh_lib.process_local_batch_rows(self.mesh, x.shape[0])
@@ -158,14 +168,22 @@ class SAM2ImagePredictor:
                 mask_input: Optional[np.ndarray] = None, multimask_output: bool = True,
                 return_logits: bool = False, normalize_coords: bool = True,
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Reference-compatible predict (sam2_image_predictor.py:387-454)."""
+        """Reference-compatible predict (sam2_image_predictor.py:387-454).
+        With the tracer on (`utils/profiling.py`) its spans are
+        `predict.prompts` (the prompts prepared and uploaded), the decoder's
+        seam, `predict.postprocess` (the masks to the image's size,
+        thresholded) and `predict.download` (masks, IoUs and logits to the
+        host)."""
         if not self._is_image_set:
             raise RuntimeError("An image must be set with .set_image(...) before mask prediction.")
-        mask_in, unnorm_coords, labels, unnorm_box = self._prep_prompts(
-            point_coords, point_labels, box, mask_input, normalize_coords)
+        with profiling.span("predict.prompts"):
+            mask_in, unnorm_coords, labels, unnorm_box = self._prep_prompts(
+                point_coords, point_labels, box, mask_input, normalize_coords)
         masks, ious, low_res = self._predict(unnorm_coords, labels, unnorm_box, mask_in,
                                              multimask_output, return_logits=return_logits)
-        return (_squeeze0(_numpy(masks)), _squeeze0(_numpy(ious)), _squeeze0(_numpy(low_res)))
+        with profiling.span("predict.download"):
+            return (_squeeze0(_numpy(masks)), _squeeze0(_numpy(ious)),
+                    _squeeze0(_numpy(low_res)))
 
     def predict_batch(self, point_coords_batch=None, point_labels_batch=None, box_batch=None,
                       mask_input_batch=None, multimask_output: bool = True,
@@ -194,20 +212,21 @@ class SAM2ImagePredictor:
     def _predict(self, point_coords, point_labels, boxes=None, mask_input=None,
                  multimask_output=True, return_logits=False, img_idx: int = -1):
         """Predict on prepared prompts (reference sam2_image_predictor.py:487-589)."""
-        concat_coords, concat_labels = point_coords, point_labels
-        if boxes is not None:
-            box_coords = boxes.reshape(-1, 2, 2)
-            box_labels = np.tile(np.asarray([[2, 3]], np.int32), (box_coords.shape[0], 1))
-            if concat_coords is not None:
-                concat_coords = np.concatenate([box_coords, concat_coords], axis=1)
-                concat_labels = np.concatenate([box_labels, concat_labels], axis=1)
-            else:
-                concat_coords, concat_labels = box_coords, box_labels
-        if concat_coords is None:
-            # mask-only prompt: a single padding point
-            B = 1 if mask_input is None else mask_input.shape[0]
-            concat_coords = np.zeros((B, 1, 2), np.float32)
-            concat_labels = -np.ones((B, 1), np.int32)
+        with profiling.span("predict.prompts"):
+            concat_coords, concat_labels = point_coords, point_labels
+            if boxes is not None:
+                box_coords = boxes.reshape(-1, 2, 2)
+                box_labels = np.tile(np.asarray([[2, 3]], np.int32), (box_coords.shape[0], 1))
+                if concat_coords is not None:
+                    concat_coords = np.concatenate([box_coords, concat_coords], axis=1)
+                    concat_labels = np.concatenate([box_labels, concat_labels], axis=1)
+                else:
+                    concat_coords, concat_labels = box_coords, box_labels
+            if concat_coords is None:
+                # mask-only prompt: a single padding point
+                B = 1 if mask_input is None else mask_input.shape[0]
+                concat_coords = np.zeros((B, 1, 2), np.float32)
+                concat_labels = -np.ones((B, 1), np.int32)
 
         feats = self._features
         sel = (lambda t: t[img_idx][None]) if img_idx >= 0 else (lambda t: t)
@@ -216,10 +235,11 @@ class SAM2ImagePredictor:
             sel(feats["high_res_feats"][1]), concat_coords, concat_labels,
             mask_input=mask_input, multimask_output=multimask_output)
 
-        masks = self.postprocess_masks(low_res_masks, self._orig_hw[img_idx])
-        low_res_masks = low_res_masks.clamp(-32.0, 32.0)
-        if not return_logits:
-            masks = masks > self.mask_threshold
+        with profiling.span("predict.postprocess"):
+            masks = self.postprocess_masks(low_res_masks, self._orig_hw[img_idx])
+            low_res_masks = low_res_masks.clamp(-32.0, 32.0)
+            if not return_logits:
+                masks = masks > self.mask_threshold
         return masks, ious, low_res_masks
 
     def postprocess_masks(self, masks, orig_hw):

@@ -175,5 +175,10 @@ class InferenceAPI:
         return {"frameIndex": int(frame_idx), "results": results}
 
     def session_stats(self) -> dict:
+        """The number of sessions and the graph executor's counters
+        (`core/executor.py`): per seam its replays, captures and the bytes
+        copied in and out, and the seconds callers waited for its lock, which
+        the sessions share."""
         with self._lock:
-            return {"numSessions": len(self.session_states)}
+            n = len(self.session_states)
+        return {"numSessions": n, "graphs": self.predictor.model.graphs.counters()}

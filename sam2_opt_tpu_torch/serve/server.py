@@ -5,7 +5,9 @@ InferenceAPI, with /propagate_in_video streamed as newline-delimited JSON
 frames (standing in for the reference's multipart chunked RLE stream,
 inference/multipart.py). Endpoints:
 
-  GET  /healthy
+  GET  /healthy                  -> {"ok", "numSessions", "graphs": {"captures",
+                                  "lock_wait_s", "seams": {<seam>: {"replays",
+                                  "captures", "copy_in_bytes", "copy_out_bytes"}}}}
   POST /start_session            {"video_path": ...} -> {"sessionId": ...}
   POST /close_session            {"sessionId": ...}
   POST /add_points               {"sessionId", "frameIndex", "objectId",
