@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --kernel-times   # build, then the kernel times of
-                                           # phases 7 (K1, K2), 14 (K5-K8) and 15
-                                           # (K4), K1 at D = 256 and K9/K10 only
+                                           # phases 7 (K1, K2), 14 (K5-K8), 15
+                                           # (K4) and 27, K1 at D = 256 and
+                                           # K9/K10 only
 
 `--kernel-times` times whichever `sam2_opt_tpu_torch` it imports, so a copy
 of this script in another checkout's root times that checkout's kernels:
@@ -28,7 +29,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    with a point, a box and points plus a box, multimask on and off; fp32 held
    against the same weights on the CPU (plain path), then bf16 (eagerly)
    held to the fp32 masks by mIoU; K1 must launch exactly 3 times per
-   `set_image`;
+   `set_image`, and `add_layer_norm` 96 times per bf16 one;
 6. the video slice: `build_sam2_video_predictor("hiera_l", seed=0)` on a
    synthetic 8-frame 720x1280 video (a textured square moving over a
    textured background), points on frame 0, `propagate_in_video` over all
@@ -235,7 +236,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    `examples.image` and `examples.video` (3 frames) on a checkpoint of the
    same weights write their outputs, their masks at IoU >= 0.999 against
    the same calls in this process.
-Phases run in the order 1-4, 8, 11-12, 5, 7, 13-14, 6-7, 25, 26, 9-10, 15-24; each
+27. the trunk's fused residual add + LayerNorm (`add_layer_norm`, which
+   replaces no TPU kernel) against its plain version (the eager chain) at
+   hiera-L's four stage shapes and hiera-b+'s padded stage 3, both calls of
+   a block: the sum bitwise, normed within one bf16 ulp, a negative control
+   (eps 1) that must fail; their times from CUDA graph replays with a cold
+   L2 beside the byte bound, the plain version and `F.layer_norm` (+ the
+   add); phase 5 counts its 96 launches per bf16 `set_image`.
+Phases run in the order 1-4, 8, 11-12, 27, 5, 7, 13-14, 6-7, 25, 26, 9-10, 15-24; each
 phase that sets a switch restores it and logs its wall seconds, which the
 summary line before the kernels line gathers under "phase_seconds". Since slice 6, K8 (phases 12-14) is a
 warp-specialised wgmma/TMA kernel; phase 14 also gives the bound of the
@@ -273,6 +281,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -444,8 +453,9 @@ def graph_ms(fn, reps=10, flush=None):
     """Mean device time of fn() in ms, replayed from a CUDA graph so that
     the host's launch overhead (tens of us for a wrapper, more than a small
     kernel takes) is not timed; `flush` is rewritten before each replay, so
-    every replay finds the L2 cold. Kernel launch counters move once, at
-    capture."""
+    every replay finds the L2 cold (and full of dirty lines, which the timed
+    call writes back as it evicts them). Kernel launch counters move once,
+    at capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -847,6 +857,7 @@ def miou(a, b):
 @phase
 def phase_slice(flash_attention):
     from sam2_opt_tpu_torch import build_sam2_image_predictor
+    from sam2_opt_tpu_torch.kernels.add_layer_norm import add_layer_norm
     from sam2_opt_tpu_torch.models.model import build_sam2
     from sam2_opt_tpu_torch.predictors.image import SAM2ImagePredictor
 
@@ -893,10 +904,15 @@ def phase_slice(flash_attention):
 
     set_backend(predictor)
     check(predictor.model.compute_dtype == torch.bfloat16, "the cuda backend runs bf16")
+    add_layer_norm.launches = 0
     predictor.set_image(image)
     torch.cuda.synchronize()
     check(flash_attention.launches == 6,
           f"bf16 set_image launched K1 {flash_attention.launches - 3} times, expected 3")
+    aln_launches = add_layer_norm.launches
+    check(aln_launches == ALN_IMAGE_LAUNCHES,
+          f"bf16 set_image launched add_layer_norm {aln_launches} times, expected "
+          f"{ALN_IMAGE_LAUNCHES}")
     bf16 = run_prompts(predictor, orig_hw)
     launches = flash_attention.launches
     check(launches == 6, "predict must not launch K1")
@@ -908,12 +924,12 @@ def phase_slice(flash_attention):
     log(f"bf16 vs fp32: min mask mIoU {worst_miou:.4f} (limit > {BF16_MIOU_MIN}), "
         f"max|dIoU| {worst_diou:.3e} (limit < {BF16_IOU_ATOL})")
     check(worst_miou > BF16_MIOU_MIN and worst_diou < BF16_IOU_ATOL, "bf16 masks drift from fp32")
-    return predictor, image, launches, {torch.float32: fp32, torch.bfloat16: bf16}
+    return predictor, image, launches, aln_launches, {torch.float32: fp32, torch.bfloat16: bf16}
 
 
 # kernel-name patterns for the split of device time, first match wins. Every
 # `__global__` kernel of `sam2_opt_tpu_torch/csrc/` matches one of the first
-# six (tests/test_torch_chip_smoke_families.py): each caller's kernels carry
+# seven (tests/test_torch_chip_smoke_families.py): each caller's kernels carry
 # its prefix, so K2's rotation, attention and split merge count as K2's even
 # though its attention body is K1's, and K1's and K4's merges as theirs.
 # the kernels torch._int_mm runs on the H100, as profiled replays name them:
@@ -934,6 +950,7 @@ FAMILIES = [
     ("K4 flash_attention_kv_proj (csrc)", r"flash_kvproj_"),
     ("K2 flash_attention_rope (csrc)", r"flash_rope_"),
     ("K1 flash_attention (csrc)", r"flash_fwd_"),
+    ("add_layer_norm (csrc)", r"add_layer_norm_kernel"),
     ("int8 GEMM (torch._int_mm)", INT8_GEMM),
     ("convolution", r"conv|fprop|dgrad|wgrad|cudnn|implicit_gemm|winograd"),
     ("matmul", r"gemm|xmma|cutlass|cublas|nvjet|sm90_|sm80_"),
@@ -1479,7 +1496,8 @@ EXPORT_TIMEOUT_S = 300
 # exported kernel nodes and launches per call: K1 in the trunk's 3 global
 # blocks, K2 in memory attention's 4 self and 4 cross attentions (K4 takes
 # the 4 cross ones under SAM2_TPU_FUSED_KV_PROJ=1)
-EXPORT_LAUNCHES = {"set_image_e2e": {"flash_attention": 3},
+# set_image_e2e: the trunk's add_layer_norm twice a block (ALN_IMAGE_LAUNCHES)
+EXPORT_LAUNCHES = {"set_image_e2e": {"add_layer_norm": 96, "flash_attention": 3},
                    "track_step": {"flash_attention_rope": 8},
                    "track_step_k4": {"flash_attention_rope": 4, "flash_attention_kv_proj": 4},
                    "memory_encoder": {}, "predict_masks": {}}
@@ -1539,8 +1557,9 @@ def exported_worker(out):
     try:
         from sam2_opt_tpu_torch.export import export_program as ex
         from sam2_opt_tpu_torch.kernels import flash_attention as fa
+        from sam2_opt_tpu_torch.kernels.add_layer_norm import add_layer_norm
 
-        counters = {"flash_attention": fa.flash_attention,
+        counters = {"add_layer_norm": add_layer_norm, "flash_attention": fa.flash_attention,
                     "flash_attention_rope": fa.flash_attention_rope,
                     "flash_attention_kv_proj": fa.flash_attention_kv_proj}
         inputs = torch.load(f"{out}/inputs.pt", map_location="cuda", weights_only=False)
@@ -2557,6 +2576,129 @@ def phase_route_kernel_times():
                                                    library_ms=library_ms, bound_ms=bound_ms,
                                                    bound_by=bound_by)
     return rows
+
+
+# --------------------------------------------------------------------------- #
+# the trunk's fused residual add + LayerNorm (replaces no TPU kernel)
+# --------------------------------------------------------------------------- #
+
+# (batch, tokens a side, C, window, calls) of hiera-L's four stages at
+# 1024², a global block (raster on both sides), the entry of the first block
+# of stage 2 (q-pool: normed in raster order, for the projection),
+# hiera-b+'s stage 3, whose windows of 14 pad 64 to 70, and two images at
+# once (`set_image_batch`), padded and raster
+ALN_CALLS = ("entry", "after attention")
+ALN_SHAPES = {
+    "L stage 1": (1, 256, 144, 8, ALN_CALLS), "L stage 2": (1, 128, 288, 4, ALN_CALLS),
+    "L stage 3": (1, 64, 576, 16, ALN_CALLS), "L stage 4": (1, 32, 1152, 8, ALN_CALLS),
+    "L global": (1, 64, 576, 0, ALN_CALLS), "L q-pool entry": (1, 256, 144, 0, ("entry",)),
+    "B+ stage 3": (1, 64, 448, 14, ALN_CALLS),
+    "B+ stage 3 x2": (2, 64, 448, 14, ALN_CALLS), "L global x2": (2, 64, 576, 0, ALN_CALLS),
+}
+ALN_EPS = 1e-6
+ALN_IMAGE_LAUNCHES = 96  # per bf16 hiera-L set_image: two per block
+
+
+def aln_inputs(B, side, C, ws, gen):
+    """bf16 residual [B, side, side, C], the attention's output in window
+    order (raster for ws 0), weight and bias, at a trained trunk's spread."""
+    from sam2_opt_tpu_torch.ops import common as ops
+
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+    residual = 2.0 * randn(B, side, side, C) + randn(B, side, side, 1)
+    delta = randn(B, side, side, C)
+    if ws:
+        delta = ops.window_partition(delta, ws)[0]
+    return [a.to(torch.bfloat16) for a in (residual, delta, 1.0 + 0.3 * randn(C), 0.2 * randn(C))]
+
+
+def aln_bound_ms(B, side, C, ws, entry):
+    """Bytes over the memory rate: the block's entry reads x and writes
+    normed in window order (padded rows included); after the attention the
+    kernel reads residual and delta (the padded rows of delta are never
+    read) and writes sum and normed; weight and bias once."""
+    from sam2_opt_tpu_torch.kernels.add_layer_norm import window_grid
+
+    _, Hp, Wp = window_grid(ws, side, side) or (0, side, side)
+    rows = B * side * side
+    moved = (rows + B * Hp * Wp) if entry else 4 * rows
+    return 1e3 * (2 * C * moved + 4 * C) / PEAK_BYTES
+
+
+@phase
+def phase_add_layer_norm():
+    """The fused residual add + LayerNorm against its plain version (the
+    eager chain) on the card at `ALN_SHAPES`, both calls of a block (entry:
+    no delta, normed in window order, raster for a global block or a q-pool
+    entry; after the attention: delta gathered from window order, raster
+    out), then their times from CUDA graph replays with a cold L2, beside
+    the byte bound, the plain version and the library yardstick
+    (`F.layer_norm`, after the add for the second call: no window order).
+    The sum must be bitwise equal; normed within one bf16 ulp of x * scale,
+    shift and itself (the fp32 sums' order); a negative control (eps 1 in
+    the plain version) must fail."""
+    from sam2_opt_tpu_torch.kernels.add_layer_norm import (
+        add_layer_norm,
+        add_layer_norm_ref,
+        window_grid,
+    )
+    from sam2_opt_tpu_torch.ops import common as ops
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    rows, max_err = {}, 0.0
+    for label, (B, side, C, ws, names) in ALN_SHAPES.items():
+        residual, delta, weight, bias = aln_inputs(B, side, C, ws, gen)
+        win = window_grid(ws, side, side)
+        calls = {"entry": (None, (), win), "after attention": (delta, win, ())}
+        row = {}
+        for name in names:
+            d, d_win, o_win = calls[name]
+            run = lambda: add_layer_norm(  # noqa: E731
+                residual, d, weight, bias, ALN_EPS, d_win, o_win)  # noqa: B023
+            total, normed = run()
+            torch.cuda.synchronize()
+            want_sum, want = add_layer_norm_ref(residual, d, weight, bias, ALN_EPS, d_win, o_win)
+            check(torch.equal(total, want_sum), f"add_layer_norm {label} {name}: sum differs")
+            x = want_sum.float()
+            mean = x.mean(-1, keepdim=True)
+            rstd = torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + ALN_EPS)
+            size = (x * rstd * weight.float()).abs() + (bias.float() - mean * rstd
+                                                       * weight.float()).abs()
+            if o_win:
+                size = ops.window_partition(size, ws)[0]
+            bound = 2.0 ** -7 * (size + want.float().abs())
+            err = (normed.float() - want.float()).abs()
+            check(bool((err <= bound).all()), f"add_layer_norm {label} {name}: max error "
+                  f"{err.max().item():.3e} outside one ulp")
+            max_err = max(max_err, err.max().item())
+            same = float((err == 0).float().mean())
+            bad = add_layer_norm_ref(residual, d, weight, bias, 1.0, d_win, o_win)[1]
+            outside = float(((normed.float() - bad.float()).abs() > bound).float().mean())
+            check(outside > 0, f"add_layer_norm {label} {name}: the check cannot see eps")
+            ms = graph_ms(run, flush=flush)
+            plain_ms = graph_ms(lambda: add_layer_norm_ref(  # noqa: B023
+                residual, d, weight, bias, ALN_EPS, d_win, o_win), reps=5, flush=flush)
+            if d is None:
+                library = lambda: F.layer_norm(residual, (C,), weight, bias, ALN_EPS)  # noqa: E731
+            else:
+                flat = ops.window_unpartition(delta, ws, win[1:], (side, side)) if ws else delta
+                library = lambda: F.layer_norm(residual + flat, (C,), weight, bias,  # noqa: E731
+                                               ALN_EPS)  # noqa: B023
+            library_ms = graph_ms(library, flush=flush)
+            bound_ms = aln_bound_ms(B, side, C, ws, d is None)
+            row[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                             bitwise_share=same)
+            log(f"add_layer_norm {label} ({B}x{side}x{side}x{C}, ws {ws}) {name}: {ms:.4f} ms "
+                f"({bound_ms / ms:.1%} of its byte bound {bound_ms:.4f} ms), plain "
+                f"{plain_ms:.4f} ms, "
+                f"F.layer_norm{' + add' if d is not None else ''} {library_ms:.4f} ms; "
+                f"max|normed-ref| {err.max().item():.3e}, {same:.4%} bitwise, control "
+                f"{outside:.1%} outside")
+        rows[label] = dict(**{k: sum(r[k] for r in row.values())
+                              for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                           calls=row, shape=[B, side, side, C], window=ws)
+    return rows, max_err
 
 
 # --------------------------------------------------------------------------- #
@@ -4721,8 +4863,13 @@ def main(argv):
         k4 = phase_k4_times(flash_attention_kv_proj, flash_attention_kv_proj_ref, kv_proj_rotate)
         k4_rows = {("K4", dt, K4_CROSS): row for dt, row in k4.items()}
         tool = phase_k9_k10_times()
+        # the trunk's add_layer_norm, where the checkout has it
+        aln = {}
+        if importlib.util.find_spec("sam2_opt_tpu_torch.kernels.add_layer_norm") is not None:
+            aln = {("add_layer_norm", label): row
+                   for label, row in phase_add_layer_norm()[0].items()}
         log(json.dumps({"kernel_times": {label(k): v for k, v in {
-            **k1, **rows, **memory_rows, **k4_rows, **tool}.items()}, "card": smi[0]}))
+            **k1, **rows, **memory_rows, **k4_rows, **tool, **aln}.items()}, "card": smi[0]}))
         return 0
     check(rope_rotate is not None, "this checkout has no rope_rotate")
     check(kv_proj_rotate is not None, "this checkout has no kv_proj_rotate")
@@ -4733,8 +4880,9 @@ def main(argv):
     k3 = phase_k3_times()
     window_err = phase_windows()
     k8_err = phase_k8()
+    aln_rows, aln_err = phase_add_layer_norm()
     phase_route_grads()
-    predictor, image, image_launches, default_outs = phase_slice(flash_attention)
+    predictor, image, image_launches, aln_launches, default_outs = phase_slice(flash_attention)
     times = phase_times(predictor, image)
     k1 = phase_k1_times(flash_attention, flash_attention_ref)
     route_counters = {"K1": flash_attention, "K5": window_attention, "K6": window_flash_3d,
@@ -4908,6 +5056,18 @@ def main(argv):
                        for (k, dt, sh), row in route_kernels.items() if k == key},
             "video_launches": video_route_launches.get(key, 0),
         })
+    entries.append({
+        "name": "add_layer_norm (the trunk's residual add + LayerNorm)",
+        "route": "cuda",
+        "source": "sam2_opt_tpu_torch/csrc/add_layer_norm.cu",
+        "replaces": "no TPU kernel (XLA fuses the chain in the JAX package)",
+        "launches": aln_launches,
+        "max_abs_err": aln_err,
+        **{k: v for k, v in aln_rows["L stage 3"].items() if k != "calls"},
+        "dtype": "bfloat16",
+        "library": "F.layer_norm (after the add for the second call), no window order",
+        "shapes": aln_rows,
+    })
     # slice 5: K4 at the cross shape; K9 and K10 at the tool's first shape
     # (each shape launches them equally often), the other shapes beside it
     entries.extend([{

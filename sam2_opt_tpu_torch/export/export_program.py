@@ -146,11 +146,14 @@ def export_seam(module, cfg, name: str, args):
     the shapes of `args` (see `example_inputs`): its program, holding the
     parameters its graph reads. The seam runs once eagerly first, so the
     per-shape constants it caches (`ops.constant_cache`) are real tensors,
-    which the program holds once each."""
+    which the program holds once each. Both run without grad, as the
+    seams run in inference, so the trace takes the routes an inference
+    takes (the bf16 trunk's `add_layer_norm`)."""
     seam = Seam(module, cfg, globals()[name])
     with torch.no_grad():
         seam(*args)
-    return _without_unused_state(torch.export.export(seam, args, strict=False))
+        program = torch.export.export(seam, args, strict=False)
+    return _without_unused_state(program)
 
 
 def _without_unused_state(program):

@@ -11,6 +11,9 @@ eagerly): the bf16 window routes to the packed (K7) and per-window (K6)
 kernels, the window kernel in `ops.flash_or_sdpa` (K5), and the fused block
 MLP (K8). The window routes and K5 also need `SAM2_TPU_FLASH`
 (`ops.use_flash_attention`: on for CUDA tensors by default), as in JAX.
+Without grad a bf16 block runs its LayerNorms, residual add and window
+(un)partition as two `add_layer_norm` calls (XLA fuses that chain in the
+JAX package; on the CPU the operator is the eager chain itself).
 Its XLA layout routes (token-flat window runs, global blocks in
 window order, the space-to-depth patch embed) run no kernel and equal the
 plain form, so they are not ported.
@@ -27,6 +30,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sam2_opt_tpu_torch.config import FpnNeckConfig, HieraConfig
+from sam2_opt_tpu_torch.kernels.add_layer_norm import (
+    add_layer_norm,
+    add_layer_norm_ref,
+    window_grid,
+)
 from sam2_opt_tpu_torch.kernels.fused_mlp import fused_mlp
 from sam2_opt_tpu_torch.kernels.window_attention import packed_window_attention, window_flash_3d
 from sam2_opt_tpu_torch.ops import common as ops
@@ -135,28 +143,31 @@ class MultiScaleBlock(nn.Module):
             self.proj = nn.Linear(dim, dim_out)
 
     def forward(self, x):
-        shortcut = x
-        x = self.norm1(x)
-        if self.dim != self.dim_out:
+        # without grad a bf16 block runs its LayerNorms, the residual add and
+        # the window (un)partition as two `add_layer_norm` calls (the kernel
+        # on the card); otherwise the same chain eagerly
+        aln = (add_layer_norm if x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+               else add_layer_norm_ref)
+        n1, n2 = self.norm1, self.norm2
+        ws = self.window_size
+        H, W = x.shape[1], x.shape[2]
+        project = self.dim != self.dim_out
+        # a block with a projection (the first of stages 2-4) keeps norm1 in
+        # raster order for it and partitions eagerly
+        shortcut, x = aln(x, None, n1.weight, n1.bias, n1.eps,
+                          out_window=() if project else window_grid(ws, H, W))
+        if project:
             shortcut = self.proj(x)
             if self.q_stride is not None:
                 shortcut = ops.max_pool2d(shortcut, self.q_stride, self.q_stride)
-
-        H, W = x.shape[1], x.shape[2]
-        ws = self.window_size
-        pad_hw = (H, W)
-        if ws > 0:
-            x, pad_hw = ops.window_partition(x, ws)
+            if ws > 0:
+                x, _ = ops.window_partition(x, ws)
         x = self.attn(x)
         if self.q_stride is not None:
             ws = ws // self.q_stride[0]
-            H, W = shortcut.shape[1], shortcut.shape[2]
-            if ws > 0:
-                pad_hw = (H + (ws - H % ws) % ws, W + (ws - W % ws) % ws)
-        if self.window_size > 0:
-            x = ops.window_unpartition(x, ws, pad_hw, (H, W))
-        x = shortcut + x
-        return x + self._mlp(self.norm2(x))
+        H, W = shortcut.shape[1], shortcut.shape[2]
+        x, xn = aln(shortcut, x, n2.weight, n2.bias, n2.eps, delta_window=window_grid(ws, H, W))
+        return x + self._mlp(xn)
 
     def _mlp(self, xn):
         """The block MLP; in bf16 under `SAM2_TPU_FUSED_MLP=1` the fused

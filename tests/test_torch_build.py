@@ -8,7 +8,8 @@ import pytest
 
 from sam2_opt_tpu_torch.kernels import _build
 
-LIBRARIES = ["flash_attention", "flash_attention_bwd", "fused_mlp", "window_attention"]
+LIBRARIES = ["add_layer_norm", "flash_attention", "flash_attention_bwd", "fused_mlp",
+             "window_attention"]
 
 
 def test_every_source_is_a_library():

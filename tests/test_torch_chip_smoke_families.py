@@ -3,7 +3,8 @@ kernel of the port.
 
 Every `__global__` kernel in `sam2_opt_tpu_torch/csrc/*.cu` must match a
 family of `chip_smoke.FAMILIES` other than "other", and the family of the
-TPU kernel it serves: K2's rotation, attention and split merge count as K2's
+TPU kernel it serves (the trunk's `add_layer_norm`, which serves none, its
+own): K2's rotation, attention and split merge count as K2's
 although its attention body is K1's. Each name is checked bare and as
 torch.profiler reports a templated kernel. Reads the sources and the script
 only; imports neither JAX nor the JAX package.
@@ -27,6 +28,7 @@ EXPECTED = [
     ("flash_kvproj_", "K4 flash_attention_kv_proj (csrc)"),
     ("flash_rope_", "K2 flash_attention_rope (csrc)"),
     ("flash_fwd_", "K1 flash_attention (csrc)"),
+    ("add_layer_norm_", "add_layer_norm (csrc)"),  # the trunk's; replaces no TPU kernel
 ]
 
 

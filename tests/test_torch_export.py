@@ -91,6 +91,9 @@ def _op_cases(device):
         "window_attention_heads": tuple(t.detach() for t in nshd),
         "window_attention_3d": tuple(t.detach() for t in nshd),
         "fused_mlp": (*mlp, True),
+        "add_layer_norm": (r(2, 5, 6, 16, dtype=torch.bfloat16), r(8, 4, 4, 16, dtype=torch.bfloat16),
+                           r(16, dtype=torch.bfloat16), r(16, dtype=torch.bfloat16), 1e-6,
+                           [4, 8, 8], [4, 8, 8]),
     }
 
 
@@ -99,9 +102,10 @@ OPS = sorted(_op_cases("cpu"))
 
 def test_every_kernel_wrapper_is_an_operator():
     """The 13 launch wrappers of K1-K10 (K2's rotation and K4's projection
-    included) are operators of one namespace, each with its plain version
-    on the CPU and its kernel on the card."""
-    assert len(OPS) == 13
+    included) and the trunk's `add_layer_norm` are operators of one
+    namespace, each with its plain version on the CPU and its kernel on the
+    card."""
+    assert len(OPS) == 14
     for name in OPS:
         op = getattr(torch.ops.sam2_opt_tpu_torch, name).default
         assert op.has_kernel_for_dispatch_key(torch._C.DispatchKey.CPU)
@@ -212,6 +216,23 @@ def test_export_all_writes_four_seams_with_their_kernel_nodes(exported, model, m
     with torch.no_grad():
         for got, want in zip(program.module()(x), programs["set_image_e2e"].module()(x)):
             assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_set_image_program_holds_add_layer_norm_nodes(flash, model):
+    """In bf16, `export_all`'s default, the traced seam runs without grad,
+    so every Hiera block is two `add_layer_norm` nodes (its LayerNorms,
+    residual add and window (un)partition); the program equals the eager
+    seam."""
+    cfg = model.cfg
+    module = ex.compute_module(model, torch.bfloat16)
+    x = torch.from_numpy(_inputs(cfg)["image"]).bfloat16()
+    program = ex.export_seam(module, cfg, "set_image_e2e", (x,))
+    assert ex.kernel_nodes(program) == {"add_layer_norm": 2 * len(cfg.trunk.block_plan())}
+    with torch.no_grad():
+        got = program.module()(x)
+        want = ex.Seam(module, cfg, ex.set_image_e2e)(x)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
 
 
 def test_loaded_programs_equal_eager_seams(exported, model):
