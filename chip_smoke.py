@@ -950,6 +950,7 @@ FAMILIES = [
     ("K4 flash_attention_kv_proj (csrc)", r"flash_kvproj_"),
     ("K2 flash_attention_rope (csrc)", r"flash_rope_"),
     ("K1 flash_attention (csrc)", r"flash_fwd_"),
+    ("relpos flash_attention (csrc)", r"flash_relpos_"),
     ("add_layer_norm (csrc)", r"add_layer_norm_kernel"),
     ("int8 GEMM (torch._int_mm)", INT8_GEMM),
     ("convolution", r"conv|fprop|dgrad|wgrad|cudnn|implicit_gemm|winograd"),
@@ -2699,6 +2700,167 @@ def phase_add_layer_norm():
                               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
                            calls=row, shape=[B, side, side, C], window=ws)
     return rows, max_err
+
+
+# --------------------------------------------------------------------------- #
+# SAM ViT-H: the relative-position attention and the model behind speedup()
+# --------------------------------------------------------------------------- #
+
+# (B, heads, S, D, Kh, Kw): ViT-H's global blocks and its 25 padded windows
+RELPOS_SHAPES = {"global": (1, 16, 4096, 80, 64, 64), "windowed": (25, 16, 196, 80, 14, 14)}
+RELPOS_IMAGE_LAUNCHES = 32  # per ViT-H set_image: one a block
+VIT_ALN_LAUNCHES = 64       # two a block
+
+
+def relpos_bound_ms(B, H, S, D, Kh, Kw):
+    """`portbench/harness/flops_vit.py::relpos_bound_s` in ms: the logits
+    and p . v at the bf16 peak against q, k, v, out and q's products with
+    the tables moved once."""
+    flops = 4.0 * B * H * S * S * D
+    nbytes = 2.0 * B * H * (D * 4 * S + S * (2 * Kh + 2 * Kw - 2))
+    return 1e3 * max(flops / PEAK_FLOPS[torch.bfloat16], nbytes / PEAK_BYTES)
+
+
+def relpos_inputs(shape, gen):
+    """q, k, v as views of one qkv projection (the ViT's layout) and tables
+    whose bias terms have a trained model's spread, bf16."""
+    B, H, S, D, Kh, Kw = shape
+    qkv = torch.randn(B, S, 3, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    rel_pos_h, rel_pos_w = ((0.1 * torch.randn(2 * n - 1, D, device="cuda", generator=gen))
+                            .to(torch.bfloat16) for n in (Kh, Kw))
+    return q, k, v, rel_pos_h, rel_pos_w
+
+
+@phase
+def phase_relpos():
+    """The relative-position attention against its plain version at ViT-H's
+    global and windowed shapes (mean |error| under 1e-3; the other axis's
+    tables and K1 without the bias as negative controls), then times from
+    CUDA graph replays with a cold L2: the kernel (with q's products with
+    the tables, its one cuBLAS call before it), the products alone, K1 on the
+    same q, k, v without the bias, SDPA fed the materialized bf16 bias (its
+    making not timed, and timed with it), and the plain version."""
+    from sam2_opt_tpu_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rows = {}
+    for label, shape in RELPOS_SHAPES.items():
+        B, H, S, D, Kh, Kw = shape
+        q, k, v, th, tw = relpos_inputs(shape, gen)
+        out = fa.flash_attention_relpos(q, k, v, th, tw)
+        want = fa.flash_attention_relpos_ref(q, k, v, th, tw).float()
+        err = (out.float() - want).abs()
+        check(err.mean().item() < 1e-3 and err.max().item() < 2e-2,
+              f"relpos {label}: |error| mean {err.mean().item():.3e} max {err.max().item():.3e}")
+        swapped = (fa.flash_attention_relpos(q, k, v, tw, th).float() - want).abs()
+        no_bias = (fa.flash_attention(q, k, v)[0].float() - want).abs()
+        check(swapped.mean().item() > 10 * err.mean().item()
+              and no_bias.mean().item() > 10 * err.mean().item(),
+              f"relpos {label}: the check cannot see swapped or dropped tables")
+
+        def materialized():
+            rel_h, rel_w = fa.relpos_terms_from_products(fa.relpos_products(q, th, tw), Kh, Kw)
+            return (rel_h[..., :, None] + rel_w[..., None, :]).flatten(-2)
+
+        bias = materialized()
+        row = dict(
+            ms=graph_ms(lambda: fa.flash_attention_relpos(q, k, v, th, tw), flush=flush),
+            products_ms=graph_ms(lambda: fa.relpos_products(q, th, tw), flush=flush),
+            k1_ms=graph_ms(lambda: fa.flash_attention(q, k, v), flush=flush),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias), flush=flush),
+            library_with_bias_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=materialized()), flush=flush),
+            plain_ms=graph_ms(lambda: fa.flash_attention_relpos_ref(q, k, v, th, tw),
+                              reps=3, flush=flush),
+            bound_ms=relpos_bound_ms(*shape), max_abs_err=err.max().item(),
+            mean_abs_err=err.mean().item(), shape=list(shape))
+        rows[label] = row
+        log(f"relpos {label} {shape}: {row['ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%} of "
+            f"its bound {row['bound_ms']:.4f}), the products alone {row['products_ms']:.4f}, K1 "
+            f"without bias {row['k1_ms']:.4f}, SDPA + materialized bias "
+            f"{row['library_ms']:.4f} ({row['library_with_bias_ms']:.4f} with its making), "
+            f"plain {row['plain_ms']:.4f}; |error| max {err.max().item():.3e} mean "
+            f"{err.mean().item():.3e}, controls swapped {swapped.mean().item():.3e}, no bias "
+            f"{no_bias.mean().item():.3e}")
+    return rows
+
+
+@phase
+def phase_sam_vit():
+    """SAM ViT-H at its published sizes (`build_sam2("vit_h")`): an eager
+    bf16 `set_image` counts 32 relative-position attention launches and 64
+    `add_layer_norm`; then `speedup()` runs `set_image` and the three
+    prompts of the benchmark's requests as graph replays, whose outputs must
+    equal the eager calls' bit for bit. The bias tables drawn at the
+    benchmark's spread (upstream's zeros would hide the bias)."""
+    from sam2_opt_tpu_torch import SAM2ImagePredictor, build_sam2
+    from sam2_opt_tpu_torch.kernels.add_layer_norm import add_layer_norm
+    from sam2_opt_tpu_torch.kernels.flash_attention import flash_attention_relpos
+
+    model = build_sam2("vit_h", seed=SEED)
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+        for name, p in model.module.named_parameters():
+            if name.endswith(("rel_pos_h", "rel_pos_w")):
+                p.copy_(0.6 * torch.randn(p.shape, device="cuda", generator=gen))
+            elif "output_hypernetworks_mlps" in name and name.endswith("layers.2.weight"):
+                p.mul_(100.0)
+    predictor = SAM2ImagePredictor(model)
+    image = structured_image(SEED)
+    h, w = image.shape[:2]
+    box = np.array([w * 0.3, h * 0.3, w * 0.6, h * 0.7], np.float32)
+    prompts = [dict(point_coords=np.array([[w * 0.45, h * 0.5]], np.float32),
+                    point_labels=np.array([1]), multimask_output=True),
+               dict(box=box, multimask_output=False),
+               dict(point_coords=np.array([[w * 0.4, h * 0.45]], np.float32),
+                    point_labels=np.array([1]), box=box, multimask_output=False)]
+
+    def request():
+        predictor.set_image(image)
+        outs, low = [predictor.get_image_embedding().clone()], None
+        for kw in prompts:
+            if "box" in kw and "point_coords" in kw:
+                kw = dict(kw, mask_input=low)
+            masks, ious, low = predictor.predict(**kw)
+            outs += [torch.from_numpy(np.ascontiguousarray(x)) for x in (masks, ious, low)]
+        return outs
+
+    set_backend(predictor)
+    request()
+    before = (flash_attention_relpos.launches, add_layer_norm.launches)
+    predictor.set_image(image)
+    torch.cuda.synchronize()
+    launches = (flash_attention_relpos.launches - before[0], add_layer_norm.launches - before[1])
+    check(launches == (RELPOS_IMAGE_LAUNCHES, VIT_ALN_LAUNCHES),
+          f"ViT-H eager set_image: (relpos, add_layer_norm) launches {launches}")
+    eager = request()
+    predictor.speedup()
+    graphs = model.graphs
+    request()
+    before = graphs.counters()["seams"]
+    replayed = request()
+    after = graphs.counters()["seams"]
+    replays = {k: after[k]["replays"] - before.get(k, {}).get("replays", 0) for k in after}
+    check(replays == {"encode_image_e2e": 1, "predict_masks": 3},
+          f"ViT-H under speedup(): replays {replays}")
+    same = all(torch.equal(a, b) for a, b in zip(eager, replayed))
+    check(same, "ViT-H: graph replays differ from the eager calls")
+    ms = {}
+    for name, fn in (("set_image", lambda: predictor.set_image(image)), ("request", request)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0) / 5
+    log(f"ViT-H: eager set_image launches relpos {launches[0]}, add_layer_norm {launches[1]}; "
+        f"graphs {replays}, bitwise equal to eager; wall ms {ms}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return dict(launches=dict(relpos=launches[0], add_layer_norm=launches[1]), replays=replays,
+                bitwise=same, wall_ms=ms)
 
 
 # --------------------------------------------------------------------------- #
@@ -4868,8 +5030,13 @@ def main(argv):
         if importlib.util.find_spec("sam2_opt_tpu_torch.kernels.add_layer_norm") is not None:
             aln = {("add_layer_norm", label): row
                    for label, row in phase_add_layer_norm()[0].items()}
+        # SAM ViT-H's relative-position attention, where the checkout has it
+        relpos = {}
+        if hasattr(flash_module, "flash_attention_relpos"):
+            relpos = {("relpos", label): row for label, row in phase_relpos().items()}
         log(json.dumps({"kernel_times": {label(k): v for k, v in {
-            **k1, **rows, **memory_rows, **k4_rows, **tool, **aln}.items()}, "card": smi[0]}))
+            **k1, **rows, **memory_rows, **k4_rows, **tool, **aln, **relpos}.items()},
+            "card": smi[0]}))
         return 0
     check(rope_rotate is not None, "this checkout has no rope_rotate")
     check(kv_proj_rotate is not None, "this checkout has no kv_proj_rotate")
@@ -4942,6 +5109,11 @@ def main(argv):
          "K8": fused_mlp})
     variants = phase_variants(int8_predictor)
     del int8_predictor
+    torch.cuda.empty_cache()
+
+    # SAM ViT-H: its attention kernel, then the model eagerly and as graphs
+    relpos_rows = phase_relpos()
+    sam_vit = phase_sam_vit()
     torch.cuda.empty_cache()
 
     # slice 13: data and tensor parallelism (two ranks on the card), last
@@ -5068,6 +5240,17 @@ def main(argv):
         "library": "F.layer_norm (after the add for the second call), no window order",
         "shapes": aln_rows,
     })
+    entries.append({
+        "name": "flash_attention_relpos (SAM ViT's relative-position attention)",
+        "route": "cuda",
+        "source": "sam2_opt_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "no TPU kernel (the JAX package has no ViT)",
+        "launches": sam_vit["launches"]["relpos"],
+        **{k: v for k, v in relpos_rows["global"].items()},
+        "dtype": "bfloat16",
+        "library": "F.scaled_dot_product_attention fed the materialized bf16 bias",
+        "shapes": relpos_rows,
+    })
     # slice 5: K4 at the cross shape; K9 and K10 at the tool's first shape
     # (each shape launches them equally often), the other shapes beside it
     entries.extend([{
@@ -5139,6 +5322,7 @@ def main(argv):
                     "training_cli_loss": cli_loss, "switches_default_launches": switch_launches,
                     "graphs": graphs, "serve": serve, "variants": variants,
                     "parallel": parallel, "inputs": inputs, "export": export,
+                    "sam_vit": sam_vit,
                     "phase_seconds": PHASE_SECONDS,
                     "card": smi[0]}))
     log(json.dumps({"int8": int8, "card": smi[0]}))

@@ -250,6 +250,90 @@ _HIERA_VARIANTS = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    """SAM's plain ViT image encoder (reference
+    segment_anything/modeling/image_encoder.py `ImageEncoderViT`, as
+    `build_sam.py` builds it): patch embedding, a learned absolute position
+    embedding, blocks with windowed (zero-padded) or global attention with a
+    qkv bias and a decomposed relative-position bias, LayerNorms of eps 1e-6,
+    and a two-convolution neck."""
+
+    embed_dim: int = 1280
+    depth: int = 32
+    num_heads: int = 16
+    global_attn_indexes: Tuple[int, ...] = (7, 15, 23, 31)
+    window_size: int = 14
+    patch_size: int = 16
+    mlp_ratio: float = 4.0
+    out_chans: int = 256
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class SamViTConfig:
+    """Segment Anything (reference segment_anything/build_sam.py
+    `_build_sam`): the ViT encoder, then the port's prompt encoder and mask
+    decoder with SAM's settings, which are the SAM 2 modules' flags turned
+    off (no object-score token, no high-resolution features, no IoU sigmoid,
+    no stability fallback), and SAM's prompt layout: no padding point when
+    a box is given. A config of its own: `SAM2Config` stays the JAX
+    package's copy."""
+
+    encoder: ViTConfig = dataclasses.field(default_factory=ViTConfig)
+    image_size: int = 1024
+    backbone_stride: int = 16
+    hidden_dim: int = 256  # prompt_embed_dim
+    mask_in_chans: int = 16
+    num_multimask_outputs: int = 3
+    sam_mask_decoder_depth: int = 2
+    sam_mask_decoder_mlp_dim: int = 2048
+    sam_mask_decoder_num_heads: int = 8
+    iou_head_depth: int = 3
+    iou_head_hidden_dim: int = 256
+    # SamPredictor's normalization, on the 0-255 scale (sam.py:27-28)
+    pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
+    pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
+    # the shared SAM heads' flags at SAM's values
+    pred_obj_scores: bool = False
+    use_high_res_features_in_sam: bool = False
+    iou_prediction_use_sigmoid: bool = False
+    dynamic_multimask_via_stability: bool = False
+    use_multimask_token_for_obj_ptr: bool = False
+
+    @property
+    def image_embedding_size(self) -> int:
+        return self.image_size // self.backbone_stride
+
+
+_VIT_VARIANTS = {  # segment_anything/build_sam.py build_sam_vit_{h,l,b}
+    "vit_h": ViTConfig(embed_dim=1280, depth=32, num_heads=16,
+                       global_attn_indexes=(7, 15, 23, 31)),
+    "vit_l": ViTConfig(embed_dim=1024, depth=24, num_heads=16,
+                       global_attn_indexes=(5, 11, 17, 23)),
+    "vit_b": ViTConfig(embed_dim=768, depth=12, num_heads=12,
+                       global_attn_indexes=(2, 5, 8, 11)),
+}
+
+
+def is_vit_variant(variant: str) -> bool:
+    return variant in _VIT_VARIANTS
+
+
+def sam_vit_config(variant: str = "vit_h", **overrides) -> SamViTConfig:
+    """SAM's config for "vit_h", "vit_l" or "vit_b"; "encoder.<field>"
+    overrides change the encoder, other keys the top level."""
+    if variant not in _VIT_VARIANTS:
+        raise ValueError(f"unknown SAM ViT variant {variant!r}")
+    enc = {k[len("encoder."):]: overrides.pop(k) for k in list(overrides)
+           if k.startswith("encoder.")}
+    encoder = dataclasses.replace(_VIT_VARIANTS[variant], **enc)
+    return SamViTConfig(encoder=encoder, backbone_stride=encoder.patch_size, **overrides)
+
+
 def _replace_dotted(obj, key: str, value):
     """dataclasses.replace through a dotted field path."""
     head, _, rest = key.partition(".")

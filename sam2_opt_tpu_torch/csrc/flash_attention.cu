@@ -170,6 +170,13 @@ struct Params {
   long long o_sb, o_sh, o_ss;
   long long mask_sb;
   float scale;
+  // the relative-position attention (sam2_flash_attention_relpos_fwd): bf16
+  // rel with batch / head / row strides rel_sb, rel_sh, rel_ss, row i of
+  // (b, h) holding q_i . rel_pos_h[r] (r < 2Kh - 1), then q_i . rel_pos_w[r];
+  // null and 0 elsewhere
+  const void* rel;
+  long long rel_sb, rel_sh, rel_ss;
+  int Kh, Kw;
 };
 
 __device__ __forceinline__ bool key_valid(const uint8_t* mg, int key, int Skv) {
@@ -576,8 +583,14 @@ constexpr int SMEM_LIMIT = 232448;
 constexpr int BARS_BYTES = 512;  // mbarriers, then each K stage's first key, key words, density
 constexpr int MAX_STAGES = 6;
 constexpr int BAR_TURN = 1;      // named barriers 1 and 2: the consumer warpgroups' turns
+constexpr int BAR_BIAS = 3;      // named barriers 3 and 4: a consumer warpgroup's bias rows
+// the relative-position terms of the CTA's 128 query rows in shared memory,
+// fp32 in the log2 domain: rel_h [128][MAX_K] then rel_w [128][MAX_K], Kh and
+// Kw <= MAX_K. Columns are swizzled by row (rel_h: kh ^ 4 (row % 8); rel_w:
+// kw ^ 8 (row % 4), pairs kept whole), so a warp's reads hit 32 banks.
+constexpr int MAX_K = 64;
 
-template <int DV>
+template <int DV, bool BIAS = false>
 struct FwdWg {
   static constexpr int BK = DV > 128 ? 64 : 128;  // keys per stage
   static constexpr int DP = (DV + 15) / 16 * 16;  // depth of Q . K^T
@@ -588,7 +601,8 @@ struct FwdWg {
   static constexpr int KV_BOX = BK * BOX_ROW;
   static constexpr int Q_BYTES = NB * Q_BOX;
   static constexpr int TILE = NB * KV_BOX;  // one K or V tile
-  static constexpr int FIXED = Q_BYTES + 1024 + BARS_BYTES;  // + alignment slack
+  static constexpr int BIAS_BYTES = BIAS ? 2 * WG_BQ * MAX_K * 4 : 0;
+  static constexpr int FIXED = Q_BYTES + 1024 + BARS_BYTES + BIAS_BYTES;  // + alignment slack
   static constexpr int STAGES = (SMEM_LIMIT - FIXED) / (2 * TILE) < MAX_STAGES
                                     ? (SMEM_LIMIT - FIXED) / (2 * TILE)
                                     : MAX_STAGES;
@@ -602,10 +616,10 @@ struct FwdWg {
   static_assert(BK == 64 || BK == 128, "S is one m64n64 or m64n128 product a k-step");
 };
 
-template <int DV>
+template <int DV, bool BIAS = false>
 __device__ __forceinline__ void fwd_wgmma_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                                const CUtensorMap& tm_v, const Params& p) {
-  using S = FwdWg<DV>;
+  using S = FwdWg<DV, BIAS>;
   constexpr int NB = S::NB, ST = S::STAGES, BK = S::BK, NPV = S::NPV;
   constexpr int NW = DV / NPV;   // columns of one P . V product
   constexpr int NX = BK / 2;     // S accumulator registers: BK/8 n8 chunks of 4
@@ -628,6 +642,8 @@ __device__ __forceinline__ void fwd_wgmma_body(const CUtensorMap& tm_q, const CU
   volatile uint32_t* words_s =
       reinterpret_cast<volatile uint32_t*>(bars + 8 + 36 * MAX_STAGES);  // [ST][4]
   volatile int* dense_s = reinterpret_cast<volatile int*>(bars + 8 + 52 * MAX_STAGES);
+  float* rel_h_s = reinterpret_cast<float*>(bars + BARS_BYTES);  // BIAS: [128][MAX_K]
+  float* rel_w_s = rel_h_s + WG_BQ * MAX_K;                       // BIAS: [128][MAX_K]
 
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x * WG_BQ;
@@ -708,6 +724,42 @@ __device__ __forceinline__ void fwd_wgmma_body(const CUtensorMap& tm_q, const CU
   if (wg == 1) named_arrive(BAR_TURN);  // warpgroup 0 takes the first turn
   const uint32_t qa = smem_u32(Qs) + wg * 64 * BOX_ROW;
   const float scale_log2 = p.scale * LOG2E;
+  if constexpr (BIAS) {
+    // this warpgroup's 64 rows of the bias terms into shared memory, gathered
+    // from the products (upstream's get_rel_pos: the key kh of query row
+    // (qh, qw) takes table row qh - kh + Kh - 1), in fp32 times log2(e);
+    // rows past Sq zero. A row's columns go to consecutive lanes (a power of
+    // two of them), so the loads coalesce; each thread issues eight loads,
+    // their indices clamped rather than branched around, before it stores.
+    const int cols = p.Kh + p.Kw, rh = 2 * p.Kh - 1;
+    int lanes = 1;
+    while (lanes < cols) lanes <<= 1;
+    const int per_pass = 128 / lanes, c = tid & (lanes - 1), r0 = tid / lanes;
+    const int cc = c < cols ? c : cols - 1;
+    const __nv_bfloat16* gr =
+        static_cast<const __nv_bfloat16*>(p.rel) + b * p.rel_sb + h * p.rel_sh;
+    for (int rr0 = 0; rr0 < 64; rr0 += 8 * per_pass) {
+      float val[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int rr = rr0 + u * per_pass + r0;
+        const int i = min(q0 + 64 * wg + min(rr, 63), p.Sq - 1);
+        const int qh = i / p.Kw, qw = i - qh * p.Kw;
+        const int col = cc < p.Kh ? qh - cc + p.Kh - 1 : rh + qw - (cc - p.Kh) + p.Kw - 1;
+        val[u] = __bfloat162float(gr[i * p.rel_ss + col]) * LOG2E;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int rr = rr0 + u * per_pass + r0, row = 64 * wg + rr;
+        const float x = q0 + row < p.Sq ? val[u] : 0.f;
+        if (c < p.Kh && rr < 64)
+          rel_h_s[row * MAX_K + (c ^ (4 * (row & 7)))] = x;
+        else if (c < cols && rr < 64)
+          rel_w_s[row * MAX_K + ((c - p.Kh) ^ (8 * (row & 3)))] = x;
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(BAR_BIAS + wg) : "memory");
+  }
 
   float o[NPV][NW / 2];
 #pragma unroll
@@ -762,8 +814,10 @@ __device__ __forceinline__ void fwd_wgmma_body(const CUtensorMap& tm_q, const CU
   // wt[i / 4] is key 8i + 2t + (e & 1), read before the stage is released
   bool dense;
   uint32_t wt[WORDS];
+  int tile_k0 = 0;  // BIAS: the tile's first key
   auto read_keys = [&](int s) {
     dense = dense_s[s];
+    if constexpr (BIAS) tile_k0 = tile_s[s];
 #pragma unroll
     for (int j = 0; j < WORDS; ++j) wt[j] = words_s[4 * s + j] >> (2 * t);
   };
@@ -774,7 +828,68 @@ __device__ __forceinline__ void fwd_wgmma_body(const CUtensorMap& tm_q, const CU
   // get -1e30; leaves P in x and this tile's factor in alpha
   auto softmax = [&]() {
     float mx[2] = {NEG_INF, NEG_INF}, sum[2] = {0.f, 0.f};
-    if (dense) {
+    if constexpr (BIAS) {
+      // s = q . k * scale + rel_h[row, kh] + rel_w[row, kw] for key
+      // j = kh * Kw + kw, in the log2 domain. Lane t holds keys j = 8c + 2t
+      // and j + 1 of the tile: even, so with Kw even they share kh and their
+      // two rel_w terms are one 8-byte pair. Rows g and g + 8 share a swizzle.
+      // The next chunk's (kh, kw) is a select, not a branch (Kw >= 8: one wrap
+      // at most), so the chunks' loads schedule as one block.
+      const int row = 64 * wg + 16 * warp + g;
+      const int sh = 4 * (row & 7), sw = 8 * (row & 3);
+      const float* bh_row[2] = {rel_h_s + row * MAX_K, rel_h_s + (row + 8) * MAX_K};
+      const float* bw_row[2] = {rel_w_s + row * MAX_K, rel_w_s + (row + 8) * MAX_K};
+      int kh = (tile_k0 + 2 * t) / p.Kw;
+      int kw = tile_k0 + 2 * t - kh * p.Kw;
+      if (dense) {
+#pragma unroll
+        for (int c = 0; c < NX / 4; ++c) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float th = bh_row[r][kh ^ sh];
+            const float2 tw = *reinterpret_cast<const float2*>(bw_row[r] + (kw ^ sw));
+            float* xe = x + 4 * c + 2 * r;
+            xe[0] = fmaf(xe[0], scale_log2, th + tw.x);
+            xe[1] = fmaf(xe[1], scale_log2, th + tw.y);
+            mx[r] = fmaxf(mx[r], fmaxf(xe[0], xe[1]));
+          }
+          const bool wrap = kw + 8 >= p.Kw;
+          kw = wrap ? kw + 8 - p.Kw : kw + 8;
+          kh += wrap;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < NX / 4; ++c) {
+          const int khc = kh < p.Kh ? kh : p.Kh - 1;  // keys past Skv are masked
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float th = bh_row[r][khc ^ sh];
+            const float2 tw = *reinterpret_cast<const float2*>(bw_row[r] + (kw ^ sw));
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              const int e = 4 * c + 2 * r + b;
+              const bool valid = (wt[e / 16] >> (8 * ((e / 4) % 4) + (e & 1))) & 1u;
+              x[e] = valid ? fmaf(x[e], scale_log2, th + (b ? tw.y : tw.x)) : NEG_INF;
+              mx[r] = fmaxf(mx[r], x[e]);
+            }
+          }
+          const bool wrap = kw + 8 >= p.Kw;
+          kw = wrap ? kw + 8 - p.Kw : kw + 8;
+          kh += wrap;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int e = 0; e < NX; ++e) {
+        x[e] = ex2(x[e] - m[(e >> 1) & 1]);
+        sum[(e >> 1) & 1] += x[e];
+      }
+    } else if (dense) {
 #pragma unroll
       for (int e = 0; e < NX; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x[e]);
 #pragma unroll
@@ -883,7 +998,7 @@ __device__ __forceinline__ void fwd_wgmma_body(const CUtensorMap& tm_q, const CU
           *reinterpret_cast<__nv_bfloat162*>(og + row * p.o_ss + col) =
               __floats2bfloat162_rn(v0, v1);
       }
-    if (t == 0) {
+    if (t == 0 && !BIAS) {  // the relative-position attention returns no lse
       const float lse = seen_valid ? (m[r] + log2f(l_row[r])) * LN2 : NEG_INF;
       if (split)
         p.part_lse[part_i * p.Sq + row] = lse;
@@ -908,6 +1023,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v, const Params p) {
   fwd_wgmma_body<DV>(tm_q, tm_k, tm_v, p);
+}
+
+// The relative-position attention (SAM's ViT blocks): K1's bf16 body with the
+// decomposed bias added to the logits, under a name of its own
+template <int DV>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_relpos_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  fwd_wgmma_body<DV, true>(tm_q, tm_k, tm_v, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -1663,7 +1788,29 @@ Params make_params(const void* q, const void* k, const void* v, const void* mask
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.mask_sb = mask_sb;
   p.scale = scale;
+  p.rel = nullptr;
+  p.rel_sb = p.rel_sh = p.rel_ss = 0;
+  p.Kh = p.Kw = 0;
   return p;
+}
+
+// The relative-position attention at one width: K1's tensor maps, one CTA per
+// 128 query rows of a (b, h), no kv split.
+template <int DV>
+cudaError_t launch_relpos(const Params& p, cudaStream_t stream) {
+  using S = FwdWg<DV, true>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, p.q, p.B, p.H, p.Sq, p.D, p.q_sb, p.q_sh, p.q_ss, WG_BQ) ||
+      !make_map(&mk, p.k, p.B, p.H, p.Skv, p.D, p.k_sb, p.k_sh, p.k_ss, S::BK) ||
+      !make_map(&mv, p.v, p.B, p.H, p.Skv, p.D, p.v_sb, p.v_sh, p.v_ss, S::BK))
+    return cudaErrorInvalidValue;
+  constexpr auto kernel = &flash_relpos_wgmma_kernel<DV>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + WG_BQ - 1) / WG_BQ, p.B * p.H, 1);
+  kernel<<<grid, WG_THREADS, S::SMEM, stream>>>(mq, mk, mv, p);
+  return cudaGetLastError();
 }
 
 // The arguments every kernel here needs: positive sizes, D a multiple of 8,
@@ -1831,3 +1978,38 @@ extern "C" int sam2_flash_attention_kvproj_fwd(
   p.k_sb = p.v_sb = p.k_sh;
   return static_cast<int>(dispatch<Caller::K4>(bf16, p, st));
 }
+
+// The relative-position attention of SAM's ViT blocks, bf16, no mask, no kv
+// split, no lse: out = softmax(q . k^T * scale + bias) . v, the keys a Kh x Kw
+// grid in raster order (Skv = Kh * Kw; the queries the same grid, Sq = Skv)
+// and bias[i, kh * Kw + kw] = rel[i, qh - kh + Kh - 1] + rel[i, 2Kh - 1 + qw -
+// kw + Kw - 1] for query i = qh * Kw + qw (upstream's decomposed
+// relative-position bias from the products of q with its two tables). q, k,
+// v [B, H, S, D] with batch / head / row strides (unit stride along D, rows
+// 16-byte aligned), D in {64, 80}; rel [B, H, Sq, 2 (Kh + Kw) - 2] bf16 with
+// batch / head / row strides and a unit stride along its rows; Kh <= 64,
+// 8 <= Kw <= 64 even.
+extern "C" int sam2_flash_attention_relpos_fwd(
+    const void* q, const void* k, const void* v, const void* rel, void* o, int B, int H,
+    int Sq, int Skv, int D, int Kh, int Kw, long long rel_sb, long long rel_sh, long long rel_ss,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss, float scale, void* stream) {
+  if (!valid_args(1, B, H, Sq, Skv, D, 1, nullptr, nullptr) || (D != 64 && D != 80) ||
+      rel == nullptr || Kh < 1 || Kw < 8 || Kh > MAX_K || Kw > MAX_K || Kw % 2 ||
+      static_cast<long long>(Kh) * Kw != Skv || Sq != Skv)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr, o, nullptr, B, H,
+                         Sq, Skv, D, 1, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
+                         o_sh, o_ss, 0, scale);
+  p.rel = rel;
+  p.rel_sb = rel_sb;
+  p.rel_sh = rel_sh;
+  p.rel_ss = rel_ss;
+  p.Kh = Kh;
+  p.Kw = Kw;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(D == 64 ? launch_relpos<64>(p, st) : launch_relpos<80>(p, st));
+}
+

@@ -12,7 +12,10 @@ the operators that join them.
 - K4, `flash_attention_kv_proj`: the port of `::_kernel_rope_kvproj`, K2 with
   the memory cross-attention's K/V projections fused in: a kernel that
   projects the memory and rotates K, once per call, then K1's attention
-  body (`kv_proj_rotate` runs the first kernel alone).
+  body (`kv_proj_rotate` runs the first kernel alone);
+- `flash_attention_relpos`: SAM's ViT attention, K1's bf16 body with a
+  decomposed relative-position bias added to the logits (no TPU kernel: the
+  JAX package has no ViT).
 
 Each wrapper checks its arguments and calls an operator of the same name
 in the `sam2_opt_tpu_torch` namespace (`_build.operator`), so `torch.export`
@@ -882,3 +885,130 @@ def flash_attention_bwd(q, k, v, out, lse, do, kv_mask=None):
     delta = flash_attention_bwd_delta(out, do)
     dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, kv_mask)
     return flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_mask), dk, dv
+
+
+# --------------------------------------------------------------------------- #
+# The relative-position attention of SAM's ViT blocks
+# --------------------------------------------------------------------------- #
+
+RELPOS_HEAD_DIMS = (64, 80)  # SAM ViT-B and ViT-L (64), ViT-H (80)
+RELPOS_MAX_GRID = 64         # Kh, Kw: the global blocks' 64 x 64 at 1024²
+RELPOS_MIN_KW = 8            # Kw: a thread's keys step 8 a chunk, one wrap at most
+
+
+def relpos_grid(rel_pos_h, rel_pos_w):
+    """(Kh, Kw) of tables of 2 Kh - 1 and 2 Kw - 1 rows."""
+    return (rel_pos_h.shape[0] + 1) // 2, (rel_pos_w.shape[0] + 1) // 2
+
+
+def relpos_products(q, rel_pos_h, rel_pos_w):
+    """q [B,H,S,D] times both tables' rows: [B,H,S,(2Kh-1)+(2Kw-1)] in q's
+    dtype (fp32 sums, one rounding), the kernel's input. One batched
+    product over the heads, which reads the ViT's q (a strided view of its
+    qkv projection) in place: a [B,H,S,R] view of an [H,B,S,R] buffer."""
+    B, H, S, D = q.shape
+    tables = torch.cat([rel_pos_h, rel_pos_w]).t()
+    out = torch.bmm(q.transpose(0, 1).reshape(H, B * S, D), tables.expand(H, *tables.shape))
+    return out.view(H, B, S, -1).transpose(0, 1)
+
+
+def relpos_terms_from_products(rel, Kh: int, Kw: int):
+    """The bias terms rel_h [B,H,S,Kh], rel_w [B,H,S,Kw] gathered from
+    `relpos_products` as upstream's `get_rel_pos` indexes its tables: key
+    (kh, kw) of query (qh, qw) takes rows qh - kh + Kh - 1 and
+    qw - kw + Kw - 1."""
+    qh = torch.arange(Kh, device=rel.device).repeat_interleave(Kw)
+    qw = torch.arange(Kw, device=rel.device).repeat(Kh)
+    ih = qh[:, None] - torch.arange(Kh, device=rel.device)[None, :] + Kh - 1
+    iw = qw[:, None] - torch.arange(Kw, device=rel.device)[None, :] + Kw - 1 + 2 * Kh - 1
+    S = Kh * Kw
+    rows = torch.arange(S, device=rel.device)[:, None]
+    return rel[..., rows, ih], rel[..., rows, iw]
+
+
+def flash_attention_relpos_ref(q, k, v, rel_pos_h, rel_pos_w):
+    """Plain version: the bias terms from q's products with the tables
+    (fp32 sums rounded once to q's dtype, `relpos_products`), gathered;
+    s = q . k^T / sqrt(D) in fp32 plus rel_h[..., j // Kw] + rel_w[..., j %
+    Kw] for key j; softmax in fp32; the probabilities rounded to v's dtype
+    before p . v, as the kernel does. q/k/v [B,H,S,D] over a Kh x Kw grid,
+    rel_pos_h [2Kh-1, D], rel_pos_w [2Kw-1, D]. Returns out [B,H,S,D] in
+    q's dtype."""
+    B, H, S, D = q.shape
+    Kh, Kw = relpos_grid(rel_pos_h, rel_pos_w)
+    rel = relpos_products(q.float(), rel_pos_h.float(), rel_pos_w.float()).to(q.dtype)
+    rel_h, rel_w = relpos_terms_from_products(rel, Kh, Kw)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(D))
+    s = (s.view(B, H, S, Kh, Kw) + rel_h.float()[..., :, None]
+         + rel_w.float()[..., None, :]).view(B, H, S, Kh * Kw)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / p.sum(-1, keepdim=True)
+    return out.to(q.dtype)
+
+
+def flash_attention_relpos(q, k, v, rel_pos_h, rel_pos_w):
+    """Self-attention over a Kh x Kw grid with upstream's decomposed
+    relative-position bias (SAM's ViT, segment_anything/modeling/
+    image_encoder.py `add_decomposed_rel_pos`), as
+    `flash_attention_relpos_ref`: q/k/v [B,H,S,D] (unit stride along D),
+    S = Kh * Kw in raster order, rel_pos_h [2Kh-1, D] and rel_pos_w [2Kw-1,
+    D] in q's dtype. Returns out [B,H,S,D], a view of a [B,S,H,D] buffer as
+    K1's. Not differentiable: the ViT takes it only without grad. The
+    operator `sam2_opt_tpu_torch::flash_attention_relpos`.
+
+    CUDA tensors (bf16, D in `RELPOS_HEAD_DIMS`, Kh and Kw at most 64, Kw
+    even and at least 8, rows 16-byte aligned) take q's products with both tables as one
+    cuBLAS product, then launch `flash_relpos_wgmma_kernel`: K1's
+    warp-specialised body, each CTA gathering its rows' bias terms from the
+    products into shared memory and adding them to S in the softmax, so the
+    S x S bias is never formed; one launch on the count per call."""
+    _check(q, k, v, None)
+    S = q.shape[2]
+    Kh, Kw = relpos_grid(rel_pos_h, rel_pos_w)
+    if k.shape[2] != S or Kh * Kw != S or any(t.shape[0] % 2 == 0 for t in (rel_pos_h,
+                                                                             rel_pos_w)):
+        raise ValueError(f"tables of {rel_pos_h.shape[0]} and {rel_pos_w.shape[0]} rows do not "
+                         f"make a grid of {S} queries and {k.shape[2]} keys")
+    for t in (rel_pos_h, rel_pos_w):
+        if t.dim() != 2 or t.shape[1] != q.shape[3] or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("the tables must be [2K - 1, D] in q's dtype and device")
+    return _relpos_op(q, k, v, rel_pos_h, rel_pos_w)
+
+
+@_build.operator("flash_attention_relpos", "(Tensor q, Tensor k, Tensor v, Tensor rel_pos_h, "
+                                           "Tensor rel_pos_w) -> Tensor")
+def _relpos_op(q, k, v, rel_pos_h, rel_pos_w):
+    return _heads_last(flash_attention_relpos_ref(q, k, v, rel_pos_h, rel_pos_w))
+
+
+@_relpos_op.register_kernel("cuda")
+def _relpos_cuda(q, k, v, rel_pos_h, rel_pos_w):
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_relpos: the kernel runs bf16, got {q.dtype}")
+    _check_cuda(q, k, v, None, RELPOS_HEAD_DIMS, "flash_attention_relpos")
+    B, H, S, D = q.shape
+    Kh, Kw = relpos_grid(rel_pos_h, rel_pos_w)
+    if max(Kh, Kw) > RELPOS_MAX_GRID or Kw < RELPOS_MIN_KW or Kw % 2:
+        raise ValueError(f"flash_attention_relpos: a {Kh} x {Kw} grid (at most "
+                         f"{RELPOS_MAX_GRID} each way, Kw even and at least {RELPOS_MIN_KW})")
+    rel = relpos_products(q, rel_pos_h, rel_pos_w)
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    fn = _build.load("flash_attention").sam2_flash_attention_relpos_fwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 5 + [i] * 7 + [ll] * 15 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(),
+                 B, H, S, S, D, Kh, Kw, *rel.stride()[:3], *q.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], *out.stride()[:3], 1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_relpos kernel launch failed: cudaError {err}")
+    flash_attention_relpos.launches += 1
+    return out
+
+
+flash_attention_relpos.launches = 0
+_relpos_op.register_fake(lambda q, *_: _attention_fake(q)[0])
+

@@ -2,7 +2,10 @@
 
 Counterpart of `sam2_opt_tpu/models/mask_decoder.py`; module and parameter
 names follow the reference sam2/sam2/modeling/sam/transformer.py:51-294 and
-sam/mask_decoder.py:16-382. Maps are NCHW.
+sam/mask_decoder.py:16-382. Maps are NCHW. As upstream's, it builds the
+object-score token and head only under `pred_obj_scores` and the
+high-resolution projections only under `use_high_res_features_in_sam`: off,
+it is SAM's mask decoder (segment_anything/modeling/mask_decoder.py).
 """
 
 from __future__ import annotations
@@ -80,20 +83,23 @@ class MaskDecoder(nn.Module):
                                              cfg.sam_mask_decoder_mlp_dim)
         self.iou_token = nn.Embedding(1, C)
         self.mask_tokens = nn.Embedding(self.num_mask_tokens, C)
-        self.obj_score_token = nn.Embedding(1, C)
+        if cfg.pred_obj_scores:
+            self.obj_score_token = nn.Embedding(1, C)
         # slots 2 and 4 are the reference nn.Sequential's parameter-free GELUs
         self.output_upscaling = nn.ModuleList([
             nn.ConvTranspose2d(C, C // 4, 2, 2), ops.LayerNorm2d(C // 4), nn.Identity(),
             nn.ConvTranspose2d(C // 4, C // 8, 2, 2), nn.Identity(),
         ])
-        self.conv_s0 = nn.Conv2d(C, C // 8, 1)
-        self.conv_s1 = nn.Conv2d(C, C // 4, 1)
+        if cfg.use_high_res_features_in_sam:
+            self.conv_s0 = nn.Conv2d(C, C // 8, 1)
+            self.conv_s1 = nn.Conv2d(C, C // 4, 1)
         self.output_hypernetworks_mlps = nn.ModuleList(
             ops.MLP(C, C, C // 8, 3) for _ in range(self.num_mask_tokens))
         self.iou_prediction_head = ops.MLP(
             C, cfg.iou_head_hidden_dim, self.num_mask_tokens, cfg.iou_head_depth,
             sigmoid_output=cfg.iou_prediction_use_sigmoid)
-        self.pred_obj_score_head = ops.MLP(C, C, 1, 3)
+        if cfg.pred_obj_scores:
+            self.pred_obj_score_head = ops.MLP(C, C, 1, 3)
 
     def build_decoder_tokens(self, sparse_prompt_embeddings):
         """[obj_score, iou, mask x4] output tokens ++ sparse prompts
@@ -106,7 +112,8 @@ class MaskDecoder(nn.Module):
 
     def predict_masks(self, src, tokens, pos_src, hrf0, hrf1):
         """Decoder core (reference mask_decoder.py:262-316). src/pos_src
-        [B,C,h,w], tokens [B,T,C], hrf0 [B,C/8,4h,4w], hrf1 [B,C/4,2h,2w].
+        [B,C,h,w], tokens [B,T,C], hrf0 [B,C/8,4h,4w], hrf1 [B,C/4,2h,2w]
+        (both None without high-resolution features).
         Returns (masks [B,4,4h,4w], iou_pred [B,4], mask_tokens_out [B,4,C],
         object_score_logits [B,1])."""
         cfg = self.cfg
@@ -119,8 +126,11 @@ class MaskDecoder(nn.Module):
 
         src_img = src_out.transpose(1, 2).reshape(B, C, H, W)
         dc1, ln1, _, dc2, _ = self.output_upscaling
-        up = ops.gelu(ln1(dc1(src_img) + hrf1))
-        up = ops.gelu(dc2(up) + hrf0)
+        if hrf0 is None:
+            up = ops.gelu(dc2(ops.gelu(ln1(dc1(src_img)))))
+        else:
+            up = ops.gelu(ln1(dc1(src_img) + hrf1))
+            up = ops.gelu(dc2(up) + hrf0)
         hyper_in = torch.stack(
             [mlp(mask_tokens_out[:, i, :]) for i, mlp in enumerate(self.output_hypernetworks_mlps)],
             dim=1)  # [B, M, C/8]
@@ -144,11 +154,12 @@ class MaskDecoder(nn.Module):
         tokens = self.build_decoder_tokens(sparse_prompt_embeddings)
         B = tokens.shape[0]
         src = image_embeddings
-        hrf0, hrf1 = high_res_features
+        hrf0, hrf1 = high_res_features if high_res_features is not None else (None, None)
         if repeat_image and src.shape[0] != B:
             reps = B // src.shape[0]
             src = src.repeat_interleave(reps, 0)
-            hrf0, hrf1 = hrf0.repeat_interleave(reps, 0), hrf1.repeat_interleave(reps, 0)
+            if hrf0 is not None:
+                hrf0, hrf1 = hrf0.repeat_interleave(reps, 0), hrf1.repeat_interleave(reps, 0)
         src = src + dense_prompt_embeddings
         pos_src = image_pe.expand(src.shape)
         masks, iou_pred, mask_tokens_out, object_score_logits = self.predict_masks(

@@ -9,6 +9,10 @@ Under the "cuda" backend every seam, the video predictor's tracking steps
 included, runs through `core/executor.py`: one CUDA graph per input
 signature, as the JAX package's `speedup()` compiles one XLA executable per
 signature (`_get_jit`); "eager" runs op by op in fp32.
+
+The same class runs a Segment Anything ViT model (`models/vit.py`, a
+`config.SamViTConfig`): its `encode_image_e2e` returns the one image
+embedding, and `predict_masks` decodes without high-resolution features.
 """
 
 from __future__ import annotations
@@ -20,9 +24,11 @@ from typing import Optional
 
 import torch
 
-from sam2_opt_tpu_torch.config import SAM2Config, model_config
+from sam2_opt_tpu_torch.config import SAM2Config, SamViTConfig, is_vit_variant, model_config, \
+    sam_vit_config
 from sam2_opt_tpu_torch.core.executor import GraphExecutor, seam_name
 from sam2_opt_tpu_torch.models import sam2_base as base
+from sam2_opt_tpu_torch.models import vit
 from sam2_opt_tpu_torch.models.init import init_params
 from sam2_opt_tpu_torch.utils import profiling
 
@@ -41,6 +47,9 @@ class SAM2Model:
 
     def __init__(self, module: base.SAM2Base, cfg: SAM2Config):
         self.cfg = cfg
+        # the set_image seam: a Segment Anything ViT model's (`models/vit.py`)
+        # returns its one embedding
+        self._encode = vit.encode_e2e if isinstance(cfg, SamViTConfig) else encode_e2e
         self.module = module.eval()
         self.device = next(module.parameters()).device
         if self.device.type == "cuda":
@@ -230,17 +239,20 @@ class SAM2Model:
     @torch.inference_mode()
     def encode_image_e2e(self, images01):
         """set_image path (reference sam2_image_predictor.py:252-266): encode
-        and add no_mem_embed to the lowest-res map."""
-        return self.run("encode_image_e2e", functools.partial(encode_e2e, self._m),
+        and add no_mem_embed to the lowest-res map. A SAM ViT model takes
+        images the predictor has normalized and padded and returns its one
+        embedding (reference segment_anything/predictor.py:80-88)."""
+        return self.run("encode_image_e2e", functools.partial(self._encode, self._m),
                         (self._images(images01),))
 
     @torch.inference_mode()
     def predict_masks(self, embed, hrf0, hrf1, coords, labels, mask_input=None,
-                      multimask_output: bool = True):
+                      multimask_output: bool = True, pad: bool = True):
         """Prompt-encode + mask-decode (reference
         sam2_image_predictor.py:487-589). coords [B,P,2] model-frame pixels,
-        labels [B,P], mask_input [B,1,256,256] or None. Returns fp32
-        (low_res_masks, iou_predictions)."""
+        labels [B,P], mask_input [B,1,256,256] or None; hrf0/hrf1 None for a
+        SAM ViT model; `pad` appends the padding point (SAM: only without a
+        box). Returns fp32 (low_res_masks, iou_predictions)."""
         with profiling.span("predict.prompts"):
             coords = torch.as_tensor(coords, dtype=torch.float32, device=self.device)
             labels = torch.as_tensor(labels, dtype=torch.int32, device=self.device)
@@ -248,8 +260,8 @@ class SAM2Model:
                 mask_input = torch.as_tensor(mask_input,
                                              device=self.device).to(self.compute_dtype)
         fn = functools.partial(decode_masks, self._m, self.cfg,
-                               multimask_output=multimask_output)
-        return self.run(("predict_masks", multimask_output, mask_input is not None), fn,
+                               multimask_output=multimask_output, pad=pad)
+        return self.run(("predict_masks", multimask_output, mask_input is not None, pad), fn,
                         (embed, hrf0, hrf1, coords, labels, mask_input))
 
 
@@ -267,17 +279,18 @@ def encode_e2e(m: base.SAM2Base, images):
 
 
 def decode_masks(m: base.SAM2Base, cfg: SAM2Config, embed, hrf0, hrf1, coords, labels,
-                 mask_input=None, multimask_output: bool = True):
+                 mask_input=None, multimask_output: bool = True, pad: bool = True):
     """The prompt-encode + mask-decode seam: fp32 (low_res_masks,
     iou_predictions). Stages (`utils/profiling.py`): `prompt_encoder` (the
     dense positional encoding included), `mask_decoder`."""
-    sparse, dense = m.sam_prompt_encoder(coords, labels, mask_input)
+    sparse, dense = m.sam_prompt_encoder(coords, labels, mask_input, pad=pad)
     s = cfg.image_embedding_size
     image_pe = m.sam_prompt_encoder.get_dense_pe((s, s)).to(embed.dtype)
     profiling.stage("prompt_encoder", image_pe)
     masks, iou, _, _ = m.sam_mask_decoder(
         embed, image_pe, sparse.to(embed.dtype), dense.to(embed.dtype),
-        multimask_output=multimask_output, high_res_features=(hrf0, hrf1),
+        multimask_output=multimask_output,
+        high_res_features=None if hrf0 is None else (hrf0, hrf1),
         repeat_image=coords.shape[0] > embed.shape[0])
     profiling.stage("mask_decoder", masks)
     return masks.float(), iou.float()
@@ -292,12 +305,13 @@ def build_sam2(variant: str = "hiera_l", checkpoint_path: Optional[str] = None,
     int8 one, such as a JAX int8 tree carried across, gives a module whose
     linears are int8); otherwise draws random weights from `seed` (on the
     CPU, so every device gets the same weights). Runs on CUDA unless
-    `device` says otherwise.
+    `device` says otherwise. "vit_h", "vit_l" and "vit_b" (or a
+    `SamViTConfig`) build Segment Anything (`models/vit.py`).
     """
     device = default_device(device)
     if cfg is None:
-        cfg = model_config(variant)
-    module = base.SAM2Base(cfg)
+        cfg = sam_vit_config(variant) if is_vit_variant(variant) else model_config(variant)
+    module = vit.SamViT(cfg) if isinstance(cfg, SamViTConfig) else base.SAM2Base(cfg)
     if checkpoint_path is not None:
         from sam2_opt_tpu_torch.io.weights import load_checkpoint
 

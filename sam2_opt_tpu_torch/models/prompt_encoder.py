@@ -73,12 +73,13 @@ class PromptEncoder(nn.Module):
         """Dense positional encoding [1,C,H,W] (reference prompt_encoder.py:113)."""
         return posenc.random_fourier_grid(self._gaussian, *embed_size).permute(2, 0, 1)[None]
 
-    def forward(self, coords, labels, mask_input=None):
-        """Returns (sparse [B,P+1,C], dense [B,C,64,64]). `coords`/`labels`
-        are always present (callers pad with one -1 point when there are no
+    def forward(self, coords, labels, mask_input=None, pad: bool = True):
+        """Returns (sparse [B,P+1,C], dense [B,C,64,64]; [B,P,C] without
+        `pad`, SAM's layout when a box is given). `coords`/`labels` are
+        always present (callers pad with one -1 point when there are no
         clicks); a box is two corner points with labels 2/3."""
         cfg = self.cfg
-        sparse = self.embed_points(coords, labels, (cfg.image_size, cfg.image_size))
+        sparse = self.embed_points(coords, labels, (cfg.image_size, cfg.image_size), pad=pad)
         if mask_input is not None:
             dense = self.embed_masks(mask_input)
         else:

@@ -13,6 +13,10 @@ size divides by the "data" axis is split over it: each rank encodes its
 images and the features are all-gathered, and `predict_batch` decodes each
 rank's images and all-gathers the outputs, so every rank returns the whole
 batch's, as the JAX predictor returns its global arrays.
+
+On a Segment Anything ViT model (`models/vit.py`) it is SAM's predictor:
+the transforms of the image, the prompts and the masks are chosen once, at
+construction (`Sam2Frame`, `SamFrame`). Such a model takes no mesh.
 """
 
 from __future__ import annotations
@@ -22,9 +26,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
-from sam2_opt_tpu_torch.config import SAM2Config
+from sam2_opt_tpu_torch.config import SAM2Config, SamViTConfig
 from sam2_opt_tpu_torch.models.model import SAM2Model
+from sam2_opt_tpu_torch.models.sam2_base import resize_hw
+from sam2_opt_tpu_torch.models.vit import preprocess_shape
+from sam2_opt_tpu_torch.ops import common as ops
 from sam2_opt_tpu_torch.parallel import mesh as mesh_lib
 from sam2_opt_tpu_torch.utils import profiling
 from sam2_opt_tpu_torch.utils.transforms import postprocess_masks, resize_to_model
@@ -40,12 +48,89 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+class Sam2Frame:
+    """SAM 2's transforms (reference sam2/utils/transforms.py): the image
+    resized to S x S, prompts scaled to S, the low-res logits clamped to
+    +-32, the masks hole- and sprinkle-filled, then resized to the image."""
+
+    pad_with_box = True  # the padding point follows a box too
+
+    def __init__(self, cfg: SAM2Config):
+        self.size = cfg.image_size
+
+    def to_model(self, x):
+        """float [B,3,H,W] in [0,1] -> [B,3,S,S] (torchvision Resize 1024²,
+        sam2_image_predictor.py:193; the model normalizes)."""
+        return resize_to_model(x, self.size)
+
+    def features(self, out):
+        """The encoder seam's output -> (hrf0, hrf1, embed)."""
+        return out
+
+    def model_frame(self, orig_hw):
+        """(x, y) factors from coordinates normalized over the image to the
+        model's frame."""
+        return self.size
+
+    def low_res(self, masks):
+        return masks.clamp(-32.0, 32.0)
+
+    def postprocess(self, masks, orig_hw, mask_threshold, max_hole_area, max_sprinkle_area):
+        return postprocess_masks(masks, orig_hw, mask_threshold, max_hole_area,
+                                 max_sprinkle_area)
+
+
+class SamFrame:
+    """SAM's transforms (segment_anything/predictor.py, utils/transforms.py
+    `ResizeLongestSide`): the long side resized to S (bilinear with
+    antialias, in float), the image normalized and zero-padded at the bottom
+    and right to S x S, prompts scaled per axis to the resized image, no
+    padding point when a box is given, and the low-res logits, unclamped,
+    upsampled to S x S, cropped to the resized image and upsampled to the
+    original (modeling/sam.py `postprocess_masks`); no hole filling."""
+
+    pad_with_box = False
+
+    def __init__(self, cfg: SamViTConfig):
+        self.size = cfg.image_size
+        self.mean = torch.tensor(cfg.pixel_mean)[:, None, None] / 255.0
+        self.std = torch.tensor(cfg.pixel_std)[:, None, None] / 255.0
+
+    def to_model(self, x):
+        S = self.size
+        h, w = preprocess_shape(x.shape[-2], x.shape[-1], S)
+        if (h, w) != tuple(x.shape[-2:]):
+            x = ops.interpolate(x, (h, w), "bilinear", antialias=True)
+        x = (x - self.mean.to(x.device)) / self.std.to(x.device)
+        return F.pad(x, (0, S - w, 0, S - h))
+
+    def features(self, embed):
+        return None, None, embed
+
+    def model_frame(self, orig_hw):
+        h, w = preprocess_shape(*orig_hw, self.size)
+        return np.asarray([w, h], np.float32)
+
+    def low_res(self, masks):
+        return masks
+
+    def postprocess(self, masks, orig_hw, mask_threshold, max_hole_area, max_sprinkle_area):
+        S = self.size
+        h, w = preprocess_shape(*orig_hw, S)
+        masks = resize_hw(masks.float(), (S, S), "bilinear")[..., :h, :w]
+        return resize_hw(masks, tuple(orig_hw), "bilinear")
+
+
 class SAM2ImagePredictor:
     def __init__(self, sam_model: SAM2Model, mask_threshold: float = 0.0,
                  max_hole_area: float = 0.0, max_sprinkle_area: float = 0.0,
                  mesh=None) -> None:
         self.model = sam_model
         self.mesh = mesh
+        sam_vit = isinstance(sam_model.cfg, SamViTConfig)
+        if sam_vit and mesh is not None:
+            raise ValueError("a Segment Anything ViT model runs on one device: no mesh")
+        self._frame = SamFrame(sam_model.cfg) if sam_vit else Sam2Frame(sam_model.cfg)
         if mesh is not None:
             sam_model.shard(mesh)
         self.mask_threshold = mask_threshold
@@ -84,13 +169,12 @@ class SAM2ImagePredictor:
     # set_image / set_image_batch
 
     def _resize_to_model(self, images: np.ndarray) -> torch.Tensor:
-        """uint8/float [B,H,W,3] -> float [B,3,S,S] in [0,1] on the device
-        (reference: torchvision Resize 1024² + /255, sam2_image_predictor.py:193)."""
+        """uint8/float [B,H,W,3] -> float [B,3,S,S] on the device, /255 and
+        then the frame's transform."""
         with profiling.span("image.upload"):
             x = torch.as_tensor(np.asarray(images), device=self.device)
         with profiling.span("image.resize"):
-            x = x.permute(0, 3, 1, 2).float() / 255.0
-            return resize_to_model(x, self.cfg.image_size)
+            return self._frame.to_model(x.permute(0, 3, 1, 2).float() / 255.0)
 
     def set_image(self, image) -> None:
         """image: np.ndarray HWC (RGB, 0-255) or PIL Image. With the tracer
@@ -131,7 +215,7 @@ class SAM2ImagePredictor:
             feats = self.model.encode_image_e2e(mesh_lib.data_sharded(self.mesh, x))
             hrf0, hrf1, embed = (mesh_lib.all_gather_rows(self.mesh, f) for f in feats)
         else:
-            hrf0, hrf1, embed = self.model.encode_image_e2e(x)
+            hrf0, hrf1, embed = self._frame.features(self.model.encode_image_e2e(x))
         self._features = {"image_embed": embed, "high_res_feats": [hrf0, hrf1]}
         self._is_image_set = True
 
@@ -147,7 +231,7 @@ class SAM2ImagePredictor:
             if normalize_coords:
                 h, w = self._orig_hw[img_idx]
                 coords = coords / np.asarray([w, h], np.float32)
-            unnorm_coords = coords * self.cfg.image_size
+            unnorm_coords = coords * self._frame.model_frame(self._orig_hw[img_idx])
             labels = np.asarray(point_labels, np.int32)
             if unnorm_coords.ndim == 2:
                 unnorm_coords, labels = unnorm_coords[None], labels[None]
@@ -156,7 +240,7 @@ class SAM2ImagePredictor:
             if normalize_coords:
                 h, w = self._orig_hw[img_idx]
                 b = b / np.asarray([w, h], np.float32)
-            unnorm_box = b * self.cfg.image_size
+            unnorm_box = b * self._frame.model_frame(self._orig_hw[img_idx])
         if mask_logits is not None:
             mask_input = np.asarray(mask_logits, np.float32)
             if mask_input.ndim == 3:
@@ -230,23 +314,26 @@ class SAM2ImagePredictor:
 
         feats = self._features
         sel = (lambda t: t[img_idx][None]) if img_idx >= 0 else (lambda t: t)
+        hrf = feats["high_res_feats"]
         low_res_masks, ious = self.model.predict_masks(
-            sel(feats["image_embed"]), sel(feats["high_res_feats"][0]),
-            sel(feats["high_res_feats"][1]), concat_coords, concat_labels,
-            mask_input=mask_input, multimask_output=multimask_output)
+            sel(feats["image_embed"]), None if hrf[0] is None else sel(hrf[0]),
+            None if hrf[1] is None else sel(hrf[1]), concat_coords, concat_labels,
+            mask_input=mask_input, multimask_output=multimask_output,
+            pad=boxes is None or self._frame.pad_with_box)
 
         with profiling.span("predict.postprocess"):
             masks = self.postprocess_masks(low_res_masks, self._orig_hw[img_idx])
-            low_res_masks = low_res_masks.clamp(-32.0, 32.0)
+            low_res_masks = self._frame.low_res(low_res_masks)
             if not return_logits:
                 masks = masks > self.mask_threshold
         return masks, ious, low_res_masks
 
     def postprocess_masks(self, masks, orig_hw):
-        """Hole and sprinkle filling, then resize to the original resolution
-        (reference utils/transforms.py:78-120)."""
-        return postprocess_masks(masks, orig_hw, self.mask_threshold, self.max_hole_area,
-                                 self.max_sprinkle_area)
+        """Low-res logits to the original resolution, by the frame (SAM 2's:
+        hole and sprinkle filling, then the resize; reference
+        utils/transforms.py:78-120)."""
+        return self._frame.postprocess(masks, orig_hw, self.mask_threshold, self.max_hole_area,
+                                       self.max_sprinkle_area)
 
     def get_image_embedding(self):
         if not self._is_image_set:

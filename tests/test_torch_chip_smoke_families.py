@@ -28,6 +28,7 @@ EXPECTED = [
     ("flash_kvproj_", "K4 flash_attention_kv_proj (csrc)"),
     ("flash_rope_", "K2 flash_attention_rope (csrc)"),
     ("flash_fwd_", "K1 flash_attention (csrc)"),
+    ("flash_relpos_", "relpos flash_attention (csrc)"),  # SAM's ViT; replaces no TPU kernel
     ("add_layer_norm_", "add_layer_norm (csrc)"),  # the trunk's; replaces no TPU kernel
 ]
 

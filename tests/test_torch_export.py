@@ -76,6 +76,8 @@ def _op_cases(device):
     nshd = [r(3, 16, 2, 8, grad=True) for _ in range(3)]
     mlp_dtype = torch.bfloat16 if device == "cuda" else torch.float32
     mlp = [r(*s, grad=True, dtype=mlp_dtype) for s in ((5, 16), (32, 16), (32,), (16, 32), (16,))]
+    # SAM ViT's attention over a 2 x 8 grid (bf16 on the card, its kernel's only form)
+    relpos = [r(*s, dtype=mlp_dtype) for s in ((1, 2, 16, 64),) * 3 + ((3, 64), (15, 64))]
     return {
         "flash_attention": (q, k, v, mask),
         "flash_attention_rope": (q, k, v, cos, sin, mask),
@@ -94,6 +96,7 @@ def _op_cases(device):
         "add_layer_norm": (r(2, 5, 6, 16, dtype=torch.bfloat16), r(8, 4, 4, 16, dtype=torch.bfloat16),
                            r(16, dtype=torch.bfloat16), r(16, dtype=torch.bfloat16), 1e-6,
                            [4, 8, 8], [4, 8, 8]),
+        "flash_attention_relpos": tuple(relpos),
     }
 
 
@@ -102,10 +105,10 @@ OPS = sorted(_op_cases("cpu"))
 
 def test_every_kernel_wrapper_is_an_operator():
     """The 13 launch wrappers of K1-K10 (K2's rotation and K4's projection
-    included) and the trunk's `add_layer_norm` are operators of one
-    namespace, each with its plain version on the CPU and its kernel on the
-    card."""
-    assert len(OPS) == 14
+    included), the trunk's `add_layer_norm` and SAM ViT's relative-position
+    attention are operators of one namespace, each with its plain version on
+    the CPU and its kernel on the card."""
+    assert len(OPS) == 15
     for name in OPS:
         op = getattr(torch.ops.sam2_opt_tpu_torch, name).default
         assert op.has_kernel_for_dispatch_key(torch._C.DispatchKey.CPU)
